@@ -1,0 +1,228 @@
+"""The port's TimeSformer slice against the JAX package's, on the CPU.
+
+A tiny divided space-time TimeSformer (2 layers, D=64, 4 heads, 4 frames,
+img 128: 65 spatial tokens, so the JAX fused-MHSA path engages) with every
+parameter perturbed from a numpy seed (``temporal_fc`` nonzero). The JAX
+model runs on its XLA path and on its Pallas path in interpret mode.
+Tolerances: fp32 logits within 1e-4 · max|ref| (summation order only); bf16
+within 5e-2 · max|ref| (bf16 rounds at slightly different points in flax's
+modules and the port, compounded over two blocks).
+
+Also: the converter against ``flax_to_torch_state_dict``, and the whole
+slice in a subprocess where jax and flax cannot be imported."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from videotransformer_tpu import config as vt_config
+from videotransformer_tpu.models.convert import flax_to_torch_state_dict
+from videotransformer_tpu.models.timesformer import TimeSformer as JTimeSformer
+from videotransformer_tpu.ops.blocks import ClassificationHead as JHead
+from videotransformer_tpu.serving.export import flatten_params
+from videotransformer_tpu_torch.models.convert import (
+    jax_flat_to_state_dict, split_artifact_params)
+from videotransformer_tpu_torch.models.timesformer import (
+    TimeSformer, get_vit_base_patch16_224)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dict(num_frames=4, img_size=128, patch_size=16, embed_dims=64,
+           num_heads=4, num_transformer_layers=2)
+
+
+def _jax_model(dtype=jnp.float32):
+    return JTimeSformer(**CFG, drop_path_rate=0.0, dtype=dtype)
+
+
+def _jax_params(seed=0):
+    vt_config.set_attention_backend("xla")
+    try:
+        params = jax.jit(_jax_model().init)(
+            jax.random.PRNGKey(seed),
+            jnp.zeros((1, 4, 3, 128, 128)))["params"]
+    finally:
+        vt_config.set_attention_backend("auto")
+    rng = np.random.RandomState(seed)
+    return jax.tree.map(
+        lambda a: np.asarray(a) + rng.randn(*a.shape).astype(np.float32) * 0.05,
+        params)
+
+
+def _port_model(params):
+    model = TimeSformer(**CFG)
+    model.load_state_dict(
+        {k: torch.from_numpy(v)
+         for k, v in jax_flat_to_state_dict(flatten_params(params)).items()},
+        strict=True)
+    return model.eval()
+
+
+@pytest.fixture(scope="module")
+def slice_case():
+    params = _jax_params()
+    clip = np.random.RandomState(1).randn(1, 4, 3, 128, 128).astype(np.float32)
+    return params, clip
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_slice_matches_jax(slice_case, backend, dtype):
+    params, clip = slice_case
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    model = _jax_model(jdt)
+    vt_config.set_attention_backend(backend)
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            want = jax.jit(lambda p, x: model.apply({"params": p}, x))(
+                params, jnp.asarray(clip, jdt))
+    finally:
+        vt_config.set_attention_backend("auto")
+    want = np.asarray(want.astype(jnp.float32))
+    port = _port_model(params).to(getattr(torch, dtype))
+    with torch.no_grad():
+        got = port(torch.from_numpy(clip).to(getattr(torch, dtype)))
+    got = got.float().numpy()
+    assert got.shape == want.shape == (1, 64)
+    assert np.isfinite(got).all()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= tol, err
+
+
+def test_temporal_fc_reaches_the_output(slice_case):
+    """With temporal_fc zeroed the logits change: the temporal attention
+    (the kernel's block-diagonal mode) is not hidden by the zero init."""
+    params, clip = slice_case
+    model = _port_model(params)
+    with torch.no_grad():
+        full = model(torch.from_numpy(clip))
+        for layer in model.transformer_layers.layers:
+            layer.attentions[0].temporal_fc.weight.zero_()
+            layer.attentions[0].temporal_fc.bias.zero_()
+        cut = model(torch.from_numpy(clip))
+    assert (full - cut).abs().max() > 1e-2
+
+
+def test_converter_matches_flax_to_torch_state_dict(slice_case):
+    params, _ = slice_case
+    head = JHead(10, 64)
+    hparams = head.init(jax.random.PRNGKey(4), jnp.zeros((1, 64)))["params"]
+    want = flax_to_torch_state_dict(params)
+    want_head = flax_to_torch_state_dict(hparams)
+    npz = {f"model/{k}": v for k, v in flatten_params(params).items()}
+    npz.update({f"head/{k}": v for k, v in flatten_params(hparams).items()})
+    got, got_head = split_artifact_params(npz)
+    for g, w in ((got, want), (got_head, want_head)):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            assert g[k].dtype == np.float32
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    TimeSformer(**CFG).load_state_dict(
+        {k: torch.from_numpy(v) for k, v in got.items()}, strict=True)
+    assert set(got_head) == {"cls_head.weight", "cls_head.bias"}
+
+
+def test_vit_base_builder_has_the_reference_names():
+    with torch.device("meta"):
+        model = get_vit_base_patch16_224(num_frames=8)
+    sd = model.state_dict()
+    assert sd["pos_embed"].shape == (1, 197, 768)
+    assert sd["time_embed"].shape == (1, 8, 768)
+    assert sd["patch_embed.projection.weight"].shape == (768, 3, 16, 16)
+    assert "transformer_layers.layers.11.ffns.0.layers.0.0.weight" in sd
+    assert "transformer_layers.layers.11.attentions.0.temporal_fc.weight" in sd
+    assert "transformer_layers.layers.11.attentions.1.temporal_fc.weight" \
+        not in sd
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(attention_type="space_only"), "not ported"),
+    (dict(attention_type="joint_space_time"), "not ported"),
+])
+def test_unported_options_raise(kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        TimeSformer(**{**CFG, **kwargs})
+
+
+def test_other_resolution_raises():
+    model = TimeSformer(**CFG)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="native resolution"):
+        model(torch.zeros(1, 4, 3, 96, 96))
+
+
+def test_port_never_imports_jax():
+    """No module of the port, nor chip_smoke.py, imports jax, flax or any
+    module of the JAX package."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               "videotransformer_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    banned = ("jax", "flax")
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in banned, f"{path} imports {m}"
+                assert top != "videotransformer_tpu", (
+                    f"{path} imports {m}, a module of the JAX package")
+
+
+def test_slice_runs_with_jax_and_flax_blocked():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        sys.modules["videotransformer_tpu"] = None
+        import numpy as np, torch
+        import chip_smoke
+        from videotransformer_tpu_torch.data.transforms import (
+            eval_transform_clip)
+        from videotransformer_tpu_torch.models.timesformer import TimeSformer
+        from videotransformer_tpu_torch.ops.blocks import ClassificationHead
+        from videotransformer_tpu_torch.serving.predictor import TorchPredictor
+        from videotransformer_tpu_torch.serving.server import InferenceServer
+        from videotransformer_tpu_torch.tools.demo_inference import load_clip
+        g = torch.Generator().manual_seed(0)
+        model = TimeSformer(num_frames=4, img_size=128, embed_dims=64,
+                            num_heads=4, num_transformer_layers=2)
+        model.reset_parameters(g)
+        head = ClassificationHead(10, 64)
+        head.reset_parameters(g)
+        manifest = {"num_frames": 4, "num_class": 10, "img_size": 128,
+                    "n_crops": 3, "buckets": [1, 2]}
+        pred = TorchPredictor(model, head, manifest, "cpu",
+                              dtype=torch.float32)
+        frames = np.random.RandomState(0).randint(
+            0, 256, (4, 160, 200, 3), dtype=np.uint8)
+        clip = eval_transform_clip(frames, (0.45,) * 3, (0.225,) * 3, 128)
+        out = pred(clip[None])
+        assert out.shape == (1, 10) and np.isfinite(out).all(), out
+        blocked = ("jax", "flax", "videotransformer_tpu")
+        assert all(sys.modules.get(m) is None for m in blocked)
+        assert not [m for m in sys.modules
+                    if m.startswith("videotransformer_tpu.")]
+        print("OK", out.shape)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "OK (1, 10)" in proc.stdout

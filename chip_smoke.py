@@ -1,26 +1,37 @@
 """Smoke run of the PyTorch/CUDA port (videotransformer_tpu_torch) on one
-NVIDIA GPU: builds the hand-written kernels from csrc/, holds each against
-its plain PyTorch version at the main path's shapes, drives TimeSformer-B/16
-(divided space-time, 8x224, 400 classes, bf16, random weights from a seed)
-through the predictor and the dynamic-batching server, and checks that the
-main path ran through the kernels.
+NVIDIA GPU: builds the hand-written kernels from csrc/ (four libraries, one
+nvcc each, all started together), holds each against its plain PyTorch
+version at the main paths' shapes, and drives the two main paths at
+TimeSformer-B/16's full width (divided space-time, 8x224, 12 layers, 400
+classes, random weights from a seed):
+
+- serving: the predictor and the dynamic-batching server, bf16;
+- training: three supervised AdamW steps of the trainer on a batch of 8
+  clips (fp32 parameters, bf16 compute, DropPath 0.1), repeated from the
+  same state with the plain versions patched in.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after, and must have gone through its kernels.
 
     python3 chip_smoke.py
 
 Needs a CUDA card, nvcc (CUDA_HOME, default /usr/local/cuda) and nothing
 else outside this checkout. Any failure raises and exits non-zero. The line
-before the last is the kernel report: for each kernel its launches in the
-main path's run (the slice forward, the server's warm-up and its requests)
-and in one forward, its worst error, and "ms"/"plain_ms", the CUDA-event
-time of its calls in one TimeSformer block at the main path's shapes, with
-each measured phase under "phases". The last line is
-{"ok": true, "device": {...}}.
+before the last is the kernel report: for each kernel its launches in each
+main path's run and per forward or step, its worst error, and
+"ms"/"plain_ms", the CUDA-event time of its calls in one TimeSformer block
+at the main path's shapes, with each measured phase under "phases". The
+last line is {"ok": true, "device": {...}}. The whole run took 50-66 s of
+command time on an H100 (the four builds included), so no path runs at a
+cut depth.
 """
 
 import json
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -28,6 +39,7 @@ import torch
 
 from videotransformer_tpu_torch.data.transforms import eval_transform_clip
 from videotransformer_tpu_torch.kernels import _build, fused_ffn, fused_mhsa
+from videotransformer_tpu_torch.models import convert
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import (
     get_vit_base_patch16_224)
@@ -35,6 +47,7 @@ from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, make_predict_fn)
 from videotransformer_tpu_torch.serving.server import InferenceServer
+from videotransformer_tpu_torch.training import trainer as trainer_mod
 
 SEED = 0
 D, HEADS, FRAMES, IMG, CLASSES, DEPTH = 768, 12, 8, 224, 400, 12
@@ -45,6 +58,14 @@ SERVER_REL_TOL = 1e-4  # batched vs single-clip forwards: same kernels, same
                        # roundings; only the patch embed's cuBLAS algorithm
                        # may change with the batch
 MEAN, STD = (0.45,) * 3, (0.225,) * 3
+TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR, TRAIN_WD = 8, 3, 1e-4, 0.05
+# kernels vs plain versions, per train step: bf16 rounding flips through 12
+# blocks and back, compounded by the updates. Two H100 runs showed at most
+# 4.6e-3 (loss) and 8.4e-3 (grad norm, step 3); the bounds leave about 2x
+# and 3.5x.
+LOSS_REL_TOL = 1e-2
+NORM_REL_TOL = 3e-2
+LIBRARIES = ("fused_mhsa", "fused_ffn", "fused_mhsa_bwd", "fused_ffn_bwd")
 
 
 def log(*a):
@@ -130,13 +151,84 @@ def kernel_phases(rng):
     return report
 
 
+def backward_phases(rng):
+    """Each backward kernel at a train-step shape (batch of 8 clips) against
+    its plain backward run in fp32 from the same bf16 inputs: every output
+    gradient within KERNEL_REL_TOL of max|plain| of that gradient. Times in
+    turns (plain, kernel, kernel, plain): B3 alone (``_attn_bwd_launch``
+    against ``_attn_bwd_reference``; the projection products around it are
+    torch.matmul in both), B4 whole."""
+    H4 = 4 * D
+    phases = [
+        ("fused_prenorm_mhsa_bwd", "dense spatial (64, 197, 768)",
+         (64, 197, D), 0),
+        ("fused_prenorm_mhsa_bwd", "block-diagonal temporal (1568, 8, 768)",
+         (1568, 8, D), 8),
+        ("fused_prenorm_ffn_bwd", "rows (12552, 768), hidden 3072",
+         (12552, D), None),
+    ]
+    report = []
+    for name, label, shape, block_diag in phases:
+        x = bf16_on_card(rng, shape, 1.0)
+        g = bf16_on_card(rng, shape, 1.0)
+        ln = [bf16_on_card(rng, (D,), 0.1, 1.0), bf16_on_card(rng, (D,), 0.1)]
+        if block_diag is not None:
+            w = [bf16_on_card(rng, (3 * D, D), 0.02),
+                 bf16_on_card(rng, (3 * D,), 0.02),
+                 bf16_on_card(rng, (D, D), 0.02), bf16_on_card(rng, (D,), 0.02)]
+            cfg = (HEADS, (D // HEADS) ** -0.5, 1e-5, False, block_diag)
+            _, qkv, attn = fused_mhsa._launch(x, *ln, *w, *cfg)
+            args = (g, x, qkv, attn, ln[0], ln[1], w[0], w[2])
+            kernel_all = lambda: fused_mhsa._launch_backward(*args, *cfg)
+            plain_all = fused_mhsa.fused_prenorm_mhsa_backward_reference
+            do = (g.float().reshape(-1, D) @ w[2].float()).to(torch.bfloat16)
+            core = (x, qkv, do, None, ln[0], w[0], *cfg[:3], block_diag)
+            kernel = lambda: fused_mhsa._attn_bwd_launch(*core)
+            plain = lambda: fused_mhsa._attn_bwd_reference(*core)
+            tail = cfg
+        else:
+            w = [bf16_on_card(rng, (H4, D), 0.02), bf16_on_card(rng, (H4,), 0.02),
+                 bf16_on_card(rng, (D, H4), 0.02), bf16_on_card(rng, (D,), 0.02)]
+            _, h_pre = fused_ffn._launch(x, *ln, *w, 1e-5, True)
+            args = (g, x, h_pre, ln[0], ln[1], w[0], w[2])
+            tail = (1e-5,)
+            kernel_all = kernel = lambda: fused_ffn._launch_backward(*args,
+                                                                   *tail)
+            plain_all = fused_ffn.fused_prenorm_ffn_backward_reference
+            plain = lambda: plain_all(*args, *tail)
+        got = kernel_all()
+        torch.cuda.synchronize()
+        want = plain_all(*[a.float() for a in args], *tail)
+        abs_err = rel_err = 0.0
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all(), label
+            e = (a.float() - b).abs().max().item()
+            abs_err = max(abs_err, e)
+            rel_err = max(rel_err, e / b.abs().max().item())
+        assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
+        p1, k1, k2, p2 = (timed_ms(plain, iters=5, warmup=1),
+                          timed_ms(kernel), timed_ms(kernel),
+                          timed_ms(plain, iters=5, warmup=1))
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        whole = timed_ms(kernel_all, iters=10)
+        log(f"kernel {name} [{label}]: worst max|kernel-plain|/max|plain| "
+            f"over the gradients = {rel_err:.3e} (tol {KERNEL_REL_TOL}), "
+            f"max abs {abs_err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; whole backward call {whole:.4f} ms")
+        report.append({"name": name, "phase": label, "on_path": True,
+                       "max_abs_err": abs_err, "rel_err": rel_err, "ms": ms,
+                       "plain_ms": plain_ms})
+        del x, g, w, got, want
+    return report
+
+
 # ---------------------------------------------------------------- profile
 
-def profile_forward(forward, event_ms, n=3):
-    """Device kernels of ``n`` forwards under ``torch.profiler``: device ms
-    per forward for each kernel name, the device's busy share between the
-    first kernel's start and the last kernel's end, and the summed kernel
-    time over ``event_ms`` (one forward by CUDA events, unprofiled)."""
+def profile_forward(forward, event_ms, n=3, what="forward"):
+    """Device kernels of ``n`` calls of ``forward`` under ``torch.profiler``:
+    device ms per call for each kernel name, the device's busy share between
+    the first kernel's start and the last kernel's end, and the summed
+    kernel time over ``event_ms`` (one call by CUDA events, unprofiled)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -166,13 +258,13 @@ def profile_forward(forward, event_ms, n=3):
         per_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
                             / 1e3 / n, calls + 1)
     summed = sum(ms for ms, _ in per_name.values())
-    log(f"profile ({n} forwards): device kernel time {summed:.3f} ms per "
-        f"forward against {event_ms:.3f} ms by CUDA events unprofiled "
+    log(f"profile ({n} x {what}): device kernel time {summed:.3f} ms per "
+        f"{what} against {event_ms:.3f} ms by CUDA events unprofiled "
         f"(ratio {summed / event_ms:.3f}); busy share of the traced device "
         f"span {busy / (last - first):.4f}, idle share "
         f"{1 - busy / (last - first):.4f}")
     for name, (ms, calls) in sorted(per_name.items(),
-                                    key=lambda kv: -kv[1][0])[:16]:
+                                    key=lambda kv: -kv[1][0])[:24]:
         log(f"  {ms:9.3f} ms  {calls // n:4d} calls  {name[:110]}")
 
 
@@ -226,6 +318,124 @@ def build_slice(rng):
                 "input_mode": "clips"}
     # weights are cast once, here, to bf16 on the card; the head stays fp32
     return TorchPredictor(model, head, manifest, "cuda", torch.bfloat16)
+
+
+# ---------------------------------------------------------------- training
+
+KERNEL_COUNTERS = ((fused_mhsa, "LAUNCHES"), (fused_ffn, "LAUNCHES"),
+                   (fused_mhsa, "BWD_LAUNCHES"), (fused_ffn, "BWD_LAUNCHES"))
+KERNEL_NAMES = ("fused_prenorm_mhsa", "fused_prenorm_ffn",
+                "fused_prenorm_mhsa_bwd", "fused_prenorm_ffn_bwd")
+
+
+def reset_counts():
+    for mod, attr in KERNEL_COUNTERS:
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {n: getattr(mod, attr)
+            for n, (mod, attr) in zip(KERNEL_NAMES, KERNEL_COUNTERS)}
+
+
+def trainer_tree(flat):
+    """The artifact-form params ({"model/a/b": array, "head/...": ...}) as
+    the JAX trainer's parameter tree {"model": ..., "cls_head": ...}."""
+    tree = convert.unflatten_tree(flat)
+    return {"model": tree["model"], "cls_head": tree["head"]}
+
+
+def train_configs():
+    """The JAX trainer's TimeSformer default: supervised, AdamW, per-param
+    clip 1.0, fp32 parameters with bf16 compute, DropPath 0.1."""
+    return SimpleNamespace(
+        objective="supervised", arch="timesformer",
+        attention_type="divided_space_time", num_class=CLASSES,
+        num_frames=FRAMES, img_size=IMG, optim_type="adamw", clip_grad=1.0,
+        seed=SEED, mixup=False, use_fp16=True, drop_path_rate=0.1)
+
+
+def run_train_steps(tree, batch):
+    """TRAIN_STEPS steps of a fresh trainer from ``tree``: per step the
+    stats, the kernel launches and the CUDA-event ms."""
+    tr = trainer_mod.VideoTransformerTrainer(train_configs(), "cuda",
+                                             params=tree)
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = tr.train_step(batch, TRAIN_LR, TRAIN_WD)
+        end.record()
+        end.synchronize()
+        steps.append({"loss": float(stats["loss"]),
+                      "grad_norm": float(stats["grad_norm"]),
+                      "launches": read_counts(),
+                      "ms": start.elapsed_time(end)})
+    return tr, steps
+
+
+def plain_versions():
+    """Every kernel wrapper's launch replaced by its plain version, inside
+    the same autograd.Functions."""
+    return [mock.patch.object(fused_mhsa, "_launch",
+                              fused_mhsa._forward_reference),
+            mock.patch.object(fused_mhsa, "_launch_backward",
+                              fused_mhsa.fused_prenorm_mhsa_backward_reference),
+            mock.patch.object(fused_ffn, "_launch",
+                              lambda *a: fused_ffn._forward_reference(*a[:-1])),
+            mock.patch.object(fused_ffn, "_launch_backward",
+                              fused_ffn.fused_prenorm_ffn_backward_reference)]
+
+
+def train_slice(rng, card):
+    """The training main path: three steps through the kernels (counts
+    from 0 per step), the same three from the same state through the plain
+    versions, then a profile of one more step."""
+    tree = trainer_tree(jax_style_params(rng))
+    batch = {"video": rng.standard_normal(
+        (TRAIN_CLIPS, FRAMES, 3, IMG, IMG), dtype=np.float32),
+        "label": rng.integers(0, CLASSES, TRAIN_CLIPS)}
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    tr, steps = run_train_steps(tree, batch)
+    launches = {n: sum(st["launches"][n] for st in steps)
+                for n in KERNEL_NAMES}
+    patches = plain_versions()
+    for p in patches:
+        p.start()
+    try:
+        _, plain = run_train_steps(tree, batch)
+    finally:
+        for p in patches:
+            p.stop()
+    want = {"fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
+            "fused_prenorm_mhsa_bwd": 2 * DEPTH,
+            "fused_prenorm_ffn_bwd": DEPTH}
+    for i, (k, p) in enumerate(zip(steps, plain)):
+        dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        dn = abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
+        log(f"train step {i}: loss {k['loss']:.6f} (plain {p['loss']:.6f}, "
+            f"rel {dl:.2e}, tol {LOSS_REL_TOL}), grad_norm "
+            f"{k['grad_norm']:.6f} (plain {p['grad_norm']:.6f}, rel "
+            f"{dn:.2e}, tol {NORM_REL_TOL}); {k['ms']:.2f} ms (plain "
+            f"{p['ms']:.2f} ms); launches {k['launches']}")
+        assert np.isfinite([k["loss"], k["grad_norm"], p["loss"],
+                            p["grad_norm"]]).all(), (k, p)
+        assert dl <= LOSS_REL_TOL and dn <= NORM_REL_TOL, (i, dl, dn)
+        assert k["launches"] == want, (i, k["launches"])
+        assert not any(p["launches"].values()), p["launches"]
+    steady = [st["ms"] for st in steps[1:]]
+    ms = sum(steady) / len(steady)
+    log(f"train slice: {TRAIN_CLIPS} clips a step, {ms:.2f} ms per step "
+        f"(mean of steps 2-{TRAIN_STEPS}; step 1 {steps[0]['ms']:.2f} ms), "
+        f"{TRAIN_CLIPS / ms * 1e3:.2f} clips/s on {card}; plain versions "
+        f"{sum(p['ms'] for p in plain[1:]) / len(steady):.2f} ms per step; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_forward(lambda: tr.train_step(batch, TRAIN_LR, TRAIN_WD), ms,
+                    n=2, what="train step")
+    return launches
 
 
 def seeded_clip(rng):
@@ -290,8 +500,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    for name in ("fused_mhsa", "fused_ffn"):
-        _build.build(name)
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc each
+        list(pool.map(_build.build, LIBRARIES))
+    for name in LIBRARIES:
         summary = [ln.strip() for ln in _build.build_log(name).splitlines()
                    if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
         log(f"ptxas -v ({name}):\n  " + "\n  ".join(summary))
@@ -299,7 +510,7 @@ def main():
 
     rng = np.random.default_rng(SEED)
     with torch.inference_mode():
-        report = kernel_phases(rng)
+        report = kernel_phases(rng) + backward_phases(rng)
 
         predictor = build_slice(rng)
         clips = np.stack([seeded_clip(rng) for _ in range(CLIPS)])
@@ -308,20 +519,22 @@ def main():
                                   CROPS)
         requests = [seeded_clip(rng) for _ in range(6)]
 
-        # ---- the main path: counts from 0, the slice forward, the server
-        fused_mhsa.LAUNCHES = fused_ffn.LAUNCHES = 0
+        # ---- the serving path: counts from 0, the slice forward, the server
+        reset_counts()
         logits = predict(batch)
         torch.cuda.synchronize()
-        slice_counts = (fused_mhsa.LAUNCHES, fused_ffn.LAUNCHES)
+        slice_counts = read_counts()
         predictor.warmup()
         answers, stats = serve_requests(predictor, requests)
-        launches = {"fused_prenorm_mhsa": fused_mhsa.LAUNCHES,
-                    "fused_prenorm_ffn": fused_ffn.LAUNCHES}
+        serve_launches = read_counts()
         # ----
-        log(f"slice forward launches: fused_prenorm_mhsa {slice_counts[0]}, "
-            f"fused_prenorm_ffn {slice_counts[1]}")
-        assert slice_counts == (2 * DEPTH, DEPTH), slice_counts
-        assert all(n > 0 for n in launches.values()), launches
+        log(f"slice forward launches: {slice_counts}")
+        assert slice_counts == {
+            "fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
+            "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": 0}, \
+            slice_counts
+        assert serve_launches["fused_prenorm_mhsa"] > 0 and \
+            serve_launches["fused_prenorm_ffn"] > 0, serve_launches
 
         # the same forward through the plain versions, called directly
         with mock.patch.object(
@@ -349,25 +562,37 @@ def main():
 
         direct = np.stack([predictor(c[None])[0] for c in requests])
     check_server_answers(np.stack(answers), direct, stats)
+    del predictor
 
+    # ---- the training path: counts from 0 before each step (train_slice)
+    train_launches = train_slice(rng, card)
+
+    src, jax_src = "videotransformer_tpu_torch/csrc/", \
+        "videotransformer_tpu/kernels/"
     sources = {
-        "fused_prenorm_mhsa": ("videotransformer_tpu_torch/csrc/fused_mhsa.cu",
-                               "videotransformer_tpu/kernels/"
-                               "fused_mhsa_pallas.py:125"),
-        "fused_prenorm_ffn": ("videotransformer_tpu_torch/csrc/fused_ffn.cu",
-                              "videotransformer_tpu/kernels/"
-                              "fused_ffn_pallas.py:65")}
-    per_forward = dict(zip(sources, slice_counts))
+        "fused_prenorm_mhsa": (src + "fused_mhsa.cu",
+                               jax_src + "fused_mhsa_pallas.py:125"),
+        "fused_prenorm_ffn": (src + "fused_ffn.cu",
+                              jax_src + "fused_ffn_pallas.py:65"),
+        "fused_prenorm_mhsa_bwd": (src + "fused_mhsa_bwd.cu",
+                                   jax_src + "fused_mhsa_pallas.py:288"),
+        "fused_prenorm_ffn_bwd": (src + "fused_ffn_bwd.cu",
+                                  jax_src + "fused_ffn_pallas.py:168")}
     kernels = []
     for name, (source, replaces) in sources.items():
         phases = [{k: e[k] for k in ("phase", "max_abs_err", "rel_err", "ms",
                                      "plain_ms")}
                   for e in report if e["name"] == name]
         on_path = [e for e in report if e["name"] == name and e["on_path"]]
+        by_path = {"serve": serve_launches[name],
+                   "train": train_launches[name]}
+        assert by_path["train"] > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_per_forward": per_forward[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_forward": slice_counts[name],
+            "launches_per_train_step": train_launches[name] // TRAIN_STEPS,
             "max_abs_err": max(e["max_abs_err"] for e in phases),
             "ms": sum(e["ms"] for e in on_path),
             "plain_ms": sum(e["plain_ms"] for e in on_path),

@@ -7,7 +7,8 @@ neither jax nor flax, so they run on a machine that has only PyTorch:
 
 (``--noconftest``: tests/conftest.py sets up jax for the JAX package's tests.)
 The plain version runs in fp32 from the same bf16 inputs; tolerance
-1e-2 · max|plain|, about two bf16 ulps of the output scale."""
+1e-2 · max|plain| for every output (forward, and each gradient of the
+backward kernels), about two bf16 ulps of the output scale."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from videotransformer_tpu_torch.kernels import fused_ffn, fused_mhsa
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
+from videotransformer_tpu_torch.training import trainer as trainer_mod
 
 REL_TOL = 1e-2
 
@@ -116,3 +118,146 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
         gpu = model.to(cuda_device)(clip.to(cuda_device)).float().cpu()
     assert (fused_mhsa.LAUNCHES - m0, fused_ffn.LAUNCHES - f0) == (4, 2)
     assert _rel_err(gpu, cpu) <= 5e-2
+
+
+def _mhsa_bwd_case(rng, B, N, D, H, block_diag, res):
+    """bf16 inputs of one MHSA backward: g, x, the forward's residuals
+    (qkv, attn from the plain forward) and the weights."""
+    x = _bf16(rng, (B, N, D), 1.0)
+    w = [_bf16(rng, (D,), 0.1, 1.0), _bf16(rng, (D,), 0.1),
+         _bf16(rng, (3 * D, D), 0.03), _bf16(rng, (3 * D,), 0.03),
+         _bf16(rng, (D, D), 0.03), _bf16(rng, (D,), 0.03)]
+    cfg = (H, (D // H) ** -0.5, 1e-5, res, block_diag)
+    _, qkv, attn = fused_mhsa._forward_reference(x, *w, *cfg)
+    g = _bf16(rng, (B, N, D), 1.0)
+    ln_w, ln_b, w_qkv, _, w_proj, _ = w
+    return (g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H,block_diag,res", [
+    (3, 65, 64, 4, 0, True),        # head dim 16: the CUDA-core kernel
+    (3, 65, 64, 1, 0, True),        # ragged dense N on the tensor cores
+    (2, 197, 64, 1, 0, False),      # the spatial length
+    (4, 64, 64, 4, 8, False),       # block-diagonal
+    (5, 9, 64, 4, 9, True),         # a length-9 (cls + 8) temporal row
+    (8, 197, 768, 12, 0, False),    # spatial at full width
+    (196, 8, 768, 12, 8, False),    # temporal at full width
+])
+def test_mhsa_backward_kernel_matches_plain(cuda_device, B, N, D, H,
+                                            block_diag, res):
+    rng = np.random.default_rng(N + D + 1)
+    args, cfg = _mhsa_bwd_case(rng, B, N, D, H, block_diag, res)
+    n0 = fused_mhsa.BWD_LAUNCHES
+    got = fused_mhsa._launch_backward(*args, *cfg)
+    torch.cuda.synchronize()
+    assert fused_mhsa.BWD_LAUNCHES == n0 + 1
+    want = fused_mhsa.fused_prenorm_mhsa_backward_reference(
+        *[a.float() for a in args], *cfg)
+    names = ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    again = fused_mhsa._launch_backward(*args, *cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,hidden", [(150, 64, 256), (1000, 768, 3072)])
+def test_ffn_backward_kernel_matches_plain(cuda_device, M, D, hidden):
+    rng = np.random.default_rng(M + 1)
+    x = _bf16(rng, (M, D), 1.0)
+    w = [_bf16(rng, (D,), 0.1, 1.0), _bf16(rng, (D,), 0.1),
+         _bf16(rng, (hidden, D), 0.03), _bf16(rng, (hidden,), 0.03),
+         _bf16(rng, (D, hidden), 0.03), _bf16(rng, (D,), 0.03)]
+    _, h_pre = fused_ffn._forward_reference(x, *w, 1e-5)
+    g = _bf16(rng, (M, D), 1.0)
+    args = (g, x, h_pre, w[0], w[1], w[2], w[4])
+    n0 = fused_ffn.BWD_LAUNCHES
+    got = fused_ffn._launch_backward(*args, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_ffn.BWD_LAUNCHES == n0 + 1
+    want = fused_ffn.fused_prenorm_ffn_backward_reference(
+        *[a.float() for a in args], 1e-5)
+    names = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    again = fused_ffn._launch_backward(*args, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+def test_ffn_forward_saves_h_pre(cuda_device):
+    rng = np.random.default_rng(3)
+    x = _bf16(rng, (300, 64), 1.0)
+    w = [_bf16(rng, (64,), 0.1, 1.0), _bf16(rng, (64,), 0.1),
+         _bf16(rng, (256, 64), 0.03), _bf16(rng, (256,), 0.03),
+         _bf16(rng, (64, 256), 0.03), _bf16(rng, (64,), 0.03)]
+    out, h_pre = fused_ffn._launch(x, *w, 1e-5, True)
+    want_out, want_h = fused_ffn._forward_reference(
+        *[a.float() for a in (x, *w)], 1e-5)
+    assert _rel_err(out, want_out) <= REL_TOL
+    assert _rel_err(h_pre, want_h) <= REL_TOL
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """Two bf16 train steps of a 2-layer D=64 TimeSformer (no DropPath, no
+    mixup) on the card (kernels, forward and backward) and on the CPU
+    (plain versions) from the same parameters: losses within 2e-2 relative
+    (bf16 rounding flips in two blocks and two optimizer steps)."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(trainer_mod, "build_model", lambda c: TimeSformer(
+        num_frames=2, img_size=32, embed_dims=64, num_heads=4,
+        num_transformer_layers=2, drop_path_rate=0.0))
+    cfg = SimpleNamespace(
+        objective="supervised", arch="timesformer",
+        attention_type="divided_space_time", num_class=10, num_frames=2,
+        img_size=32, optim_type="adamw", clip_grad=1.0, seed=0, mixup=False,
+        use_fp16=True)
+    cpu = trainer_mod.VideoTransformerTrainer(cfg, "cpu")
+    card = trainer_mod.VideoTransformerTrainer(cfg, cuda_device,
+                                               params=cpu.params_tree())
+    rng = np.random.default_rng(5)
+    batch = {"video": rng.standard_normal((4, 2, 3, 32, 32),
+                                          dtype=np.float32),
+             "label": np.arange(4)}
+    m0, b0 = fused_mhsa.LAUNCHES, fused_mhsa.BWD_LAUNCHES
+    f0, c0 = fused_ffn.LAUNCHES, fused_ffn.BWD_LAUNCHES
+    for _ in range(2):
+        a = cpu.train_step(batch, 1e-3, 0.05)
+        b = card.train_step(batch, 1e-3, 0.05)
+        la, lb = float(a["loss"]), float(b["loss"])
+        assert np.isfinite(lb) and abs(la - lb) <= 2e-2 * abs(la), (la, lb)
+    assert (fused_mhsa.LAUNCHES - m0, fused_mhsa.BWD_LAUNCHES - b0,
+            fused_ffn.LAUNCHES - f0, fused_ffn.BWD_LAUNCHES - c0) == \
+        (8, 8, 4, 4)
+
+
+@pytest.mark.cuda
+def test_train_step_with_mixup_and_drop_path_on_card(cuda_device,
+                                                     monkeypatch):
+    """Mixup draws and DropPath masks from the trainer's CUDA generator: a
+    tiny bf16 step runs through the kernels, and the same seed and step give
+    the same loss twice."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(trainer_mod, "build_model", lambda c: TimeSformer(
+        num_frames=2, img_size=32, embed_dims=64, num_heads=4,
+        num_transformer_layers=2, drop_path_rate=0.3))
+    cfg = SimpleNamespace(
+        objective="supervised", arch="timesformer",
+        attention_type="divided_space_time", num_class=10, num_frames=2,
+        img_size=32, optim_type="adamw", clip_grad=1.0, seed=0, mixup=True,
+        use_fp16=True)
+    batch = {"video": np.random.default_rng(6).standard_normal(
+        (4, 2, 3, 32, 32), dtype=np.float32), "label": np.arange(4)}
+    losses = []
+    for _ in range(2):
+        tr = trainer_mod.VideoTransformerTrainer(cfg, cuda_device)
+        b0 = fused_mhsa.BWD_LAUNCHES
+        losses.append(float(tr.train_step(batch, 1e-3, 0.05)["loss"]))
+        assert fused_mhsa.BWD_LAUNCHES - b0 == 4
+    assert np.isfinite(losses).all() and losses[0] == losses[1], losses

@@ -9,7 +9,8 @@ within 5e-2 · max|ref| (bf16 rounds at slightly different points in flax's
 modules and the port, compounded over two blocks).
 
 Also: the converter against ``flax_to_torch_state_dict``, and the whole
-slice in a subprocess where jax and flax cannot be imported."""
+slice, serving and a training step, in a subprocess where jax and flax
+cannot be imported."""
 
 import ast
 import os
@@ -201,6 +202,7 @@ def test_slice_runs_with_jax_and_flax_blocked():
         from videotransformer_tpu_torch.serving.predictor import TorchPredictor
         from videotransformer_tpu_torch.serving.server import InferenceServer
         from videotransformer_tpu_torch.tools.demo_inference import load_clip
+        from videotransformer_tpu_torch.training import trainer
         g = torch.Generator().manual_seed(0)
         model = TimeSformer(num_frames=4, img_size=128, embed_dims=64,
                             num_heads=4, num_transformer_layers=2)
@@ -216,6 +218,22 @@ def test_slice_runs_with_jax_and_flax_blocked():
         clip = eval_transform_clip(frames, (0.45,) * 3, (0.225,) * 3, 128)
         out = pred(clip[None])
         assert out.shape == (1, 10) and np.isfinite(out).all(), out
+        # one bf16 train step (DropPath and mixup on) and an eval step
+        from types import SimpleNamespace
+        trainer.build_model = lambda c: TimeSformer(
+            num_frames=2, img_size=32, embed_dims=64, num_heads=4,
+            num_transformer_layers=2, drop_path_rate=0.1)
+        cfg = SimpleNamespace(
+            objective="supervised", arch="timesformer",
+            attention_type="divided_space_time", num_class=10,
+            num_frames=2, img_size=32, optim_type="adamw", clip_grad=1.0,
+            seed=0, mixup=True, use_fp16=True)
+        tr = trainer.VideoTransformerTrainer(cfg, "cpu")
+        batch = {"video": np.random.RandomState(1).rand(
+            4, 2, 3, 32, 32).astype(np.float32), "label": np.arange(4)}
+        stats = tr.train_step(batch, 1e-3, 0.05)
+        assert np.isfinite(float(stats["loss"])), stats
+        assert int(tr.eval_step(batch, 1)["bs"]) == 4
         blocked = ("jax", "flax", "videotransformer_tpu")
         assert all(sys.modules.get(m) is None for m in blocked)
         assert not [m for m in sys.modules

@@ -312,10 +312,11 @@ int vt_fused_prenorm_mhsa(const void* x, const void* ln_w, const void* ln_b,
       xb, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
       static_cast<bf16*>(xn), rows, D, ln_eps, st);
   if (err != cudaSuccess) return err;
-  err = vt::launch_gemm<vt::kBias>(
-      static_cast<const bf16*>(xn), static_cast<const bf16*>(w_qkv),
-      static_cast<const bf16*>(b_qkv), nullptr, static_cast<bf16*>(qkv), rows,
-      3 * Da, D, st);
+  vt::GemmParams p{static_cast<const bf16*>(xn),
+                   static_cast<const bf16*>(w_qkv),
+                   static_cast<const bf16*>(b_qkv), nullptr, qkv, nullptr,
+                   nullptr, rows, 3 * Da, D};
+  err = vt::launch_gemm<vt::kBias>(p, st);
   if (err != cudaSuccess) return err;
 
   const int hd = Da / num_heads;
@@ -345,15 +346,13 @@ int vt_fused_prenorm_mhsa(const void* x, const void* ln_w, const void* ln_b,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  if (add_residual)
-    return vt::launch_gemm<vt::kBiasResidual>(
-        static_cast<const bf16*>(attn), static_cast<const bf16*>(w_proj),
-        static_cast<const bf16*>(b_proj), xb, static_cast<bf16*>(out), rows,
-        Do, Da, st);
-  return vt::launch_gemm<vt::kBias>(
-      static_cast<const bf16*>(attn), static_cast<const bf16*>(w_proj),
-      static_cast<const bf16*>(b_proj), nullptr, static_cast<bf16*>(out), rows,
-      Do, Da, st);
+  p = vt::GemmParams{static_cast<const bf16*>(attn),
+                     static_cast<const bf16*>(w_proj),
+                     static_cast<const bf16*>(b_proj),
+                     add_residual ? xb : nullptr, out, nullptr, nullptr, rows,
+                     Do, Da};
+  return add_residual ? vt::launch_gemm<vt::kBiasResidual>(p, st)
+                      : vt::launch_gemm<vt::kBias>(p, st);
 }
 
 }  // extern "C"

@@ -1,11 +1,21 @@
 """Fused prenorm multi-head self-attention: LayerNorm -> qkv -> attention ->
-proj [-> +x], forward only.
+proj [-> +x], with its backward.
 
-Port of ``videotransformer_tpu/kernels/fused_mhsa_pallas.py::_kernel``. On a
-CUDA tensor ``fused_prenorm_mhsa`` launches the hand-written kernel in
-``csrc/fused_mhsa.cu`` (bf16 only) or raises; on a CPU tensor it runs
-``fused_prenorm_mhsa_reference``, the plain PyTorch version with the same
-rounding order. There is no other branch.
+Port of ``videotransformer_tpu/kernels/fused_mhsa_pallas.py``: the forward
+body ``_kernel``, the backward body ``_attn_bwd_kernel`` and the
+``_vjp_fwd``/``_vjp_bwd`` around them. ``fused_prenorm_mhsa`` is a
+``torch.autograd.Function``. On a CUDA tensor its forward launches
+``csrc/fused_mhsa.cu`` and its backward ``csrc/fused_mhsa_bwd.cu`` (bf16
+only), or they raise; on a CPU tensor they run the plain PyTorch versions
+(``fused_prenorm_mhsa_reference``, ``fused_prenorm_mhsa_backward_reference``)
+with the kernels' rounding order. There is no other branch.
+
+The forward's qkv and pre-projection attention output are the saved
+residuals (the TPU kernel's ``save_qkv``/``save_attn``). The backward's
+projection gradients, ``do = g · W_proj`` and ``d_wqkv`` were XLA einsums
+outside the Pallas kernel (fused_mhsa_pallas.py:531-536, 548-554); here they
+are fp32 ``torch.matmul`` calls around the kernel. Weight and bias
+gradients come back in the weight's dtype, as ``_vjp_bwd`` returns them.
 
 Layouts: x is (B, N, D) as in the JAX package; weights are in nn.Linear's
 (out, in) layout: w_qkv (3·Da, D), w_proj (Do, Da). ``block_diag=T`` (N
@@ -18,16 +28,25 @@ import ctypes
 import torch
 
 from videotransformer_tpu_torch.kernels import _build
-from videotransformer_tpu_torch.kernels._plain import layer_norm, linear_fp32
+from videotransformer_tpu_torch.kernels._plain import (
+    layer_norm, layer_norm_backward, layer_norm_fp32, linear_fp32)
 
-# Calls that reached the CUDA kernel (not the plain version).
+# Calls that reached the CUDA kernels (not the plain versions): forward, and
+# backward.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _SIGNATURES = {
     "vt_fused_prenorm_mhsa": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "vt_mhsa_attention_smem_bytes": [ctypes.c_int, ctypes.c_int],
+}
+_BWD_SIGNATURES = {
+    "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    "vt_mhsa_bwd_smem_bytes": [ctypes.c_int, ctypes.c_int],
+    "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 3,
 }
 
 
@@ -37,43 +56,156 @@ def _seq_len(N, block_diag):
     return block_diag or N
 
 
-def fused_prenorm_mhsa_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
-                                 num_heads, scale, ln_eps=1e-5,
-                                 add_residual=True, block_diag=0):
-    """Plain version, in the kernel's rounding order: fp32 LN statistics ->
-    xn; fp32-accumulated qkv -> working type; fp32 scores × scale,
-    max-subtract, exp, p rounded to the working type before the PV product,
-    PV in fp32 divided by the fp32 row sum -> working type; fp32 projection
-    + bias (+ x) -> working type."""
+def _split_heads(t, L, num_heads, parts):
+    """(rows, parts·H·hd) -> (parts, rows/L, H, L, hd) in fp32."""
+    rows = t.shape[0]
+    hd = t.shape[1] // (parts * num_heads)
+    return (t.float().reshape(rows // L, L, parts, num_heads, hd)
+            .permute(2, 0, 3, 1, 4))
+
+
+def _merge_heads(t):
+    """(nseq, H, L, hd) -> (nseq·L, H·hd)."""
+    n, H, L, hd = t.shape
+    return t.permute(0, 2, 1, 3).reshape(n * L, H * hd)
+
+
+def _forward_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+                       num_heads, scale, ln_eps, add_residual, block_diag):
+    """Plain forward on rows, in the kernel's rounding order: fp32 LN
+    statistics -> xn; fp32-accumulated qkv -> working type; fp32 scores ×
+    scale, max-subtract, exp, p rounded to the working type before the PV
+    product, PV in fp32 divided by the fp32 row sum -> working type; fp32
+    projection + bias (+ x) -> working type. Returns (out, qkv, attn), each
+    (rows, ·)."""
     B, N, D = x.shape
     dt = x.dtype
-    Da = w_qkv.shape[0] // 3
-    hd = Da // num_heads
     L = _seq_len(N, block_diag)
-    xn = layer_norm(x, ln_w, ln_b, ln_eps)
-    qkv = linear_fp32(xn, w_qkv, b_qkv).to(dt)
-    qkv = qkv.reshape(B * N // L, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()
+    x2 = x.reshape(B * N, D)
+    qkv = linear_fp32(layer_norm(x2, ln_w, ln_b, ln_eps), w_qkv, b_qkv).to(dt)
+    q, k, v = _split_heads(qkv, L, num_heads, 3)
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = torch.matmul(p.to(dt).float(), v) / p.sum(-1, keepdim=True)
-    o = o.to(dt).permute(0, 2, 1, 3).reshape(B, N, Da)
-    out = linear_fp32(o, w_proj, b_proj)
+    attn = _merge_heads(o.to(dt))
+    out = linear_fp32(attn, w_proj, b_proj)
     if add_residual:
-        out = out + x.float()
-    return out.to(dt)
+        out = out + x2.float()
+    return out.to(dt), qkv, attn
+
+
+def fused_prenorm_mhsa_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+                                 num_heads, scale, ln_eps=1e-5,
+                                 add_residual=True, block_diag=0):
+    """The plain forward alone (no autograd of its own rounding order)."""
+    out, _, _ = _forward_reference(
+        x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
+        ln_eps, add_residual, block_diag)
+    return out.reshape(*x.shape[:2], w_proj.shape[0])
+
+
+def _attn_bwd_reference(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
+                        ln_eps, block_diag):
+    """Plain B3 (fused_mhsa_pallas.py:288-426) on rows: (dqkv, dx, dln_w,
+    dln_b, dbqkv), the last three fp32. Rounds to the working type where the
+    TPU kernel does: p_un, do·inv_l, ds_un, q·scale·inv_l, dq/dk/dv."""
+    dt = x.dtype
+    B, N, D = x.shape
+    L = _seq_len(N, block_diag)
+    q, k, v = _split_heads(qkv, L, num_heads, 3)
+    (dout,) = _split_heads(do, L, num_heads, 1)
+    rnd = lambda t: t.to(dt).float()
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p_un = torch.exp(s - s.amax(-1, keepdim=True))
+    inv_l = 1.0 / p_un.sum(-1, keepdim=True)
+    dv = torch.matmul(rnd(p_un).transpose(-1, -2), rnd(dout * inv_l))
+    dp = torch.matmul(dout, v.transpose(-1, -2))
+    c = (dp * p_un).sum(-1, keepdim=True) * inv_l
+    ds_un = rnd(p_un * (dp - c))
+    dq = torch.matmul(ds_un, k) * (scale * inv_l)
+    dk = torch.matmul(ds_un.transpose(-1, -2), rnd(q * (scale * inv_l)))
+    dqkv = torch.cat([_merge_heads(t.to(dt)) for t in (dq, dk, dv)], dim=-1)
+    dbqkv = dqkv.float().sum(0)
+    d_xn = dqkv.float() @ w_qkv.float()
+    dx, dln_w, dln_b = layer_norm_backward(d_xn, x.reshape(B * N, D), ln_w,
+                                           ln_eps)
+    if g_res is not None:
+        dx = dx + g_res.float()
+    return dqkv, dx.to(dt), dln_w, dln_b, dbqkv
+
+
+def _backward(attn_bwd, g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj,
+              num_heads, scale, ln_eps, add_residual, block_diag):
+    """_vjp_bwd (fused_mhsa_pallas.py:523-556) around ``attn_bwd`` (plain or
+    kernel B3): (dx, dln_w, dln_b, dw_qkv, db_qkv, dw_proj, db_proj)."""
+    B, N, D = x.shape
+    g2 = g.reshape(B * N, -1)
+    gf = g2.float()
+    db_proj = gf.sum(0).to(w_proj.dtype)
+    dw_proj = (gf.t() @ attn.float()).to(w_proj.dtype)
+    do = (gf @ w_proj.float()).to(x.dtype)
+    dqkv, dx, dln_w, dln_b, dbqkv = attn_bwd(
+        x, qkv, do, g2 if add_residual else None, ln_w, w_qkv, num_heads,
+        scale, ln_eps, block_diag)
+    xn = layer_norm_fp32(x.reshape(B * N, D), ln_w, ln_b, ln_eps)
+    dw_qkv = (dqkv.float().t() @ xn).to(w_qkv.dtype)
+    return (dx.reshape(x.shape), dln_w.to(ln_w.dtype), dln_b.to(ln_w.dtype),
+            dw_qkv, dbqkv.to(w_qkv.dtype), dw_proj, db_proj)
+
+
+def fused_prenorm_mhsa_backward_reference(g, x, qkv, attn, ln_w, ln_b, w_qkv,
+                                          w_proj, num_heads, scale,
+                                          ln_eps=1e-5, add_residual=True,
+                                          block_diag=0):
+    """Plain backward: the gradients of (x, ln_w, ln_b, w_qkv, b_qkv,
+    w_proj, b_proj) from the output gradient g and the saved qkv and attn
+    (rows, ·), in the kernels' rounding order."""
+    return _backward(_attn_bwd_reference, g, x, qkv, attn, ln_w, ln_b, w_qkv,
+                     w_proj, num_heads, scale, ln_eps, add_residual,
+                     block_diag)
+
+
+def _launch_backward(g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj, num_heads,
+                     scale, ln_eps, add_residual, block_diag):
+    return _backward(_attn_bwd_launch, g, x, qkv, attn, ln_w, ln_b, w_qkv,
+                     w_proj, num_heads, scale, ln_eps, add_residual,
+                     block_diag)
+
+
+class _FusedPrenormMHSA(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+                scale, ln_eps, add_residual, block_diag):
+        args = (x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
+                ln_eps, add_residual, block_diag)
+        if x.device.type == "cpu":
+            out, qkv, attn = _forward_reference(*args)
+        else:
+            out, qkv, attn = _launch(*args)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, qkv, attn, ln_w, ln_b, w_qkv, w_proj)
+            ctx.config = (num_heads, scale, ln_eps, add_residual, block_diag)
+        return out.reshape(*x.shape[:2], w_proj.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        if g.device.type == "cpu":
+            grads = fused_prenorm_mhsa_backward_reference(g, *saved,
+                                                          *ctx.config)
+        else:
+            grads = _launch_backward(g.contiguous(), *saved, *ctx.config)
+        return (*grads, None, None, None, None, None)
 
 
 def fused_prenorm_mhsa(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                        num_heads, scale, ln_eps=1e-5, add_residual=True,
                        block_diag=0):
     """x (B, N, D) -> LayerNorm -> MHSA -> proj [-> +x]; see module doc."""
-    if x.device.type == "cpu":
-        return fused_prenorm_mhsa_reference(
-            x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
-            ln_eps, add_residual, block_diag)
-    return _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads,
-                   scale, ln_eps, add_residual, block_diag)
+    return _FusedPrenormMHSA.apply(x, ln_w, ln_b, w_qkv, b_qkv, w_proj,
+                                   b_proj, num_heads, scale, ln_eps,
+                                   add_residual, block_diag)
 
 
 def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
@@ -108,7 +240,7 @@ def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
     xn = torch.empty((rows, D), dtype=x.dtype, device=x.device)
     qkv = torch.empty((rows, Da3), dtype=x.dtype, device=x.device)
     attn = torch.empty((rows, Da), dtype=x.dtype, device=x.device)
-    out = torch.empty((B, N, Do), dtype=x.dtype, device=x.device)
+    out = torch.empty((rows, Do), dtype=x.dtype, device=x.device)
     P = _build.ptr
     status = lib.vt_fused_prenorm_mhsa(
         P(x), P(ln_w), P(ln_b), P(w_qkv), P(b_qkv), P(w_proj), P(b_proj),
@@ -117,4 +249,49 @@ def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
         _build.stream_handle())
     _build.check_status(name, status)
     LAUNCHES += 1
-    return out
+    return out, qkv, attn
+
+
+def _attn_bwd_launch(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
+                     ln_eps, block_diag):
+    """Kernel B3 (csrc/fused_mhsa_bwd.cu); the same contract as
+    ``_attn_bwd_reference``."""
+    global BWD_LAUNCHES
+    name = "fused_prenorm_mhsa backward"
+    tensors = dict(x=x, qkv=qkv, do=do, ln_w=ln_w, w_qkv=w_qkv)
+    if g_res is not None:
+        tensors["g"] = g_res
+    _build.check_operands(name, **tensors)
+    B, N, D = x.shape
+    rows = B * N
+    Da3 = w_qkv.shape[0]
+    Da = Da3 // 3
+    if qkv.shape != (rows, Da3) or do.shape != (rows, Da):
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} or do "
+                         f"{tuple(do.shape)} do not fit x {tuple(x.shape)}")
+    if D > 1024:
+        raise ValueError(f"{name}: D={D} is above 1024")
+    L = _seq_len(N, block_diag)
+    hd = Da // num_heads
+    lib = _build.load("fused_mhsa_bwd", _BWD_SIGNATURES)
+    smem = lib.vt_mhsa_bwd_smem_bytes(L, hd)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: sequence length {L} at head dim {hd} "
+                         f"needs {smem} bytes of shared memory, above "
+                         f"{_MAX_SMEM}")
+    dev = x.device
+    dqkv = torch.empty((rows, Da3), dtype=torch.bfloat16, device=dev)
+    dx = torch.empty((rows, D), dtype=torch.bfloat16, device=dev)
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    d_xn = f32(rows, D)
+    scratch = f32(lib.vt_mhsa_bwd_scratch_floats(rows, D, Da))
+    dln_w, dln_b, dbqkv = f32(D), f32(D), f32(Da3)
+    P = _build.ptr
+    status = lib.vt_fused_prenorm_mhsa_bwd(
+        P(x), P(qkv), P(do), P(g_res) if g_res is not None else None,
+        P(ln_w), P(w_qkv), P(dqkv), P(d_xn), P(scratch), P(dx), P(dln_w),
+        P(dln_b), P(dbqkv), rows, D, Da, num_heads, L, float(scale),
+        float(ln_eps), _build.stream_handle())
+    _build.check_status(name, status)
+    BWD_LAUNCHES += 1
+    return dqkv, dx, dln_w, dln_b, dbqkv

@@ -1,9 +1,13 @@
-"""JAX package parameters (numpy) -> the port's ``state_dict``.
+"""JAX package parameters (numpy) <-> the port's ``state_dict``.
 
 The input is the flat ``{"a/b/c": ndarray}`` form of
 ``videotransformer_tpu/serving/export.py::flatten_params``, as stored in a
 serving artifact's ``params.npz`` under the ``model/`` and ``head/``
-prefixes. The output names are those of
+prefixes, or the JAX trainer's nested parameter tree
+``{"model": ..., "cls_head": {"cls_head": ...}}``
+(``videotransformer_tpu/training/trainer.py:167-175``), which
+``trainer_tree_to_state_dicts`` and ``state_dicts_to_trainer_tree`` convert
+in both directions. The output names are those of
 ``videotransformer_tpu.models.convert.flax_to_torch_state_dict`` (the
 original PyTorch repo's), which the port's modules use, so
 ``load_state_dict(strict=True)`` takes them.
@@ -77,3 +81,91 @@ def split_artifact_params(npz_flat):
     head = {k[len("head/"):]: v for k, v in npz_flat.items()
             if k.startswith("head/")}
     return jax_flat_to_state_dict(model), jax_flat_to_state_dict(head)
+
+
+def _state_name_to_flax(name):
+    """"a.layers.0.ffns.0.layers.0.0.weight" -> ("a/layers_0/ffns_0/layers_0",
+    "weight"): the inverse of ``jax_flat_to_state_dict``'s naming."""
+    parts = name.split(".")
+    out, i = [], 0
+    while i < len(parts) - 1:
+        part = parts[i]
+        if (_INDEXED.fullmatch(f"{part}_0") and i + 1 < len(parts) - 1
+                and parts[i + 1].isdigit()):
+            out.append(f"{part}_{parts[i + 1]}")
+            i += 2
+            # an FFN's Sequential index: layers.i.0 -> layers_i
+            if part == "layers" and "ffns_" in "/".join(out[:-1]) \
+                    and i < len(parts) - 1 and parts[i].isdigit():
+                i += 1
+        else:
+            out.append(part)
+            i += 1
+    return "/".join(out), parts[-1]
+
+
+def _leaf_to_flax(leaf, value):
+    """torch leaf -> flax (name, array), the inverse of ``_leaf``."""
+    if leaf == "weight":
+        if value.ndim == 1:
+            return "scale", value
+        if value.ndim == 2:
+            return "kernel", value.T
+        if value.ndim == 4:
+            return "kernel", value.transpose(2, 3, 1, 0)
+        if value.ndim == 5:
+            return "kernel", value.transpose(2, 3, 4, 1, 0)
+        raise ValueError(f"unhandled weight rank {value.ndim}")
+    return leaf, value
+
+
+def state_dict_to_jax_flat(state_dict):
+    """{"a.b.c": array or tensor} -> {"a/b/c": fp32 array} in the JAX
+    package's layouts: the inverse of ``jax_flat_to_state_dict``."""
+    out = {}
+    for name, value in state_dict.items():
+        value = np.asarray(value.detach().cpu() if hasattr(value, "detach")
+                           else value)
+        prefix, leaf = _state_name_to_flax(name)
+        leaf, arr = _leaf_to_flax(leaf, value)
+        key = f"{prefix}/{leaf}" if prefix else leaf
+        out[key] = np.ascontiguousarray(arr, dtype=np.float32)
+    return out
+
+
+def flatten_tree(tree, prefix=""):
+    """Nested dict of arrays -> {"a/b/c": ndarray}."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def unflatten_tree(flat):
+    """{"a/b/c": array} -> nested dict: the inverse of ``flatten_tree``."""
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+def trainer_tree_to_state_dicts(tree):
+    """The JAX trainer's ``{"model": ..., "cls_head": {"cls_head": ...}}``
+    (numpy leaves) -> (model state_dict, head state_dict), fp32 arrays."""
+    return (jax_flat_to_state_dict(flatten_tree(tree["model"])),
+            jax_flat_to_state_dict(flatten_tree(tree["cls_head"])))
+
+
+def state_dicts_to_trainer_tree(model_sd, head_sd):
+    """(model state_dict, head state_dict) -> the JAX trainer's nested
+    parameter tree, fp32 numpy leaves in flax layouts."""
+    return {"model": unflatten_tree(state_dict_to_jax_flat(model_sd)),
+            "cls_head": unflatten_tree(state_dict_to_jax_flat(head_sd))}

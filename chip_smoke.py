@@ -1,14 +1,20 @@
 """Smoke run of the PyTorch/CUDA port (videotransformer_tpu_torch) on one
-NVIDIA GPU: builds the hand-written kernels from csrc/ (four libraries, one
+NVIDIA GPU: builds the hand-written kernels from csrc/ (six libraries, one
 nvcc each, all started together), holds each against its plain PyTorch
-version at the main paths' shapes, and drives the two main paths at
-TimeSformer-B/16's full width (divided space-time, 8x224, 12 layers, 400
-classes, random weights from a seed):
+version at the main paths' shapes, and drives the main paths, random
+weights from a seed:
 
-- serving: the predictor and the dynamic-batching server, bf16;
-- training: three supervised AdamW steps of the trainer on a batch of 8
-  clips (fp32 parameters, bf16 compute, DropPath 0.1), repeated from the
-  same state with the plain versions patched in.
+- serving: TimeSformer-B/16 (divided space-time, 8x224, 12 layers, 400
+  classes) through the predictor and the dynamic-batching server, bf16;
+- training: three supervised AdamW steps of the trainer on TimeSformer-B
+  with a batch of 8 clips (fp32 parameters, bf16 compute, DropPath 0.1),
+  repeated from the same state with the plain versions patched in;
+- mim: three MaskFeat pretraining steps on MViT-B (16x224, 16 blocks, two
+  q-pool stages, masks from the cube mask generator, HOG targets computed on
+  the card from the raw clip) on 8 clips, repeated from the same state
+  through the plain versions; then one supervised arch=mvit step (layer
+  decay 0.75, decoder_pred frozen) and an eval-mode forward on 2 clips
+  against the plain versions.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and must have gone through its kernels.
@@ -18,12 +24,14 @@ after, and must have gone through its kernels.
 Needs a CUDA card, nvcc (CUDA_HOME, default /usr/local/cuda) and nothing
 else outside this checkout. Any failure raises and exits non-zero. The line
 before the last is the kernel report: for each kernel its launches in each
-main path's run and per forward or step, its worst error, and
-"ms"/"plain_ms", the CUDA-event time of its calls in one TimeSformer block
-at the main path's shapes, with each measured phase under "phases". The
-last line is {"ok": true, "device": {...}}. The whole run took 50-66 s of
-command time on an H100 (the four builds included), so no path runs at a
-cut depth.
+main path's run, its worst error, "ms"/"plain_ms"/"library_ms" (CUDA-event
+times) beside "bound_ms" (the larger of the bytes it must move over 3.35
+TB/s and its FLOPs over 989 TFLOP/s, computed from the shapes), with each
+measured phase under "phases". For the TimeSformer kernels the times are
+those of their calls in one TimeSformer block; for the flash attention
+kernels, of their 16 calls in one mim step. The last line is
+{"ok": true, "device": {...}}. The whole run took 120-144 s of command time
+on an H100 (the six builds included).
 """
 
 import json
@@ -36,9 +44,13 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from videotransformer_tpu_torch.data.mask_generator import (
+    CubeMaskGenerator, pad_cube_marker)
 from videotransformer_tpu_torch.data.transforms import eval_transform_clip
-from videotransformer_tpu_torch.kernels import _build, fused_ffn, fused_mhsa
+from videotransformer_tpu_torch.kernels import (
+    _build, flash_attention, fused_ffn, fused_mhsa)
 from videotransformer_tpu_torch.models import convert
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import (
@@ -65,7 +77,31 @@ TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR, TRAIN_WD = 8, 3, 1e-4, 0.05
 # and 3.5x.
 LOSS_REL_TOL = 1e-2
 NORM_REL_TOL = 3e-2
-LIBRARIES = ("fused_mhsa", "fused_ffn", "fused_mhsa_bwd", "fused_ffn_bwd")
+LIBRARIES = ("fused_mhsa", "fused_ffn", "fused_mhsa_bwd", "fused_ffn_bwd",
+             "flash_attention", "flash_attention_bwd")
+# the card's peaks (H100 SXM data sheet, dense): bf16 tensor cores, HBM
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# MaskFeat on MViT-B at 16x224 (the JAX trainer's objective=mim build)
+MIM_CLIPS, MIM_FRAMES, MIM_STEPS, MIM_LR, MIM_WD = 8, 16, 3, 1e-4, 0.05
+MVIT_HD = 96
+# (B·H, Nq, Nkv, blocks) of the flash attention calls of one batch-8 step
+FLASH_SHAPES = ((8, 25088, 393, 1), (16, 6272, 1569, 1), (16, 6272, 393, 1),
+                (32, 1568, 1569, 1), (32, 1568, 393, 10), (64, 1568, 393, 2))
+# the fused FFN calls of one batch-8 mim step, (rows, D, blocks), hidden 4·D,
+# as kernel phases: (phase, shape, LayerNorm eps, on the TimeSformer path,
+# calls a step)
+MVIT_FFN_PHASES = tuple(
+    (f"MViT rows ({rows}, {d}), hidden {4 * d}, eps 1e-6, x{n} a step",
+     (rows, d), 1e-6, False, n)
+    for rows, d, n in ((50176, 192, 1), (12544, 384, 10), (12544, 768, 2)))
+# kernels vs plain versions over the mim steps (bf16 rounding flips through
+# 16 blocks and back, compounded by the updates): two H100 runs showed at
+# most 2.99e-4 (loss) and 1.29e-4 (grad norm); the bounds leave 3x and 7x.
+# The eval forward on 2 clips: 1.339e-2 (features), 8.97e-3 (cls rows) in
+# both runs; the bound leaves 2x.
+MIM_LOSS_REL_TOL = 1e-3
+MIM_NORM_REL_TOL = 1e-3
+MIM_FEATURE_REL_TOL = 3e-2
 
 
 def log(*a):
@@ -92,62 +128,105 @@ def bf16_on_card(rng, shape, std, mean=0.0):
     return torch.from_numpy(a).to("cuda", torch.bfloat16)
 
 
+def bound(flops, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def in_turns(plain, kernel, iters=20, plain_iters=5):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    p1 = timed_ms(plain, iters=plain_iters, warmup=1)
+    k1, k2 = timed_ms(kernel, iters=iters), timed_ms(kernel, iters=iters)
+    p2 = timed_ms(plain, iters=plain_iters, warmup=1)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def worst_error(got, want):
+    """(max abs error, max over outputs of max|err| / max|want|)."""
+    abs_err = rel_err = 0.0
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        e = (a.float() - b).abs().max().item()
+        abs_err = max(abs_err, e)
+        rel_err = max(rel_err, e / b.abs().max().item())
+    return abs_err, rel_err
+
+
 # ------------------------------------------------------------ kernel phases
 
+def ffn_weights(rng, d):
+    """LayerNorm weight and bias, fc1 weight and bias, fc2 weight and bias
+    of a width-d FFN (hidden 4·d), bf16 on the card."""
+    h4 = 4 * d
+    return [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1),
+            bf16_on_card(rng, (h4, d), 0.02), bf16_on_card(rng, (h4,), 0.02),
+            bf16_on_card(rng, (d, h4), 0.02), bf16_on_card(rng, (d,), 0.02)]
+
+
 def kernel_phases(rng):
-    """Each kernel at a main-path shape against its plain version run in
-    fp32 from the same bf16 inputs; times in turns (plain, kernel, kernel,
-    plain) from CUDA events."""
-    H4 = 4 * D
-    # (kernel, phase, shape, block_diag, module, called once per block on
-    # the slice's main path); the packed layout is the JAX package's
+    """Each forward kernel at a main-path shape against its plain version
+    run in fp32 from the same bf16 inputs; times in turns (plain, kernel,
+    kernel, plain) from CUDA events."""
+    # (kernel, phase, shape, block_diag, LayerNorm eps, on the TimeSformer
+    # path once per block, calls a mim step); the packed layout is the JAX
+    # package's
     phases = [
         ("fused_prenorm_mhsa", "dense spatial (192, 197, 768)",
-         (192, 197, D), 0, fused_mhsa, True),
+         (192, 197, D), 0, 1e-5, True, 1),
         ("fused_prenorm_mhsa", "block-diagonal temporal (4704, 8, 768)",
-         (4704, 8, D), 8, fused_mhsa, True),
+         (4704, 8, D), 8, 1e-5, True, 1),
         ("fused_prenorm_mhsa", "block-diagonal packed (42, 896, 768)",
-         (42, 896, D), 8, fused_mhsa, False),
-        ("fused_prenorm_ffn", "rows (37656, 768), hidden 3072",
-         (37656, D), None, fused_ffn, True),
-    ]
+         (42, 896, D), 8, 1e-5, False, 1),
+        ("fused_prenorm_ffn", f"rows (37656, {D}), hidden {4 * D}",
+         (37656, D), None, 1e-5, True, 1),
+    ] + [("fused_prenorm_ffn", label, shape, None, eps, on_path, n)
+         for label, shape, eps, on_path, n in MVIT_FFN_PHASES]
     report = []
-    for name, label, shape, block_diag, mod, on_path in phases:
+    for name, label, shape, block_diag, eps, on_path, count in phases:
+        d = shape[-1]
         x = bf16_on_card(rng, shape, 1.0)
-        ln = [bf16_on_card(rng, (D,), 0.1, 1.0), bf16_on_card(rng, (D,), 0.1)]
-        if mod is fused_mhsa:
-            w = [bf16_on_card(rng, (3 * D, D), 0.02),
-                 bf16_on_card(rng, (3 * D,), 0.02),
-                 bf16_on_card(rng, (D, D), 0.02), bf16_on_card(rng, (D,), 0.02)]
-            tail = (HEADS, (D // HEADS) ** -0.5, 1e-5, False, block_diag)
+        if block_diag is not None:
+            ln = [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1)]
+            w = [bf16_on_card(rng, (3 * d, d), 0.02),
+                 bf16_on_card(rng, (3 * d,), 0.02),
+                 bf16_on_card(rng, (d, d), 0.02), bf16_on_card(rng, (d,), 0.02)]
+            tail = (HEADS, (d // HEADS) ** -0.5, eps, False, block_diag)
             kernel = lambda: fused_mhsa.fused_prenorm_mhsa(x, *ln, *w, *tail)
             plain_fn = fused_mhsa.fused_prenorm_mhsa_reference
         else:
-            w = [bf16_on_card(rng, (H4, D), 0.02), bf16_on_card(rng, (H4,), 0.02),
-                 bf16_on_card(rng, (D, H4), 0.02), bf16_on_card(rng, (D,), 0.02)]
-            tail = (1e-5,)
+            wts = ffn_weights(rng, d)
+            ln, w = wts[:2], wts[2:]
+            tail = (eps,)
             kernel = lambda: fused_ffn.fused_prenorm_ffn(x, *ln, *w, *tail)
             plain_fn = fused_ffn.fused_prenorm_ffn_reference
-        plain32 = lambda: plain_fn(*[t.float() for t in (x, *ln, *w)], *tail)
         got = kernel()
         torch.cuda.synchronize()
-        want = plain32()
-        abs_err = (got.float() - want).abs().max().item()
-        rel_err = abs_err / want.abs().max().item()
-        assert torch.isfinite(got).all(), label
+        abs_err, rel_err = worst_error(
+            [got], [plain_fn(*[t.float() for t in (x, *ln, *w)], *tail)])
         assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
         # the plain version as the main path would call it: bf16 operands
-        plain = lambda: plain_fn(x, *ln, *w, *tail)
-        p1, k1, k2, p2 = (timed_ms(plain), timed_ms(kernel), timed_ms(kernel),
-                          timed_ms(plain))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        ms, plain_ms = in_turns(lambda: plain_fn(x, *ln, *w, *tail), kernel,
+                                plain_iters=20)
+        rows = shape[0] * shape[1] if len(shape) == 3 else shape[0]
+        if block_diag is not None:  # qkv, attention over L, proj
+            L = block_diag or shape[1]
+            flops = 8 * rows * d * d + 4 * rows * L * d
+            nbytes = 2 * (2 * rows * d + 4 * d * d + 6 * d)
+        else:
+            flops = 16 * rows * d * d
+            nbytes = 2 * (2 * rows * d + 8 * d * d + 7 * d)
+        bound_ms, bound_by = bound(flops, nbytes)
         log(f"kernel {name} [{label}]: max|kernel-plain|/max|plain| = "
             f"{rel_err:.3e} (tol {KERNEL_REL_TOL}), max abs {abs_err:.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         report.append({"name": name, "phase": label, "on_path": on_path,
-                       "max_abs_err": abs_err, "rel_err": rel_err, "ms": ms,
-                       "plain_ms": plain_ms})
-        del x, w, got, want
+                       "count": count, "max_abs_err": abs_err,
+                       "rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": None, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+        del x, w, got
     return report
 
 
@@ -158,67 +237,141 @@ def backward_phases(rng):
     turns (plain, kernel, kernel, plain): B3 alone (``_attn_bwd_launch``
     against ``_attn_bwd_reference``; the projection products around it are
     torch.matmul in both), B4 whole."""
-    H4 = 4 * D
     phases = [
         ("fused_prenorm_mhsa_bwd", "dense spatial (64, 197, 768)",
-         (64, 197, D), 0),
+         (64, 197, D), 0, 1e-5, True, 1),
         ("fused_prenorm_mhsa_bwd", "block-diagonal temporal (1568, 8, 768)",
-         (1568, 8, D), 8),
-        ("fused_prenorm_ffn_bwd", "rows (12552, 768), hidden 3072",
-         (12552, D), None),
-    ]
+         (1568, 8, D), 8, 1e-5, True, 1),
+        ("fused_prenorm_ffn_bwd", f"rows (12552, {D}), hidden {4 * D}",
+         (12552, D), None, 1e-5, True, 1),
+    ] + [("fused_prenorm_ffn_bwd", label, shape, None, eps, on_path, n)
+         for label, shape, eps, on_path, n in MVIT_FFN_PHASES]
     report = []
-    for name, label, shape, block_diag in phases:
+    for name, label, shape, block_diag, eps, on_path, count in phases:
+        d = shape[-1]
         x = bf16_on_card(rng, shape, 1.0)
         g = bf16_on_card(rng, shape, 1.0)
-        ln = [bf16_on_card(rng, (D,), 0.1, 1.0), bf16_on_card(rng, (D,), 0.1)]
         if block_diag is not None:
-            w = [bf16_on_card(rng, (3 * D, D), 0.02),
-                 bf16_on_card(rng, (3 * D,), 0.02),
-                 bf16_on_card(rng, (D, D), 0.02), bf16_on_card(rng, (D,), 0.02)]
-            cfg = (HEADS, (D // HEADS) ** -0.5, 1e-5, False, block_diag)
+            ln = [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1)]
+            w = [bf16_on_card(rng, (3 * d, d), 0.02),
+                 bf16_on_card(rng, (3 * d,), 0.02),
+                 bf16_on_card(rng, (d, d), 0.02), bf16_on_card(rng, (d,), 0.02)]
+            cfg = (HEADS, (d // HEADS) ** -0.5, eps, False, block_diag)
             _, qkv, attn = fused_mhsa._launch(x, *ln, *w, *cfg)
             args = (g, x, qkv, attn, ln[0], ln[1], w[0], w[2])
             kernel_all = lambda: fused_mhsa._launch_backward(*args, *cfg)
             plain_all = fused_mhsa.fused_prenorm_mhsa_backward_reference
-            do = (g.float().reshape(-1, D) @ w[2].float()).to(torch.bfloat16)
+            do = (g.float().reshape(-1, d) @ w[2].float()).to(torch.bfloat16)
             core = (x, qkv, do, None, ln[0], w[0], *cfg[:3], block_diag)
             kernel = lambda: fused_mhsa._attn_bwd_launch(*core)
             plain = lambda: fused_mhsa._attn_bwd_reference(*core)
             tail = cfg
         else:
-            w = [bf16_on_card(rng, (H4, D), 0.02), bf16_on_card(rng, (H4,), 0.02),
-                 bf16_on_card(rng, (D, H4), 0.02), bf16_on_card(rng, (D,), 0.02)]
-            _, h_pre = fused_ffn._launch(x, *ln, *w, 1e-5, True)
-            args = (g, x, h_pre, ln[0], ln[1], w[0], w[2])
-            tail = (1e-5,)
+            w = ffn_weights(rng, d)
+            _, h_pre = fused_ffn._launch(x, *w, eps, True)
+            args = (g, x, h_pre, w[0], w[1], w[2], w[4])
+            tail = (eps,)
             kernel_all = kernel = lambda: fused_ffn._launch_backward(*args,
                                                                    *tail)
             plain_all = fused_ffn.fused_prenorm_ffn_backward_reference
             plain = lambda: plain_all(*args, *tail)
         got = kernel_all()
         torch.cuda.synchronize()
-        want = plain_all(*[a.float() for a in args], *tail)
-        abs_err = rel_err = 0.0
-        for a, b in zip(got, want):
-            assert torch.isfinite(a).all(), label
-            e = (a.float() - b).abs().max().item()
-            abs_err = max(abs_err, e)
-            rel_err = max(rel_err, e / b.abs().max().item())
+        abs_err, rel_err = worst_error(
+            got, plain_all(*[a.float() for a in args], *tail))
         assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
-        p1, k1, k2, p2 = (timed_ms(plain, iters=5, warmup=1),
-                          timed_ms(kernel), timed_ms(kernel),
-                          timed_ms(plain, iters=5, warmup=1))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        ms, plain_ms = in_turns(plain, kernel)
         whole = timed_ms(kernel_all, iters=10)
+        rows = shape[0] * shape[1] if len(shape) == 3 else shape[0]
+        if block_diag is not None:  # B3 alone: attention backward and d_xn
+            L = block_diag or shape[1]
+            flops = 10 * rows * L * d + 6 * rows * d * d
+            nbytes = 2 * (9 * rows * d + 3 * d * d)
+        else:  # B4: the four products; fp32 weight gradients
+            flops = 32 * rows * d * d
+            nbytes = 2 * (7 * rows * d + 8 * d * d) + 4 * 8 * d * d
+        bound_ms, bound_by = bound(flops, nbytes)
         log(f"kernel {name} [{label}]: worst max|kernel-plain|/max|plain| "
             f"over the gradients = {rel_err:.3e} (tol {KERNEL_REL_TOL}), "
             f"max abs {abs_err:.3e}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms; whole backward call {whole:.4f} ms")
-        report.append({"name": name, "phase": label, "on_path": True,
-                       "max_abs_err": abs_err, "rel_err": rel_err, "ms": ms,
-                       "plain_ms": plain_ms})
-        del x, g, w, got, want
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"whole backward call {whole:.4f} ms")
+        report.append({"name": name, "phase": label, "on_path": on_path,
+                       "count": count, "max_abs_err": abs_err,
+                       "rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": None, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+        del x, g, w, got
+    return report
+
+
+def flash_phases(rng):
+    """B5 and B6 at each (B·H, Nq, Nkv) of a batch-8 mim step, head dim 96:
+    each against its plain version run in fp32 from the same bf16 inputs
+    (B6 from the kernel's own o and lse, every gradient); times in turns
+    (plain, kernel, kernel, plain), and scaled_dot_product_attention's as
+    the library's (the backward's: its forward and backward less its
+    forward)."""
+    report = []
+    scale = MVIT_HD ** -0.5
+    for bh, nq, nkv, count in FLASH_SHAPES:
+        label = f"(B·H, Nq, Nkv) = ({bh}, {nq}, {nkv}), hd {MVIT_HD}, " \
+            f"x{count} a step"
+        q = bf16_on_card(rng, (1, bh, nq, MVIT_HD), 1.0)
+        k = bf16_on_card(rng, (1, bh, nkv, MVIT_HD), 1.0)
+        v = bf16_on_card(rng, (1, bh, nkv, MVIT_HD), 1.0)
+        do = bf16_on_card(rng, (1, bh, nq, MVIT_HD), 1.0)
+        fa = flash_attention
+        o, lse = fa._launch(q, k, v, scale)
+        got_b = fa._launch_backward(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        want_o, _ = fa._forward_reference(q.float(), k.float(), v.float(),
+                                          scale)
+        fwd_err = worst_error([o], [want_o])
+        del want_o
+        want_b = fa.flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+        bwd_err = worst_error(got_b, want_b)
+        del want_b, got_b
+        for what, (abs_err, rel_err) in (("forward", fwd_err),
+                                         ("backward", bwd_err)):
+            log(f"kernel flash_attention {what} [{label}]: worst "
+                f"max|kernel-plain|/max|plain| = {rel_err:.3e} (tol "
+                f"{KERNEL_REL_TOL}), max abs {abs_err:.3e}")
+            assert rel_err <= KERNEL_REL_TOL, (what, label, rel_err)
+        again = fa._launch_backward(q, k, v, o, lse, do, scale)
+        assert all(torch.equal(a, b) for a, b in zip(
+            again, fa._launch_backward(q, k, v, o, lse, do, scale)))
+
+        ms, plain_ms = in_turns(lambda: fa._forward_reference(q, k, v, scale),
+                                lambda: fa._launch(q, k, v, scale))
+        lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        b_ms, b_plain_ms = in_turns(
+            lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                          scale),
+            lambda: fa._launch_backward(q, k, v, o, lse, do, scale))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        both, fwd = in_turns(sdpa, lambda: torch.autograd.grad(
+            sdpa(), (qg, kg, vg), do), plain_iters=20)
+        lib_b_ms = both - fwd
+        flops = 4 * bh * nq * nkv * MVIT_HD
+        fwd_bound = bound(flops, 2 * (2 * nq + 2 * nkv) * bh * MVIT_HD)
+        bwd_bound = bound(2.5 * flops, 2 * (4 * nq + 6 * nkv) * bh * MVIT_HD)
+        for name, err, t, t_plain, t_lib, (bms, by) in (
+                ("flash_attention", fwd_err, ms, plain_ms, lib_ms, fwd_bound),
+                ("flash_attention_bwd", bwd_err, b_ms, b_plain_ms, lib_b_ms,
+                 bwd_bound)):
+            log(f"kernel {name} [{label}]: kernel {t:.4f} ms, plain "
+                f"{t_plain:.4f} ms, scaled_dot_product_attention {t_lib:.4f} "
+                f"ms, bound {bms:.4f} ms ({by}), {bms / t:.1%} of it")
+            report.append({"name": name, "phase": label, "on_path": True,
+                           "count": count, "max_abs_err": err[0],
+                           "rel_err": err[1], "ms": t, "plain_ms": t_plain,
+                           "library_ms": t_lib, "bound_ms": bms,
+                           "bound_by": by})
+        del q, k, v, do, o, lse, qg, kg, vg
     return report
 
 
@@ -323,9 +476,12 @@ def build_slice(rng):
 # ---------------------------------------------------------------- training
 
 KERNEL_COUNTERS = ((fused_mhsa, "LAUNCHES"), (fused_ffn, "LAUNCHES"),
-                   (fused_mhsa, "BWD_LAUNCHES"), (fused_ffn, "BWD_LAUNCHES"))
+                   (fused_mhsa, "BWD_LAUNCHES"), (fused_ffn, "BWD_LAUNCHES"),
+                   (flash_attention, "LAUNCHES"),
+                   (flash_attention, "BWD_LAUNCHES"))
 KERNEL_NAMES = ("fused_prenorm_mhsa", "fused_prenorm_ffn",
-                "fused_prenorm_mhsa_bwd", "fused_prenorm_ffn_bwd")
+                "fused_prenorm_mhsa_bwd", "fused_prenorm_ffn_bwd",
+                "flash_attention", "flash_attention_bwd")
 
 
 def reset_counts():
@@ -386,7 +542,12 @@ def plain_versions():
             mock.patch.object(fused_ffn, "_launch",
                               lambda *a: fused_ffn._forward_reference(*a[:-1])),
             mock.patch.object(fused_ffn, "_launch_backward",
-                              fused_ffn.fused_prenorm_ffn_backward_reference)]
+                              fused_ffn.fused_prenorm_ffn_backward_reference),
+            mock.patch.object(flash_attention, "_launch",
+                              flash_attention._forward_reference),
+            mock.patch.object(
+                flash_attention, "_launch_backward",
+                flash_attention.flash_attention_backward_reference)]
 
 
 def train_slice(rng, card):
@@ -401,17 +562,11 @@ def train_slice(rng, card):
     tr, steps = run_train_steps(tree, batch)
     launches = {n: sum(st["launches"][n] for st in steps)
                 for n in KERNEL_NAMES}
-    patches = plain_versions()
-    for p in patches:
-        p.start()
-    try:
-        _, plain = run_train_steps(tree, batch)
-    finally:
-        for p in patches:
-            p.stop()
+    _, plain = with_plain_versions(run_train_steps, tree, batch)
     want = {"fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
             "fused_prenorm_mhsa_bwd": 2 * DEPTH,
-            "fused_prenorm_ffn_bwd": DEPTH}
+            "fused_prenorm_ffn_bwd": DEPTH, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     for i, (k, p) in enumerate(zip(steps, plain)):
         dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
         dn = abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
@@ -436,6 +591,163 @@ def train_slice(rng, card):
     profile_forward(lambda: tr.train_step(batch, TRAIN_LR, TRAIN_WD), ms,
                     n=2, what="train step")
     return launches
+
+
+# ---------------------------------------------------------------- mim
+
+MIM_WANT = {"fused_prenorm_mhsa": 0, "fused_prenorm_ffn": 13,
+            "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": 13,
+            "flash_attention": 16, "flash_attention_bwd": 16}
+
+
+def mim_configs(objective="mim"):
+    """The JAX trainer's MaskFeat build (trainer.py:65-74): MViT-B at
+    16x224, AdamW, per-parameter clip 1.0, fp32 parameters with bf16
+    compute; layer decay 0.75 for the supervised arch=mvit finetune."""
+    return SimpleNamespace(
+        objective=objective, arch="mvit", num_class=CLASSES,
+        num_frames=MIM_FRAMES, img_size=IMG, optim_type="adamw",
+        clip_grad=1.0, seed=SEED, mixup=False, use_fp16=True,
+        layer_decay=0.75)
+
+
+def mim_batch(rng):
+    """8 clips: the clip before Normalize (0-255 integers) as ``raw``, its
+    normalised copy as ``video``, and cube masks of ratio 0.4 on the 8x14x14
+    grid from the cube mask generator under a numpy seed."""
+    shape = (MIM_CLIPS, MIM_FRAMES, 3, IMG, IMG)
+    raw = rng.integers(0, 256, shape).astype(np.float32)
+    mean = np.asarray(MEAN, np.float32)[:, None, None]
+    std = np.asarray(STD, np.float32)[:, None, None]
+    grid = IMG // 16  # the patch grid after two 2x2 q pools
+    gen = CubeMaskGenerator((MIM_FRAMES // 2, grid, grid), mask_ratio=0.4,
+                            rng=np.random.default_rng(SEED))
+    masks, markers = zip(*[gen() for _ in range(MIM_CLIPS)])
+    marker, count = pad_cube_marker(markers, MIM_FRAMES // 2)
+    batch = {"video": (raw / 255.0 - mean) / std, "raw": raw,
+             "mask": np.stack(masks), "cube_marker": marker,
+             "cube_count": count}
+    return {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+
+
+def run_mim_steps(tree, batch):
+    """MIM_STEPS steps of a fresh mim trainer from ``tree``: per step the
+    stats, the kernel launches and the CUDA-event ms."""
+    tr = trainer_mod.VideoTransformerTrainer(mim_configs(), "cuda",
+                                             params=tree)
+    steps = []
+    for _ in range(MIM_STEPS):
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = tr.train_step(batch, MIM_LR, MIM_WD)
+        end.record()
+        end.synchronize()
+        steps.append({"loss": float(stats["loss"]),
+                      "grad_norm": float(stats["grad_norm"]),
+                      "launches": read_counts(),
+                      "ms": start.elapsed_time(end)})
+    return tr, steps
+
+
+def with_plain_versions(fn, *args):
+    patches = plain_versions()
+    for p in patches:
+        p.start()
+    try:
+        return fn(*args)
+    finally:
+        for p in patches:
+            p.stop()
+
+
+def mim_slice(rng, card):
+    """The mim main path: three MaskFeat steps through the kernels (counts
+    from 0 per step), the same three from the same state through the plain
+    versions, then a profile of one more step. Returns the launches and the
+    trainer."""
+    torch.cuda.reset_peak_memory_stats()
+    tree = trainer_mod.VideoTransformerTrainer(mim_configs(), "cpu"
+                                               ).params_tree()
+    batch = mim_batch(rng)
+    tr, steps = run_mim_steps(tree, batch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {n: sum(st["launches"][n] for st in steps)
+                for n in KERNEL_NAMES}
+    _, plain = with_plain_versions(run_mim_steps, tree, batch)
+    for i, (k, p) in enumerate(zip(steps, plain)):
+        dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        dn = abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
+        log(f"mim step {i}: loss {k['loss']:.6f} (plain {p['loss']:.6f}, "
+            f"rel {dl:.2e}, tol {MIM_LOSS_REL_TOL}), grad_norm "
+            f"{k['grad_norm']:.6f} (plain {p['grad_norm']:.6f}, rel "
+            f"{dn:.2e}, tol {MIM_NORM_REL_TOL}); {k['ms']:.2f} ms (plain "
+            f"{p['ms']:.2f} ms); launches {k['launches']}")
+        assert np.isfinite([k["loss"], k["grad_norm"], p["loss"],
+                            p["grad_norm"]]).all(), (k, p)
+        assert k["loss"] > 0 and k["grad_norm"] > 0, k
+        assert dl <= MIM_LOSS_REL_TOL and dn <= MIM_NORM_REL_TOL, (i, dl, dn)
+        assert k["launches"] == MIM_WANT, (i, k["launches"])
+        assert not any(p["launches"].values()), p["launches"]
+    steady = [st["ms"] for st in steps[1:]]
+    ms = sum(steady) / len(steady)
+    log(f"mim slice: {MIM_CLIPS} clips of {MIM_FRAMES}x{IMG} a step, "
+        f"{ms:.2f} ms per step (mean of steps 2-{MIM_STEPS}; step 1 "
+        f"{steps[0]['ms']:.2f} ms), {MIM_CLIPS / ms * 1e3:.2f} clips/s on "
+        f"{card}; plain versions "
+        f"{sum(p['ms'] for p in plain[1:]) / len(steady):.2f} ms per step; "
+        f"peak device memory {peak:.2f} GiB (kernel steps)")
+    profile_forward(lambda: tr.train_step(batch, MIM_LR, MIM_WD), ms, n=2,
+                    what="mim train step")
+    return launches, tr, batch
+
+
+def mvit_supervised_step(rng):
+    """One supervised arch=mvit step (layer decay 0.75) on the card: its
+    launches, and decoder_pred bit-unchanged."""
+    tr = trainer_mod.VideoTransformerTrainer(mim_configs("supervised"),
+                                             "cuda")
+    dec = {n: p.detach().clone()
+           for n, p in tr.model.decoder_pred.named_parameters()}
+    batch = {"video": torch.from_numpy(rng.standard_normal(
+        (MIM_CLIPS, MIM_FRAMES, 3, IMG, IMG), dtype=np.float32)).to("cuda"),
+        "label": torch.from_numpy(rng.integers(0, CLASSES, MIM_CLIPS)).to(
+            "cuda")}
+    reset_counts()
+    stats = tr.train_step(batch, MIM_LR, MIM_WD)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"mvit supervised step: loss {float(stats['loss']):.6f}, grad_norm "
+        f"{float(stats['grad_norm']):.6f}, launches {launches}")
+    assert np.isfinite([float(stats["loss"]), float(stats["grad_norm"])]).all()
+    assert launches == MIM_WANT, launches
+    for n, p in tr.model.decoder_pred.named_parameters():
+        assert torch.equal(p, dec[n]), n
+    return launches
+
+
+def mim_forward_check(tr, batch):
+    """One eval-mode forward_features on 2 clips, kernels against the plain
+    versions: the worst error relative to max|plain| of the features and of
+    their cls rows ([:, 0], the supervised head's input)."""
+    video = batch["video"][:2].to(torch.bfloat16)
+    tr.model.eval()
+    with torch.inference_mode():
+        reset_counts()
+        got = tr.model.forward_features(video)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = with_plain_versions(tr.model.forward_features, video)
+    tokens = MIM_FRAMES // 2 * (IMG // 16) ** 2
+    assert got.shape == (2, 1 + tokens, tr.model.embed_dims), got.shape
+    assert counts == {n: MIM_WANT[n] if "bwd" not in n else 0
+                      for n in KERNEL_NAMES}, counts
+    rel = worst_error([got], [want.float()])[1]
+    rel_cls = worst_error([got[:, 0]], [want[:, 0].float()])[1]
+    log(f"mim forward (eval, 2 clips): features max|kernel-plain|/max|plain| "
+        f"= {rel:.3e}, cls rows {rel_cls:.3e} (tol {MIM_FEATURE_REL_TOL})")
+    assert max(rel, rel_cls) <= MIM_FEATURE_REL_TOL, (rel, rel_cls)
 
 
 def seeded_clip(rng):
@@ -506,12 +818,21 @@ def main():
         summary = [ln.strip() for ln in _build.build_log(name).splitlines()
                    if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
         log(f"ptxas -v ({name}):\n  " + "\n  ".join(summary))
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    seconds = {"build": time.perf_counter() - t0}
+    log(f"kernels built in {seconds['build']:.1f} s")
+
+    def lap(name, since):
+        seconds[name] = time.perf_counter() - since
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return time.perf_counter()
 
     rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    report = flash_phases(rng)  # autograd on (the library's backward)
     with torch.inference_mode():
-        report = kernel_phases(rng) + backward_phases(rng)
-
+        report += kernel_phases(rng) + backward_phases(rng)
+    t0 = lap("kernel phases", t0)
+    with torch.inference_mode():
         predictor = build_slice(rng)
         clips = np.stack([seeded_clip(rng) for _ in range(CLIPS)])
         batch = torch.from_numpy(clips).to("cuda", torch.bfloat16)
@@ -531,8 +852,8 @@ def main():
         log(f"slice forward launches: {slice_counts}")
         assert slice_counts == {
             "fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
-            "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": 0}, \
-            slice_counts
+            "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0}, slice_counts
         assert serve_launches["fused_prenorm_mhsa"] > 0 and \
             serve_launches["fused_prenorm_ffn"] > 0, serve_launches
 
@@ -563,9 +884,22 @@ def main():
         direct = np.stack([predictor(c[None])[0] for c in requests])
     check_server_answers(np.stack(answers), direct, stats)
     del predictor
+    t0 = lap("serve", t0)
 
     # ---- the training path: counts from 0 before each step (train_slice)
     train_launches = train_slice(rng, card)
+    t0 = lap("train", t0)
+    torch.cuda.empty_cache()
+
+    # ---- the mim path: counts from 0 before each step (mim_slice), then
+    # the supervised MViT step (counts from 0 before it)
+    mim_launches, mim_trainer, mim_data = mim_slice(rng, card)
+    t0 = lap("mim", t0)
+    mim_forward_check(mim_trainer, mim_data)
+    del mim_trainer, mim_data
+    torch.cuda.empty_cache()
+    mvit_launches = mvit_supervised_step(rng)
+    t0 = lap("mvit supervised step and mim forward check", t0)
 
     src, jax_src = "videotransformer_tpu_torch/csrc/", \
         "videotransformer_tpu/kernels/"
@@ -577,26 +911,41 @@ def main():
         "fused_prenorm_mhsa_bwd": (src + "fused_mhsa_bwd.cu",
                                    jax_src + "fused_mhsa_pallas.py:288"),
         "fused_prenorm_ffn_bwd": (src + "fused_ffn_bwd.cu",
-                                  jax_src + "fused_ffn_pallas.py:168")}
+                                  jax_src + "fused_ffn_pallas.py:168"),
+        "flash_attention": (src + "flash_attention.cu",
+                            jax_src + "flash_attention_pallas.py:52"),
+        "flash_attention_bwd": (src + "flash_attention_bwd.cu",
+                                jax_src + "flash_attention_pallas.py:97")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        phases = [{k: e[k] for k in ("phase", "max_abs_err", "rel_err", "ms",
-                                     "plain_ms")}
+        phases = [{k: e[k] for k in ("phase", "count", "max_abs_err",
+                                     "rel_err", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")}
                   for e in report if e["name"] == name]
+        # the on-path phases, each weighted by its calls: one TimeSformer
+        # block, or one mim step for the flash attention kernels
         on_path = [e for e in report if e["name"] == name and e["on_path"]]
+        total = lambda key: sum(e["count"] * e[key] for e in on_path)
+        library = [e["library_ms"] for e in on_path]
         by_path = {"serve": serve_launches[name],
-                   "train": train_launches[name]}
-        assert by_path["train"] > 0, (name, by_path)
+                   "train": train_launches[name], "mim": mim_launches[name],
+                   "mvit": mvit_launches[name]}
+        assert sum(by_path.values()) > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "launches_per_forward": slice_counts[name],
             "launches_per_train_step": train_launches[name] // TRAIN_STEPS,
+            "launches_per_mim_step": mim_launches[name] // MIM_STEPS,
             "max_abs_err": max(e["max_abs_err"] for e in phases),
-            "ms": sum(e["ms"] for e in on_path),
-            "plain_ms": sum(e["plain_ms"] for e in on_path),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "library_ms": None if None in library else total("library_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": max(on_path, key=lambda e: e["count"] * e["bound_ms"]
+                            )["bound_by"],
             "phases": phases})
+    log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -261,3 +261,136 @@ def test_train_step_with_mixup_and_drop_path_on_card(cuda_device,
         losses.append(float(tr.train_step(batch, 1e-3, 0.05)["loss"]))
         assert fused_mhsa.BWD_LAUNCHES - b0 == 4
     assert np.isfinite(losses).all() and losses[0] == losses[1], losses
+
+
+def _flash_case(rng, BH, Nq, Nkv, hd):
+    """bf16 q (1, BH, Nq, hd), k and v (1, BH, Nkv, hd), scale hd^-0.5."""
+    q = _bf16(rng, (1, BH, Nq, hd), 1.0)
+    k = _bf16(rng, (1, BH, Nkv, hd), 1.0)
+    v = _bf16(rng, (1, BH, Nkv, hd), 1.0)
+    return q, k, v, hd ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Nq,Nkv,hd", [
+    (3, 70, 50, 32),        # both edges ragged, Nkv < one tile
+    (2, 130, 260, 64),      # Nq < Nkv
+    (4, 197, 197, 96),      # dense, ragged
+    (2, 1568, 393, 96),     # MViT blocks 4-13 (per b·h)
+    (1, 6272, 1569, 96),    # MViT block 1: K/V above shared memory
+    (2, 100, 129, 128),
+])
+def test_flash_attention_kernels_match_plain(cuda_device, BH, Nq, Nkv, hd):
+    """B5 against the plain forward, and B6 (every gradient) against the
+    plain backward, both run in fp32 from the same bf16 inputs and the
+    kernel's own o and lse; B6 twice gives the same bits."""
+    from videotransformer_tpu_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(Nq + Nkv + hd)
+    q, k, v, scale = _flash_case(rng, BH, Nq, Nkv, hd)
+    n0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    o, lse = fa._launch(q, k, v, scale)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa._forward_reference(q.float(), k.float(), v.float(),
+                                             scale)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _rel_err(o, want_o) <= REL_TOL, _rel_err(o, want_o)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    do = _bf16(rng, tuple(q.shape), 1.0)
+    got = fa._launch_backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    again = fa._launch_backward(q, k, v, o, lse, do, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    assert (fa.LAUNCHES - n0, fa.BWD_LAUNCHES - b0) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_on_card(cuda_device):
+    """The autograd.Function launches B5 and B6 on CUDA bf16 tensors and
+    raises on what the kernels do not take."""
+    from videotransformer_tpu_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(4)
+    q, k, v, scale = _flash_case(rng, 2, 100, 40, 64)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    n0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = fa.flash_attention(q, k, v, scale)
+    out.float().square().sum().backward()
+    assert (fa.LAUNCHES - n0, fa.BWD_LAUNCHES - b0) == (1, 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    with pytest.raises(TypeError, match="expected bfloat16"):
+        fa.flash_attention(q.detach().float(), k.detach().float(),
+                           v.detach().float(), scale)
+    odd = _bf16(rng, (1, 2, 40, 48), 1.0)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.flash_attention(odd, odd, odd, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D", [(50176, 192), (12544, 384)])
+def test_ffn_kernels_at_mvit_widths(cuda_device, M, D):
+    """B2 and B4 at MViT's fused-FFN widths (blocks 1 and 3-12 at batch 8)
+    with LayerNorm eps 1e-6, against the plain versions in fp32."""
+    hidden, eps = 4 * D, 1e-6
+    rng = np.random.default_rng(D)
+    x = _bf16(rng, (M, D), 1.0)
+    w = [_bf16(rng, (D,), 0.1, 1.0), _bf16(rng, (D,), 0.1),
+         _bf16(rng, (hidden, D), 0.03), _bf16(rng, (hidden,), 0.03),
+         _bf16(rng, (D, hidden), 0.03), _bf16(rng, (D,), 0.03)]
+    out, h_pre = fused_ffn._launch(x, *w, eps, True)
+    want_out, _ = fused_ffn._forward_reference(
+        *[a.float() for a in (x, *w)], eps)
+    assert _rel_err(out, want_out) <= REL_TOL
+    g = _bf16(rng, (M, D), 1.0)
+    args = (g, x, h_pre, w[0], w[1], w[2], w[4])
+    got = fused_ffn._launch_backward(*args, eps)
+    want = fused_ffn.fused_prenorm_ffn_backward_reference(
+        *[a.float() for a in args], eps)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= REL_TOL, _rel_err(a, b)
+
+
+@pytest.mark.cuda
+def test_tiny_mim_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """Two bf16 MaskFeat steps (depth 4, HOG targets from the raw clip on the
+    device) on the card (B5/B6 and B2/B4) and on the CPU (plain versions)
+    from the same parameters: losses within 2e-2 relative (bf16 rounding
+    flips in four blocks and two optimizer steps)."""
+    from types import SimpleNamespace
+
+    from videotransformer_tpu_torch.kernels import flash_attention as fa
+    from videotransformer_tpu_torch.models.maskfeat import MaskFeat
+
+    monkeypatch.setattr(trainer_mod, "build_model", lambda c: MaskFeat(
+        img_size=32, num_frames=4, depth=4,
+        embed_dim_mul=((1, 2.0), (3, 2.0)),
+        atten_head_mul=((1, 2.0), (3, 2.0)),
+        pool_q_stride_size=((1, 1, 2, 2), (3, 1, 2, 2))))
+    cfg = SimpleNamespace(objective="mim", arch="mvit", num_class=10,
+                          num_frames=4, img_size=32, optim_type="adamw",
+                          clip_grad=1.0, seed=0, use_fp16=True)
+    cpu = trainer_mod.VideoTransformerTrainer(cfg, "cpu")
+    card = trainer_mod.VideoTransformerTrainer(cfg, cuda_device,
+                                               params=cpu.params_tree())
+    rng = np.random.default_rng(7)
+    raw = rng.integers(0, 256, (2, 4, 3, 32, 32)).astype(np.float32)
+    markers = np.zeros((2, 2, 2), np.int32)
+    markers[:, 0] = [0, 2]
+    batch = {"video": (raw / 255.0 - 0.45) / 0.225, "raw": raw,
+             "mask": np.ones((2, 2, 2, 2), np.int32), "cube_marker": markers,
+             "cube_count": np.ones(2, np.int32)}
+    counts0 = (fa.LAUNCHES, fa.BWD_LAUNCHES, fused_ffn.LAUNCHES,
+               fused_ffn.BWD_LAUNCHES)
+    for _ in range(2):
+        a = cpu.train_step(batch, 1e-3, 0.05)
+        b = card.train_step(batch, 1e-3, 0.05)
+        la, lb = float(a["loss"]), float(b["loss"])
+        assert np.isfinite(lb) and abs(la - lb) <= 2e-2 * abs(la), (la, lb)
+    counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, fused_ffn.LAUNCHES,
+              fused_ffn.BWD_LAUNCHES)
+    assert tuple(x - y for x, y in zip(counts, counts0)) == (8, 8, 4, 4)

@@ -9,8 +9,9 @@ within 5e-2 · max|ref| (bf16 rounds at slightly different points in flax's
 modules and the port, compounded over two blocks).
 
 Also: the converter against ``flax_to_torch_state_dict``, and the whole
-slice, serving and a training step, in a subprocess where jax and flax
-cannot be imported."""
+port (serving, a TimeSformer training step, a MaskFeat step with device HOG
+and a supervised MViT step) in a subprocess where jax, flax and the JAX
+package cannot be imported."""
 
 import ast
 import os
@@ -193,8 +194,12 @@ def test_slice_runs_with_jax_and_flax_blocked():
         sys.modules["jax"] = None
         sys.modules["flax"] = None
         sys.modules["videotransformer_tpu"] = None
+        import importlib, pkgutil
         import numpy as np, torch
         import chip_smoke
+        import videotransformer_tpu_torch as port
+        for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+            importlib.import_module(mod.name)  # every module of the port
         from videotransformer_tpu_torch.data.transforms import (
             eval_transform_clip)
         from videotransformer_tpu_torch.models.timesformer import TimeSformer
@@ -234,6 +239,37 @@ def test_slice_runs_with_jax_and_flax_blocked():
         stats = tr.train_step(batch, 1e-3, 0.05)
         assert np.isfinite(float(stats["loss"])), stats
         assert int(tr.eval_step(batch, 1)["bs"]) == 4
+        # a tiny MaskFeat (mim) step with device HOG from the raw clip, and
+        # a supervised MViT step, through every MViT module of the port
+        from videotransformer_tpu_torch.data.mask_generator import (
+            CubeMaskGenerator, pad_cube_marker)
+        from videotransformer_tpu_torch.kernels import flash_attention
+        from videotransformer_tpu_torch.models.maskfeat import MaskFeat
+        trainer.build_model = lambda c: MaskFeat(
+            img_size=32, num_frames=4, depth=4,
+            embed_dim_mul=((1, 2.0), (3, 2.0)),
+            atten_head_mul=((1, 2.0), (3, 2.0)),
+            pool_q_stride_size=((1, 1, 2, 2), (3, 1, 2, 2)))
+        cfg.objective, cfg.arch, cfg.num_frames, cfg.mixup = \
+            "mim", "mvit", 4, False
+        gen = CubeMaskGenerator((2, 2, 2), mask_ratio=0.5, min_num_patches=1,
+                                rng=np.random.default_rng(0))
+        masks, markers = zip(*[gen() for _ in range(2)])
+        marker, count = pad_cube_marker(markers, 2)
+        video = np.random.RandomState(2).rand(2, 4, 3, 32, 32).astype(
+            np.float32)
+        mim = {"video": video, "raw": np.floor(video * 255),
+               "mask": np.stack(masks), "cube_marker": marker,
+               "cube_count": count}
+        mt = trainer.VideoTransformerTrainer(cfg, "cpu")
+        stats = mt.train_step(mim, 1e-3, 0.05)
+        assert float(stats["loss"]) > 0 and float(stats["grad_norm"]) > 0
+        cfg.objective, cfg.layer_decay = "supervised", 0.75
+        st = trainer.VideoTransformerTrainer(cfg, "cpu")
+        sup = {"video": video, "label": np.arange(2)}
+        assert np.isfinite(float(st.train_step(sup, 1e-3, 0.05)["loss"]))
+        assert int(st.eval_step(sup, 1)["bs"]) == 2
+        assert flash_attention.LAUNCHES == 0  # the CPU runs the plain versions
         blocked = ("jax", "flax", "videotransformer_tpu")
         assert all(sys.modules.get(m) is None for m in blocked)
         assert not [m for m in sys.modules

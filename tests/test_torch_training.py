@@ -316,6 +316,6 @@ def test_fit_checkpoints_and_resume(monkeypatch, tmp_path):
 
 def test_unported_objectives_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        ptrainer.build_model(_configs(objective="mim"))
+        ptrainer.build_model(_configs(attention_type="joint_space_time"))
     with pytest.raises(NotImplementedError, match="not ported"):
         ptrainer.build_model(_configs(arch="vivit"))

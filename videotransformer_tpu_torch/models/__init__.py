@@ -1,2 +1,2 @@
-"""Models of the port: TimeSformer (divided space-time), and the converter
-from the JAX package's parameters."""
+"""Models of the port: TimeSformer (divided space-time), MViT and MaskFeat,
+and the converter from the JAX package's parameters."""

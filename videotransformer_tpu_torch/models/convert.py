@@ -10,7 +10,11 @@ prefixes, or the JAX trainer's nested parameter tree
 in both directions. The output names are those of
 ``videotransformer_tpu.models.convert.flax_to_torch_state_dict`` (the
 original PyTorch repo's), which the port's modules use, so
-``load_state_dict(strict=True)`` takes them.
+``load_state_dict(strict=True)`` takes them. A MaskFeat/MViT tree (its
+model has an ``mvit`` subtree) takes pytorchvideo's names on top, those of
+``maskfeat_flax_to_torch_state_dict`` (``patch_embed.patch_model.*``,
+``mlp.fc1``, ``attn.pool_q.weight``), so a MaskFeat checkpoint of the
+original repo loads too. A MaskFeat pretraining tree has no ``cls_head``.
 
 This is a port, not an import: importing ``videotransformer_tpu.models``
 needs jax and flax, which the card's machine does not have.
@@ -157,15 +161,62 @@ def unflatten_tree(flat):
     return tree
 
 
+# generic torch name -> pytorchvideo's, for MaskFeat/MViT (the JAX package's
+# maskfeat_flax_to_torch_state_dict, convert.py:522-537)
+_MASKFEAT_NAMES = (
+    (re.compile(r"^patch_embed\."), "patch_embed.patch_model."),
+    (re.compile(r"(^|\.)mlp_fc([12])\."), r"\1mlp.fc\2."),
+    (re.compile(r"(^|\.)pool_([qkv])\.conv\.weight$"), r"\1pool_\2.weight"),
+)
+_GENERIC_NAMES = (
+    (re.compile(r"^patch_embed\.patch_model\."), "patch_embed."),
+    (re.compile(r"(^|\.)mlp\.fc([12])\."), r"\1mlp_fc\2."),
+    (re.compile(r"(^|\.)pool_([qkv])\.weight$"), r"\1pool_\2.conv.weight"),
+)
+
+
+def _rename(state_dict, rules):
+    out = {}
+    for name, value in state_dict.items():
+        for pattern, repl in rules:
+            name = pattern.sub(repl, name)
+        out[name] = value
+    return out
+
+
+def maskfeat_flat_to_state_dict(flat):
+    """A MaskFeat/MViT model's {"a/b/c": array} -> its state_dict, with the
+    keys of ``maskfeat_flax_to_torch_state_dict``."""
+    return _rename(jax_flat_to_state_dict(flat), _MASKFEAT_NAMES)
+
+
+def maskfeat_state_dict_to_flat(state_dict):
+    """The inverse of ``maskfeat_flat_to_state_dict``."""
+    return state_dict_to_jax_flat(_rename(state_dict, _GENERIC_NAMES))
+
+
+def _is_maskfeat(model_tree):
+    return "mvit" in model_tree
+
+
 def trainer_tree_to_state_dicts(tree):
     """The JAX trainer's ``{"model": ..., "cls_head": {"cls_head": ...}}``
-    (numpy leaves) -> (model state_dict, head state_dict), fp32 arrays."""
-    return (jax_flat_to_state_dict(flatten_tree(tree["model"])),
-            jax_flat_to_state_dict(flatten_tree(tree["cls_head"])))
+    (numpy leaves) -> (model state_dict, head state_dict or None when the
+    tree has no head), fp32 arrays."""
+    to_sd = (maskfeat_flat_to_state_dict if _is_maskfeat(tree["model"])
+             else jax_flat_to_state_dict)
+    head = tree.get("cls_head")
+    return (to_sd(flatten_tree(tree["model"])),
+            None if head is None
+            else jax_flat_to_state_dict(flatten_tree(head)))
 
 
-def state_dicts_to_trainer_tree(model_sd, head_sd):
-    """(model state_dict, head state_dict) -> the JAX trainer's nested
-    parameter tree, fp32 numpy leaves in flax layouts."""
-    return {"model": unflatten_tree(state_dict_to_jax_flat(model_sd)),
-            "cls_head": unflatten_tree(state_dict_to_jax_flat(head_sd))}
+def state_dicts_to_trainer_tree(model_sd, head_sd=None):
+    """(model state_dict, head state_dict or None) -> the JAX trainer's
+    nested parameter tree, fp32 numpy leaves in flax layouts."""
+    maskfeat = any(k.startswith("mvit.") for k in model_sd)
+    to_flat = maskfeat_state_dict_to_flat if maskfeat else state_dict_to_jax_flat
+    tree = {"model": unflatten_tree(to_flat(model_sd))}
+    if head_sd is not None:
+        tree["cls_head"] = unflatten_tree(state_dict_to_jax_flat(head_sd))
+    return tree

@@ -45,6 +45,15 @@ def kaiming_normal_fan_in_relu_(tensor, generator):
 
 
 @torch.no_grad()
+def xavier_uniform_flat_(tensor, generator):
+    """xavier_uniform on the (out, flattened-in) view (MaskFeat's patch embed
+    and decoder, video_transformer.py:860-861): U(-b, b) with b =
+    sqrt(6 / (fan_in + fan_out)), fan_in = in · prod(kernel), fan_out = out."""
+    bound = math.sqrt(6.0 / (tensor[0].numel() + tensor.shape[0]))
+    tensor.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
 def normal_(tensor, generator, std=0.01):
     tensor.normal_(0.0, std, generator=generator)
 

@@ -1,2 +1,2 @@
-"""Training of the port: the supervised trainer (``trainer``), its
-optimizer, schedules and metrics."""
+"""Training of the port: the trainer (``trainer``: supervised TimeSformer
+and MViT, MaskFeat pretraining), its optimizer, schedules and metrics."""

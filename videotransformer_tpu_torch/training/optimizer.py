@@ -13,13 +13,17 @@ per-tensor form (optimizer.py:350-400):
   norms (optimizer.py:252-274). It is not global-norm clipping.
 - AdamW with torch semantics: p *= 1 - lr·wd (decay group only); p -=
   lr · m̂ / (sqrt(v̂) + eps); SGD with nesterov momentum as torch's.
+- MViT's layer-wise LR decay (optimizer.py:53-75, 414-416): each parameter's
+  lr (and so its decoupled decay) is scaled by
+  ``layer_decay ** (17 - mvit_layer_id(name))``; the trainer passes these
+  scales for a supervised ``arch='mvit'`` run with ``layer_decay != 1``.
 
 ``lr`` and ``wd`` arrive per step from the epoch schedules. State is plain
 tensors keyed by parameter name (``state_dict``/``load_state_dict`` for
 checkpoints). The clip and the AdamW update run as ``torch._foreach_*``
 multi-tensor operations: the same per-tensor arithmetic (up to the order of
 a multiply-add), in a handful of launches for all ~200 tensors instead of
-about ten per tensor. MViT's layer-wise LR decay waits for the MViT port.
+about ten per tensor.
 """
 
 import torch
@@ -33,13 +37,35 @@ def no_decay(name, param, skip_keywords=SKIP_KEYWORDS):
             or any(k in name for k in skip_keywords))
 
 
+def mvit_layer_id(name, num_layers=18):
+    """optimizer.py:53-66 on the trainer's torch names ("model.mvit.blocks.3.
+    ..."): the mask token, patch embed and positional encoding are layer 0,
+    block i is layer i + 1, the rest (final norm, head) num_layers - 1."""
+    p = name.replace("model.", "").replace("mvit.", "")
+    if p.startswith(("mask_token", "patch_embed", "cls_positional_encoding")):
+        return 0
+    if p.startswith("blocks."):
+        return int(p.split(".")[1]) + 1
+    return num_layers - 1
+
+
+def layer_scales(names, layer_decay, num_layers=18):
+    """{name: layer_decay ** (num_layers - 1 - layer id)} (optimizer.py:69-75)."""
+    return {n: layer_decay ** (num_layers - 1 - mvit_layer_id(n, num_layers))
+            for n in names}
+
+
 class RefOptimizer:
     """step(lr, wd) -> total grad norm, over ``named_params`` (name, param)
-    whose ``.grad`` the backward filled."""
+    whose ``.grad`` the backward filled; ``lr_scales`` ({name: scale}, or
+    None for 1 everywhere) scales each parameter's lr."""
 
     def __init__(self, named_params, optim_type="adamw", betas=(0.9, 0.999),
-                 eps=1e-8, momentum=0.9, nesterov=True, clip_grad=0.0):
+                 eps=1e-8, momentum=0.9, nesterov=True, clip_grad=0.0,
+                 lr_scales=None):
         self.params = dict(named_params)
+        self.lr_scales = {n: float((lr_scales or {}).get(n, 1.0))
+                          for n in self.params}
         self.optim_type = optim_type.lower()
         if self.optim_type not in ("adamw", "sgd"):
             raise ValueError(self.optim_type)
@@ -59,8 +85,11 @@ class RefOptimizer:
 
     def _clipped_grads(self, names):
         """Per-parameter clip (each gradient scaled by min(1, clip / (its
-        norm + 1e-6))); returns (grads in ``names`` order, total norm)."""
-        grads = [self.params[n].grad for n in names]
+        norm + 1e-6))); returns (grads in ``names`` order, total norm). A
+        parameter the loss did not reach (MViT's mask token in a supervised
+        run) has a zero gradient, as jax.grad gives it."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in (self.params[n] for n in names)]
         norms = torch.stack(torch._foreach_norm(grads))
         total = torch.sqrt((norms * norms).sum())
         if self.clip_grad and self.clip_grad > 0:
@@ -86,21 +115,24 @@ class RefOptimizer:
             torch._foreach_add_(mu, grads, alpha=1 - b1)
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-            decay = [p for n, p in zip(names, params) if not self.no_decay[n]]
+            decay = [n for n in names if not self.no_decay[n]]
             if decay:
-                torch._foreach_mul_(decay, 1 - lr * wd)
+                torch._foreach_mul_(
+                    [self.params[n] for n in decay],
+                    [1 - lr * self.lr_scales[n] * wd for n in decay])
             denom = torch._foreach_div(nu, bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, self.eps)
             update = torch._foreach_div(mu, bc1)
             torch._foreach_div_(update, denom)
-            torch._foreach_add_(params, update, alpha=-lr)
+            torch._foreach_mul_(update, [-lr * self.lr_scales[n] for n in names])
+            torch._foreach_add_(params, update)
         else:
             for n, p, g, buf in zip(names, params, grads, mu):
                 d = g + (0.0 if self.no_decay[n] else wd) * p
                 buf.mul_(self.momentum).add_(d)
                 d = d + self.momentum * buf if self.nesterov else buf
-                p.sub_(lr * d)
+                p.sub_(lr * self.lr_scales[n] * d)
         return total
 
     def state_dict(self):

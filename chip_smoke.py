@@ -11,10 +11,12 @@ weights from a seed:
   repeated from the same state with the plain versions patched in;
 - mim: three MaskFeat pretraining steps on MViT-B (16x224, 16 blocks, two
   q-pool stages, masks from the cube mask generator, HOG targets computed on
-  the card from the raw clip) on 8 clips, repeated from the same state
-  through the plain versions; then one supervised arch=mvit step (layer
-  decay 0.75, decoder_pred frozen) and an eval-mode forward on 2 clips
-  against the plain versions.
+  the card from the raw clip) on 8 clips with cuDNN's deterministic
+  algorithms, timed, and repeated from the same state through the plain
+  versions, compared; further steps with cuDNN's default algorithms, timed
+  and profiled; then one supervised arch=mvit step (layer decay 0.75,
+  decoder_pred frozen) and an eval-mode forward on 2 clips against the plain
+  versions.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and must have gone through its kernels.
@@ -29,9 +31,11 @@ times) beside "bound_ms" (the larger of the bytes it must move over 3.35
 TB/s and its FLOPs over 989 TFLOP/s, computed from the shapes), with each
 measured phase under "phases". For the TimeSformer kernels the times are
 those of their calls in one TimeSformer block; for the flash attention
-kernels, of their 16 calls in one mim step. The last line is
-{"ok": true, "device": {...}}. The whole run took 120-144 s of command time
-on an H100 (the six builds included).
+kernels, of their 16 calls in one mim step, each shape's line also giving
+its TFLOP/s, its share of the bound and the host time to issue a call (the
+wrapper's and scaled_dot_product_attention's). The last line is
+{"ok": true, "device": {...}}. Its phases took about 110 s on an H100 (the
+six builds included).
 """
 
 import json
@@ -44,14 +48,13 @@ from unittest import mock
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from videotransformer_tpu_torch.data.mask_generator import (
     CubeMaskGenerator, pad_cube_marker)
 from videotransformer_tpu_torch.data.transforms import eval_transform_clip
 from videotransformer_tpu_torch.kernels import (
     _build, flash_attention, fused_ffn, fused_mhsa)
-from videotransformer_tpu_torch.models import convert
+from videotransformer_tpu_torch.models import convert, mvit
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import (
     get_vit_base_patch16_224)
@@ -59,6 +62,9 @@ from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, make_predict_fn)
 from videotransformer_tpu_torch.serving.server import InferenceServer
+from videotransformer_tpu_torch.tools.flash_bench import (
+    FLASH_SHAPES, HD as MVIT_HD, bound, flash_bounds, issue_us, sdpa_times,
+    timed_ms)
 from videotransformer_tpu_torch.training import trainer as trainer_mod
 
 SEED = 0
@@ -79,14 +85,10 @@ LOSS_REL_TOL = 1e-2
 NORM_REL_TOL = 3e-2
 LIBRARIES = ("fused_mhsa", "fused_ffn", "fused_mhsa_bwd", "fused_ffn_bwd",
              "flash_attention", "flash_attention_bwd")
-# the card's peaks (H100 SXM data sheet, dense): bf16 tensor cores, HBM
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-# MaskFeat on MViT-B at 16x224 (the JAX trainer's objective=mim build)
+# MaskFeat on MViT-B at 16x224 (the JAX trainer's objective=mim build);
+# FLASH_SHAPES (flash_bench) are the (B·H, Nq, Nkv, calls) of its flash
+# attention calls in one batch-8 step, head dim MVIT_HD
 MIM_CLIPS, MIM_FRAMES, MIM_STEPS, MIM_LR, MIM_WD = 8, 16, 3, 1e-4, 0.05
-MVIT_HD = 96
-# (B·H, Nq, Nkv, blocks) of the flash attention calls of one batch-8 step
-FLASH_SHAPES = ((8, 25088, 393, 1), (16, 6272, 1569, 1), (16, 6272, 393, 1),
-                (32, 1568, 1569, 1), (32, 1568, 393, 10), (64, 1568, 393, 2))
 # the fused FFN calls of one batch-8 mim step, (rows, D, blocks), hidden 4·D,
 # as kernel phases: (phase, shape, LayerNorm eps, on the TimeSformer path,
 # calls a step)
@@ -97,8 +99,10 @@ MVIT_FFN_PHASES = tuple(
 # kernels vs plain versions over the mim steps (bf16 rounding flips through
 # 16 blocks and back, compounded by the updates): two H100 runs showed at
 # most 2.99e-4 (loss) and 1.29e-4 (grad norm); the bounds leave 3x and 7x.
-# The eval forward on 2 clips: 1.339e-2 (features), 8.97e-3 (cls rows) in
-# both runs; the bound leaves 2x.
+# The eval forward on 2 clips, after the trainer's nine mim steps (six with
+# cuDNN's default algorithms, so it varies between runs): 1.245e-2 to
+# 1.660e-2 (features), 6.30e-3 to 8.40e-3 (cls rows) in two runs; the bound
+# leaves 1.8x.
 MIM_LOSS_REL_TOL = 1e-3
 MIM_NORM_REL_TOL = 1e-3
 MIM_FEATURE_REL_TOL = 3e-2
@@ -108,30 +112,9 @@ def log(*a):
     print(*a, flush=True)
 
 
-def timed_ms(fn, iters=20, warmup=3):
-    """Mean device time of one call, from CUDA events over ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bf16_on_card(rng, shape, std, mean=0.0):
     a = rng.standard_normal(shape, dtype=np.float32) * std + mean
     return torch.from_numpy(a).to("cuda", torch.bfloat16)
-
-
-def bound(flops, nbytes):
-    """(ms, "operations" or "bytes"): the least time the card could take."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def in_turns(plain, kernel, iters=20, plain_iters=5):
@@ -311,7 +294,8 @@ def flash_phases(rng):
     (B6 from the kernel's own o and lse, every gradient); times in turns
     (plain, kernel, kernel, plain), and scaled_dot_product_attention's as
     the library's (the backward's: its forward and backward less its
-    forward)."""
+    forward); the host time to issue a call, the wrapper's and the
+    library's."""
     report = []
     scale = MVIT_HD ** -0.5
     for bh, nq, nkv, count in FLASH_SHAPES:
@@ -345,43 +329,45 @@ def flash_phases(rng):
 
         ms, plain_ms = in_turns(lambda: fa._forward_reference(q, k, v, scale),
                                 lambda: fa._launch(q, k, v, scale))
-        lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale))
         b_ms, b_plain_ms = in_turns(
             lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do,
                                                           scale),
             lambda: fa._launch_backward(q, k, v, o, lse, do, scale))
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-        both, fwd = in_turns(sdpa, lambda: torch.autograd.grad(
-            sdpa(), (qg, kg, vg), do), plain_iters=20)
-        lib_b_ms = both - fwd
-        flops = 4 * bh * nq * nkv * MVIT_HD
-        fwd_bound = bound(flops, 2 * (2 * nq + 2 * nkv) * bh * MVIT_HD)
-        bwd_bound = bound(2.5 * flops, 2 * (4 * nq + 6 * nkv) * bh * MVIT_HD)
-        for name, err, t, t_plain, t_lib, (bms, by) in (
-                ("flash_attention", fwd_err, ms, plain_ms, lib_ms, fwd_bound),
+        lib_ms, lib_b_ms, *lib_issued = sdpa_times(q, k, v, do, scale)
+        issued = (issue_us(lambda: fa._launch(q, k, v, scale)),
+                  issue_us(lambda: fa._launch_backward(q, k, v, o, lse, do,
+                                                       scale)))
+        fwd_bound, bwd_bound, flops = flash_bounds(bh, nq, nkv, MVIT_HD)
+        for name, err, t, t_plain, t_lib, (bms, by), f, us, lib_us in (
+                ("flash_attention", fwd_err, ms, plain_ms, lib_ms, fwd_bound,
+                 flops, issued[0], lib_issued[0]),
                 ("flash_attention_bwd", bwd_err, b_ms, b_plain_ms, lib_b_ms,
-                 bwd_bound)):
-            log(f"kernel {name} [{label}]: kernel {t:.4f} ms, plain "
-                f"{t_plain:.4f} ms, scaled_dot_product_attention {t_lib:.4f} "
-                f"ms, bound {bms:.4f} ms ({by}), {bms / t:.1%} of it")
+                 bwd_bound, 2.5 * flops, issued[1], lib_issued[1])):
+            log(f"kernel {name} [{label}]: kernel {t:.4f} ms = "
+                f"{f / t / 1e9:.1f} TFLOP/s, {bms / t:.1%} of the bound "
+                f"{bms:.4f} ms ({by}); plain {t_plain:.4f} ms, "
+                f"scaled_dot_product_attention {t_lib:.4f} ms (device "
+                f"times); host time to issue a call: the wrapper {us:.1f} "
+                f"us, scaled_dot_product_attention {lib_us:.1f} us")
             report.append({"name": name, "phase": label, "on_path": True,
                            "count": count, "max_abs_err": err[0],
                            "rel_err": err[1], "ms": t, "plain_ms": t_plain,
                            "library_ms": t_lib, "bound_ms": bms,
-                           "bound_by": by})
-        del q, k, v, do, o, lse, qg, kg, vg
+                           "bound_by": by, "tflops": f / t / 1e9,
+                           "issue_us": us, "library_issue_us": lib_us})
+        del q, k, v, do, o, lse
     return report
 
 
 # ---------------------------------------------------------------- profile
 
-def profile_forward(forward, event_ms, n=3, what="forward"):
+def profile_forward(forward, event_ms, n=3, what="forward", ranges=()):
     """Device kernels of ``n`` calls of ``forward`` under ``torch.profiler``:
     device ms per call for each kernel name, the device's busy share between
     the first kernel's start and the last kernel's end, and the summed
-    kernel time over ``event_ms`` (one call by CUDA events, unprofiled)."""
+    kernel time over ``event_ms`` (one call by CUDA events, unprofiled);
+    then for each ``record_function`` range named in ``ranges`` the device
+    time of the kernels launched inside it."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -393,7 +379,8 @@ def profile_forward(forward, event_ms, n=3, what="forward"):
             forward()
         torch.cuda.synchronize()
     device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in ranges]
     if not device:
         log("profile: no device events in the trace; not measured")
         return
@@ -419,6 +406,27 @@ def profile_forward(forward, event_ms, n=3, what="forward"):
     for name, (ms, calls) in sorted(per_name.items(),
                                     key=lambda kv: -kv[1][0])[:24]:
         log(f"  {ms:9.3f} ms  {calls // n:4d} calls  {name[:110]}")
+    for label in ranges:
+        spans = [e for e in prof.events() if e.name == label
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        log(f"  {sum(e.device_time_total for e in spans) / 1e3 / n:9.3f} ms "
+            f" {len(spans) // n:4d} calls  range {label!r} (device time of "
+            f"its kernels)")
+
+
+def in_ranges(cls, label):
+    """Patches that run the autograd.Function ``cls``'s forward and backward
+    each inside a ``record_function`` range: ``label`` and ``label``
+    backward."""
+    def wrap(fn, name):
+        def run(*args):
+            with torch.profiler.record_function(name):
+                return fn(*args)
+        return staticmethod(run)
+
+    return [mock.patch.object(cls, "forward", wrap(cls.forward, label)),
+            mock.patch.object(cls, "backward",
+                              wrap(cls.backward, f"{label} backward"))]
 
 
 # ---------------------------------------------------------------- the slice
@@ -651,8 +659,7 @@ def run_mim_steps(tree, batch):
     return tr, steps
 
 
-def with_plain_versions(fn, *args):
-    patches = plain_versions()
+def with_patches(patches, fn, *args):
     for p in patches:
         p.start()
     try:
@@ -662,20 +669,35 @@ def with_plain_versions(fn, *args):
             p.stop()
 
 
+def with_plain_versions(fn, *args):
+    return with_patches(plain_versions(), fn, *args)
+
+
 def mim_slice(rng, card):
     """The mim main path: three MaskFeat steps through the kernels (counts
-    from 0 per step), the same three from the same state through the plain
-    versions, then a profile of one more step. Returns the launches and the
-    trainer."""
+    from 0 per step) with cuDNN's deterministic algorithms, timed, and the
+    same three from the same state through the plain versions, compared;
+    then further steps of the kernels' trainer with cuDNN's default
+    algorithms: one, then two timed, then a profile. Returns the launches
+    and the trainer."""
     torch.cuda.reset_peak_memory_stats()
     tree = trainer_mod.VideoTransformerTrainer(mim_configs(), "cpu"
                                                ).params_tree()
     batch = mim_batch(rng)
-    tr, steps = run_mim_steps(tree, batch)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    # cuDNN's default convolution backward is not reproducible, and AdamW's
+    # first updates (about lr·sign(g)) carry that noise to ~1e-3 of the loss
+    # by the third step, with or without the kernels: the compared runs take
+    # the deterministic algorithms, so each repeats to the bit.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr, steps = run_mim_steps(tree, batch)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, plain = with_plain_versions(run_mim_steps, tree, batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     launches = {n: sum(st["launches"][n] for st in steps)
                 for n in KERNEL_NAMES}
-    _, plain = with_plain_versions(run_mim_steps, tree, batch)
     for i, (k, p) in enumerate(zip(steps, plain)):
         dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
         dn = abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
@@ -690,16 +712,21 @@ def mim_slice(rng, card):
         assert dl <= MIM_LOSS_REL_TOL and dn <= MIM_NORM_REL_TOL, (i, dl, dn)
         assert k["launches"] == MIM_WANT, (i, k["launches"])
         assert not any(p["launches"].values()), p["launches"]
-    steady = [st["ms"] for st in steps[1:]]
-    ms = sum(steady) / len(steady)
-    log(f"mim slice: {MIM_CLIPS} clips of {MIM_FRAMES}x{IMG} a step, "
-        f"{ms:.2f} ms per step (mean of steps 2-{MIM_STEPS}; step 1 "
-        f"{steps[0]['ms']:.2f} ms), {MIM_CLIPS / ms * 1e3:.2f} clips/s on "
-        f"{card}; plain versions "
-        f"{sum(p['ms'] for p in plain[1:]) / len(steady):.2f} ms per step; "
-        f"peak device memory {peak:.2f} GiB (kernel steps)")
-    profile_forward(lambda: tr.train_step(batch, MIM_LR, MIM_WD), ms, n=2,
-                    what="mim train step")
+    steady = lambda run: sum(st["ms"] for st in run[1:]) / (len(run) - 1)
+    det_ms = steady(steps)
+    step = lambda: tr.train_step(batch, MIM_LR, MIM_WD)
+    ms = timed_ms(step, iters=2, warmup=1, queued=False)
+    log(f"mim slice: {MIM_CLIPS} clips of {MIM_FRAMES}x{IMG} a step on "
+        f"{card}; with cuDNN's deterministic algorithms {det_ms:.2f} ms per "
+        f"step (mean of steps 2-{MIM_STEPS}; step 1 {steps[0]['ms']:.2f} "
+        f"ms), {MIM_CLIPS / det_ms * 1e3:.2f} clips/s, plain versions "
+        f"{steady(plain):.2f} ms; with cuDNN's default algorithms {ms:.2f} "
+        f"ms per step (two steps after one untimed), "
+        f"{MIM_CLIPS / ms * 1e3:.2f} clips/s; peak device memory "
+        f"{peak:.2f} GiB (kernel steps)")
+    pool = "mvit skip max pool"
+    with_patches(in_ranges(mvit._MaxPool3d, pool), profile_forward, step, ms,
+                 2, "mim train step", (pool, f"{pool} backward"))
     return launches, tr, batch
 
 
@@ -864,7 +891,8 @@ def main():
                 fused_ffn, "fused_prenorm_ffn",
                 fused_ffn.fused_prenorm_ffn_reference):
             plain = predict(batch)
-            plain_ms = timed_ms(lambda: predict(batch), iters=5, warmup=1)
+            plain_ms = timed_ms(lambda: predict(batch), iters=5, warmup=1,
+                               queued=False)
         assert logits.shape == (CLIPS, CLASSES)
         assert torch.isfinite(logits).all()
         err = (logits - plain).abs().max().item()
@@ -875,7 +903,8 @@ def main():
         same = (logits.argmax(-1) == plain.argmax(-1)).tolist()
         log(f"slice argmax equal on {sum(same)}/{len(same)} rows")
         assert all(same), same
-        ms = timed_ms(lambda: predict(batch), iters=10, warmup=2)
+        ms = timed_ms(lambda: predict(batch), iters=10, warmup=2,
+                      queued=False)
         log(f"slice: batch of {CLIPS} clips x {CROPS} crops, {ms:.2f} ms "
             f"(plain versions {plain_ms:.2f} ms), {CLIPS / ms * 1e3:.1f} "
             f"clips/s on {card}")

@@ -279,6 +279,8 @@ def _flash_case(rng, BH, Nq, Nkv, hd):
     (2, 1568, 393, 96),     # MViT blocks 4-13 (per b·h)
     (1, 6272, 1569, 96),    # MViT block 1: K/V above shared memory
     (2, 100, 129, 128),
+    (3, 300, 250, 96),      # ragged against both tiles, three slices
+    (12, 3137, 3137, 64),   # joint space-time TimeSformer-B, 16 frames
 ])
 def test_flash_attention_kernels_match_plain(cuda_device, BH, Nq, Nkv, hd):
     """B5 against the plain forward, and B6 (every gradient) against the
@@ -329,6 +331,8 @@ def test_flash_attention_function_on_card(cuda_device):
     odd = _bf16(rng, (1, 2, 40, 48), 1.0)
     with pytest.raises(ValueError, match="head dim 48"):
         fa.flash_attention(odd, odd, odd, scale)
+    with pytest.raises(ValueError, match="not positive"):
+        fa.flash_attention(q.detach(), k.detach(), v.detach(), -scale)
 
 
 @pytest.mark.cuda
@@ -353,6 +357,30 @@ def test_ffn_kernels_at_mvit_widths(cuda_device, M, D):
         *[a.float() for a in args], eps)
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= REL_TOL, _rel_err(a, b)
+
+
+@pytest.mark.cuda
+def test_skip_maxpool_backward_repeats_on_card(cuda_device):
+    """MViT's skip max pool at block 1 (batch 8, 8x56x56x96, bf16): the same
+    output as F.max_pool3d, a gradient within 1e-2 of its fp32 gradient, and
+    the same bits twice (F.max_pool3d's backward adds with atomics)."""
+    import torch.nn.functional as F
+
+    from videotransformer_tpu_torch.models import mvit
+
+    rng = np.random.default_rng(8)
+    x = _bf16(rng, (8, 8, 56, 56, 96), 1.0).requires_grad_()
+    g = _bf16(rng, (8, 8, 28, 28, 96), 1.0)
+    args = ((1, 3, 3), (1, 2, 2), (0, 1, 1))
+    y = mvit._maxpool3d(x, *args)
+    grads = [torch.autograd.grad(y, x, g, retain_graph=True)[0]
+             for _ in range(2)]
+    xf = x.detach().float().permute(0, 4, 1, 2, 3).requires_grad_()
+    want = F.max_pool3d(xf, *args).permute(0, 2, 3, 4, 1)
+    want_g, = torch.autograd.grad(want, xf, g.float())
+    assert torch.equal(y.float(), want)
+    assert _rel_err(grads[0], want_g.permute(0, 2, 3, 4, 1)) <= REL_TOL
+    assert torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.cuda

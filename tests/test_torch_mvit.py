@@ -156,6 +156,29 @@ def test_multiscale_block_matches_jax(dim, dim_out, stride_q):
     assert _rel(torch.cat([out_cls, out], 1), want) <= 1e-4
 
 
+@pytest.mark.parametrize("shape,kernel,stride", [
+    ((2, 4, 9, 7, 5), (1, 3, 3), (1, 2, 2)),   # MViT's skip pool, ragged
+    ((2, 5, 8, 8, 3), (3, 3, 3), (2, 2, 2)),
+    ((1, 3, 6, 6, 4), (1, 1, 1), (1, 1, 1)),
+])
+def test_skip_maxpool_and_its_gradient_match_jax(shape, kernel, stride):
+    """The skip path's max pool and its written-out backward against
+    jax.grad through reduce_window (fp32: only the order of the adds
+    differs)."""
+    padding = [k // 2 for k in kernel]
+    rng = np.random.RandomState(sum(shape))
+    x = rng.randn(*shape).astype(np.float32)
+    want = jmvit._maxpool3d(jnp.asarray(x), kernel, stride, padding)
+    gy = rng.randn(*want.shape).astype(np.float32)
+    want_g = jax.grad(lambda a: jnp.sum(
+        jmvit._maxpool3d(a, kernel, stride, padding) * gy))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = mvit._maxpool3d(xt, kernel, stride, padding)
+    got.backward(torch.from_numpy(gy))
+    assert np.array_equal(got.detach().numpy(), np.asarray(want))
+    assert _rel(xt.grad, want_g) <= 1e-6
+
+
 def test_droppath_pair_shares_one_mask_per_sample():
     blk = mvit.MultiScaleBlock(64, 64, 2, droppath_rate=0.5,
                                kernel_kv=(3, 3, 3), stride_kv=(1, 2, 2))

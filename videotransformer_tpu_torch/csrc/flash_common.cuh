@@ -1,109 +1,142 @@
-// Pieces shared by the q-blocked flash-attention kernels (flash_attention.cu,
-// the forward, and flash_attention_bwd.cu, the backward).
+// Pieces shared by the flash-attention kernels (flash_attention.cu, the
+// forward, and flash_attention_bwd.cu, the backward).
 //
-// Tensors are (B·H, N, HD) bf16, row-major, HD a multiple of 16 (the kernels
-// are instantiated for HD = 32, 64, 96 and 128). A tile is kFlashRows rows
-// of one (b·h) slice in shared memory with rows padded to HD + 8 elements:
-// the 8 row addresses of one ldmatrix then fall into 8 different 16-byte
-// bank groups for every instantiated HD, so the fragment reads are
-// conflict-free. Rows past the slice's length are zero-filled (cp.async with
-// a source size of 0), so a ragged edge reads zeros and never memory past
-// the tensor.
+// Tensors are (B·H, N, HD) bf16, row-major, HD 32, 64, 96 or 128. A tile of
+// R rows of one (b·h) slice lies in shared memory as HD / PW column panels of
+// R x PW, PW = 64 where HD is a multiple of 64 and 32 otherwise, each panel
+// swizzled by its row of PW * 2 bytes (128 or 64): the layout one TMA box per
+// panel writes and wgmma reads through a descriptor. A 96-wide head (192-byte
+// rows, not a multiple of the 128-byte swizzle span) is three 64-byte panels.
+// The same panels serve both operand orders: read K-major (rows are the
+// product's m or n, the head dim its k: Q·Kᵀ, K·Qᵀ) or MN-major (rows are
+// the product's k, the head dim its n: P·V, dS·K, Pᵀ·dO, dSᵀ·Q).
 #pragma once
 
-#include "gemm_tile.cuh"
+#include "sm90.cuh"
 
 namespace vt {
 
-constexpr int kFlashRows = 64;     // queries or keys per tile
-constexpr int kFlashWarps = 4;     // 16 rows of a tile per warp
-constexpr int kFlashThreads = kFlashWarps * 32;
+using bf16 = __nv_bfloat16;
+
+// Forward and dq pass: a block of two consumer warpgroups, each owning 64
+// query rows, and a producer warpgroup (one thread of it issues the TMA
+// loads) that gives its registers to the consumers.
+constexpr int kFlashBM = 128;  // queries a block
+constexpr int kFlashThreads = 384;
+constexpr int kFlashStages = 3;  // the K/V ring
+constexpr int kFlashProducerRegs = 24;
+constexpr int kFlashConsumerRegs = 240;
+constexpr int kFlashBN = 80;   // keys a tile (forward and dq pass)
+constexpr int kFlashBQ = 64;   // queries a tile (dk/dv pass)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
-struct FlashTile {
-  static constexpr int kLd = HD + 8;                  // padded row, elements
-  static constexpr int kElems = kFlashRows * kLd;     // one tile
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+struct Panels {
+  static_assert(HD % 32 == 0 && HD >= 32 && HD <= 128, "head dim");
+  static constexpr int kPW = HD % 64 == 0 ? 64 : 32;  // panel width
+  static constexpr int kCount = HD / kPW;
+  static constexpr uint32_t kSwizzle = kPW == 64 ? 1 : 2;  // descriptor code
+  static constexpr uint32_t kRowBytes = kPW * 2;
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;  // 8 rows (SBO)
 };
 
-// Tile rows row0 .. row0 + kFlashRows of a (n, HD) slice into dst; rows at
-// or past n are zero-filled. Every thread of the block takes part.
-template <int HD>
-__device__ __forceinline__ void load_flash_tile(bf16* dst, const bf16* src,
-                                                int row0, int n) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kFlashRows * kChunks; c += kFlashThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const int gr = row0 + r;
-    const bool valid = gr < n;
-    cp_async16(dst + r * FlashTile<HD>::kLd + col,
-               src + (size_t)(valid ? gr : 0) * HD + col, valid);
+// Turns of the two consumer warpgroups at the tensor cores (named barriers 1
+// and 2): a warpgroup issues its products only in its turn and then passes
+// the turn, so one warpgroup's exponentials run while the other's products
+// do. Both warpgroups take the same number of turns; warpgroup 0 goes first.
+// Off (every call a no-op) when one of the two is all padding.
+struct TensorTurns {
+  int me;
+  bool on;
+  __device__ __forceinline__ TensorTurns(int wg, bool both_compute)
+      : me(wg), on(both_compute) {
+    if (on && me == 1) sm90::bar_arrive(1, 256);
   }
+  __device__ __forceinline__ void wait() {
+    if (on) sm90::bar_sync(1 + me, 256);
+  }
+  // The last turn of warpgroup 1 passes nothing: warpgroup 0 takes no more.
+  __device__ __forceinline__ void pass(bool last) {
+    if (on && !(last && me == 1)) sm90::bar_arrive(2 - me, 256);
+  }
+};
+
+// Descriptor of k16 step ks (head-dim columns 16ks..16ks+15) of the rows
+// row0.. (a multiple of 8) of a ROWS-row tile, read K-major.
+template <int HD, int ROWS>
+__device__ __forceinline__ uint64_t desc_kmajor(const bf16* tile, int row0,
+                                                int ks) {
+  using P = Panels<HD>;
+  constexpr int kSteps = P::kPW / 16;  // k16 steps a panel
+  const bf16* p = tile + (ks / kSteps) * ROWS * P::kPW + row0 * P::kPW +
+                  (ks % kSteps) * 16;
+  return sm90::make_desc(p, 16, P::kGroupBytes, P::kSwizzle);
+}
+
+// Descriptor of rows 16kk..16kk+15 of a ROWS-row tile read MN-major, as the
+// B operand whose k is the tile's rows and whose n is the head dim: LBO steps
+// from one panel to the next along n, SBO from 8 rows to the next along k.
+template <int HD, int ROWS>
+__device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile, int kk) {
+  using P = Panels<HD>;
+  return sm90::make_desc(tile + kk * 16 * P::kPW, ROWS * P::kRowBytes,
+                         P::kGroupBytes, P::kSwizzle);
+}
+
+// TMA loads of the ROWS x HD tile at rows row0.. of slice bh, one box a
+// panel, counted on `bar` (ROWS * HD * 2 bytes, zero-filled rows included).
+template <int HD, int ROWS>
+__device__ __forceinline__ void tma_tile(bf16* tile, const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int bh) {
+  using P = Panels<HD>;
+#pragma unroll
+  for (int p = 0; p < P::kCount; ++p)
+    sm90::tma_load_3d(tile + p * ROWS * P::kPW, map, bar, p * P::kPW, row0, bh);
+}
+
+// The 1024-byte aligned start of dynamic shared memory (swizzled panels
+// repeat every 8 rows, up to 1024 bytes); launches ask for 1024 bytes more.
+__device__ __forceinline__ unsigned char* flash_smem_base(unsigned char* raw) {
+  const uint32_t a = sm90::smem_addr(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-// The A fragments (16 rows x 16 k) of a product whose A operand is a 16 x 64
-// fp32 accumulator tile (eight n8 tiles) rounded to bf16: the accumulator
-// layout of m16n8k16 is its A-operand layout, so no data moves between lanes.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*acc)[4],
-                                         int kt) {
-  a[0] = pack_bf16x2(acc[2 * kt][0], acc[2 * kt][1]);
-  a[1] = pack_bf16x2(acc[2 * kt][2], acc[2 * kt][3]);
-  a[2] = pack_bf16x2(acc[2 * kt + 1][0], acc[2 * kt + 1][1]);
-  a[3] = pack_bf16x2(acc[2 * kt + 1][2], acc[2 * kt + 1][3]);
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// acc (16 x 64, eight n8 tiles) = A (16 rows of a tile stored [row][HD],
-// row stride kLd) · Bᵀ, B a whole 64-row tile stored [row][HD]: the score
-// products Q·Kᵀ, dO·Vᵀ, K·Qᵀ and V·dOᵀ.
-template <int HD>
-__device__ __forceinline__ void tile_product_nt(float (*acc)[4],
-                                                const bf16* a_rows,
-                                                const bf16* b_tile, int lane) {
-  constexpr int LD = FlashTile<HD>::kLd;
+// The A fragments of a product whose A operand is a 64 x N fp32 accumulator
+// rounded to bf16: wgmma's accumulator layout is its register-A layout (k16
+// step kk takes n8 blocks 2kk and 2kk + 1), so a[i] packs acc[2i], acc[2i+1]
+// and no data moves between threads.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[R / 2],
+                                         const float (&acc)[R]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    uint32_t a[4];
-    load_a_mk(a, a_rows + ks * 16, LD, lane);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t r[4];
-      load_b_nk(r, b_tile + (j * 16) * LD + ks * 16, LD, lane);
-      const uint32_t b0[2] = {r[0], r[1]};
-      const uint32_t b1[2] = {r[2], r[3]};
-      mma_16816(acc[2 * j], a, b0);
-      mma_16816(acc[2 * j + 1], a, b1);
-    }
-  }
+  for (int i = 0; i < R / 2; ++i) a[i] = pack_bf16x2(acc[2 * i], acc[2 * i + 1]);
 }
 
-// out (16 x HD, HD/8 n8 tiles) += bf16(p) (16 x 64, an accumulator tile) · B,
-// B a whole 64-row tile stored [row][HD] (rows are the product's k): the
-// products P·V, dS·K, Pᵀ·dO and dSᵀ·Q.
+// Column (within the n extent) of accumulator element i of this thread
+// (t = lane % 4); it lies on row lane / 4 + 8 when (i >> 1) & 1.
+__device__ __forceinline__ int acc_col(int i, int t) {
+  return (i / 4) * 8 + 2 * t + (i & 1);
+}
+
+// Host: a map reading ROWS-row tiles of a (BH, N, HD) bf16 tensor in panels.
 template <int HD>
-__device__ __forceinline__ void tile_product_acc(float (*out)[4],
-                                                 const float (*p)[4],
-                                                 const bf16* b_tile,
-                                                 int lane) {
-  constexpr int LD = FlashTile<HD>::kLd;
-#pragma unroll
-  for (int kt = 0; kt < 4; ++kt) {
-    uint32_t a[4];
-    acc_to_a(a, p, kt);
-#pragma unroll
-    for (int dn = 0; dn < HD / 16; ++dn) {
-      uint32_t r[4];
-      load_b_kn(r, b_tile + (kt * 16) * LD + dn * 16, LD, lane);
-      const uint32_t b0[2] = {r[0], r[1]};
-      const uint32_t b1[2] = {r[2], r[3]};
-      mma_16816(out[2 * dn], a, b0);
-      mma_16816(out[2 * dn + 1], a, b1);
-    }
-  }
+inline bool flash_map(CUtensorMap* map, const void* base, int BH, int N,
+                      int rows) {
+  return make_tensor_map_3d(map, base, BH, N, HD, rows, Panels<HD>::kPW);
 }
 
 }  // namespace vt

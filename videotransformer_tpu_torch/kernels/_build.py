@@ -51,24 +51,26 @@ def find_nvcc():
         "toolkit")
 
 
-def _sources_mtime():
-    return max(os.path.getmtime(os.path.join(CSRC, f))
-               for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+def _sources_mtime(csrc):
+    return max(os.path.getmtime(os.path.join(csrc, f))
+               for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
 
 
-def build(name, build_dir=None):
+def build(name, build_dir=None, csrc=None):
     """Compile ``csrc/<name>.cu`` into ``lib<name>.so`` unless it is up to
     date; returns the library path. The ``-Xptxas -v`` report goes to
-    ``<name>.log`` beside it (see ``build_log``)."""
+    ``<name>.log`` beside it (see ``build_log``). ``csrc`` names another
+    source directory (another checkout's, to compare kernels)."""
     build_dir = build_dir or BUILD_DIR
+    csrc = csrc or CSRC
     so = os.path.join(build_dir, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= _sources_mtime():
+    if os.path.exists(so) and os.path.getmtime(so) >= _sources_mtime(csrc):
         return so
     nvcc = find_nvcc()
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-I", csrc, "-o", tmp,
+           os.path.join(csrc, f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -87,17 +89,19 @@ def build_log(name, build_dir=None):
         return f.read()
 
 
-def load(name, signatures):
+def load(name, signatures, csrc=None, build_dir=None):
     """Build (if needed) and load ``lib<name>.so``; ``signatures`` maps each
-    C entry point to its ctypes argtypes. Every entry returns c_int."""
+    C entry point to its ctypes argtypes. Every entry returns c_int.
+    ``csrc`` and ``build_dir`` as in ``build``."""
+    key = (name, csrc or CSRC)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name, build_dir, csrc))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 

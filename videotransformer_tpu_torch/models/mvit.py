@@ -33,7 +33,8 @@ is the activations' dtype; fp32 parameters are cast to it at each use.
 LayerNorms outside the kernels take fp32 statistics and round to the working
 type, as flax's do. The convolutions and max pools are library calls
 (cuDNN on the card), as they were XLA convolutions outside Pallas in the JAX
-package. Dropout inside the blocks is not ported (MaskFeat builds none).
+package; the max pools' backward is written out (``_MaxPool3d``) so that it
+adds in a fixed order. Dropout inside the blocks is not ported (MaskFeat builds none).
 """
 
 import math
@@ -75,10 +76,52 @@ def linear(x, fc):
                     None if fc.bias is None else fc.bias.to(x.dtype))
 
 
+class _MaxPool3d(torch.autograd.Function):
+    """MaxPool3d(ceil_mode=False) over (T, H, W) of x (B, T, H, W, C) whose
+    backward adds the windows' gradients in a fixed order, in fp32.
+    F.max_pool3d's CUDA backward adds them with atomics in x's dtype, so two
+    runs of a training step differ (as XLA's select-and-scatter does not)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, padding):
+        y, idx = F.max_pool3d(x.permute(0, 4, 1, 2, 3), kernel, stride,
+                              padding, return_indices=True)
+        y = y.permute(0, 2, 3, 4, 1)
+        if ctx.needs_input_grad[0]:
+            # each output's argmax as its offset in the window, (t, h, w)
+            # row-major: < 27 for the kernels MViT pools with
+            T, H, W = x.shape[1:4]
+            idx = idx.permute(0, 2, 3, 4, 1)
+            o = [torch.arange(n, device=x.device) * s - p
+                 for n, s, p in zip(y.shape[1:4], stride, padding)]
+            offset = ((idx // (H * W) - o[0][:, None, None, None]) * kernel[1]
+                      + idx // W % H - o[1][:, None, None]) * kernel[2] \
+                + idx % W - o[2][:, None]
+            ctx.save_for_backward(offset.to(torch.uint8))
+            ctx.geometry = (x.shape, kernel, stride, padding)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        (offset,) = ctx.saved_tensors
+        (B, T, H, W, C), kernel, stride, padding = ctx.geometry
+        out, dtype = gy.shape[1:4], gy.dtype
+        g = gy.new_zeros((B, *[n + 2 * p for n, p in zip((T, H, W), padding)],
+                          C), dtype=torch.float32)
+        gy, zero = gy.float(), gy.new_zeros((), dtype=torch.float32)
+        for i, (a, b, c) in enumerate(np.ndindex(*kernel)):
+            g[:, a:a + stride[0] * (out[0] - 1) + 1:stride[0],
+              b:b + stride[1] * (out[1] - 1) + 1:stride[1],
+              c:c + stride[2] * (out[2] - 1) + 1:stride[2]] += torch.where(
+                  offset == i, gy, zero)
+        g = g[:, padding[0]:padding[0] + T, padding[1]:padding[1] + H,
+              padding[2]:padding[2] + W]
+        return g.to(dtype), None, None, None
+
+
 def _maxpool3d(x, kernel, stride, padding):
     """x (B, T, H, W, C); MaxPool3d(ceil_mode=False) with -inf padding."""
-    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), kernel, stride, padding)
-    return y.permute(0, 2, 3, 4, 1)
+    return _MaxPool3d.apply(x, tuple(kernel), tuple(stride), tuple(padding))
 
 
 class _PoolConv(nn.Module):

@@ -13,8 +13,8 @@ weights from a seed:
   q-pool stages, masks from the cube mask generator, HOG targets computed on
   the card from the raw clip) on 8 clips with cuDNN's deterministic
   algorithms, timed, and repeated from the same state through the plain
-  versions, compared; further steps with cuDNN's default algorithms, timed
-  and profiled; then one supervised arch=mvit step (layer decay 0.75,
+  versions, compared, and profiled; further steps with cuDNN's default
+  algorithms, timed and profiled; then one supervised arch=mvit step (layer decay 0.75,
   decoder_pred frozen) and an eval-mode forward on 2 clips against the plain
   versions.
 
@@ -34,10 +34,12 @@ those of their calls in one TimeSformer block; for the flash attention
 kernels, of their 16 calls in one mim step, each shape's line also giving
 its TFLOP/s, its share of the bound and the host time to issue a call (the
 wrapper's and scaled_dot_product_attention's). The last line is
-{"ok": true, "device": {...}}. Its phases took about 110 s on an H100 (the
-six builds included).
+{"ok": true, "device": {...}}. Its phases took 125-160 s on an H100 (the
+six builds included). Before the serving path it prints B1's and B4's
+stages (device ms a call) beside torch.matmul at each product's shape.
 """
 
+import gc
 import json
 import subprocess
 import threading
@@ -65,6 +67,9 @@ from videotransformer_tpu_torch.serving.server import InferenceServer
 from videotransformer_tpu_torch.tools.flash_bench import (
     FLASH_SHAPES, HD as MVIT_HD, bound, flash_bounds, issue_us, sdpa_times,
     timed_ms)
+from videotransformer_tpu_torch.tools.fused_bench import (
+    FFN_PRODUCTS, MHSA_PRODUCTS, ffn_products, format_stages, matmul_ms,
+    mhsa_products, stage_times)
 from videotransformer_tpu_torch.training import trainer as trainer_mod
 
 SEED = 0
@@ -263,6 +268,8 @@ def backward_phases(rng):
         abs_err, rel_err = worst_error(
             got, plain_all(*[a.float() for a in args], *tail))
         assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
+        # no atomics: B3's and B4's split sums give the same bits twice
+        assert all(torch.equal(a, b) for a, b in zip(got, kernel_all()))
         ms, plain_ms = in_turns(plain, kernel)
         whole = timed_ms(kernel_all, iters=10)
         rows = shape[0] * shape[1] if len(shape) == 3 else shape[0]
@@ -286,6 +293,47 @@ def backward_phases(rng):
                        "bound_by": bound_by})
         del x, g, w, got
     return report
+
+
+def stage_phases(rng):
+    """B1 at the serving shapes and B4 at the TimeSformer train shape, stage
+    by stage (device ms a call, torch.profiler), with torch.matmul's device
+    ms at each product's GEMM shape beside them (a yardstick the port never
+    calls); tools/fused_bench.py prints the same for every shape and
+    against another checkout's kernels."""
+    cases = [("fused_prenorm_mhsa", "dense spatial (192, 197, 768)",
+              (192, 197, D), 0),
+             ("fused_prenorm_mhsa", "block-diagonal temporal (4704, 8, 768)",
+              (4704, 8, D), 8),
+             ("fused_prenorm_ffn_bwd", f"rows (12552, {D}), hidden {4 * D}",
+              (12552, D), None)]
+    for name, label, shape, block_diag in cases:
+        d = shape[-1]
+        x = bf16_on_card(rng, shape, 1.0)
+        if block_diag is not None:
+            w = [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1),
+                 bf16_on_card(rng, (3 * d, d), 0.02),
+                 bf16_on_card(rng, (3 * d,), 0.02),
+                 bf16_on_card(rng, (d, d), 0.02), bf16_on_card(rng, (d,), 0.02)]
+            args = (x, *w, HEADS, (d // HEADS) ** -0.5, 1e-5, True,
+                    block_diag)
+            fn = lambda: fused_mhsa._launch(*args)
+            products = MHSA_PRODUCTS
+            pairs = mhsa_products(args, shape[0] * shape[1], d)
+        else:
+            w = ffn_weights(rng, d)
+            _, h_pre = fused_ffn._launch(x, *w, 1e-5, True)
+            args = (bf16_on_card(rng, shape, 1.0), x, h_pre, w[0], w[1],
+                    w[2], w[4])
+            fn = lambda: fused_ffn._launch_backward(*args, 1e-5)
+            products = FFN_PRODUCTS
+            pairs = ffn_products(args, *shape)
+        yard = matmul_ms(pairs)
+        log(f"stages {name} [{label}] (device ms a call): "
+            f"{format_stages(stage_times(fn, products))}; torch.matmul at "
+            f"the products' GEMM shapes: " + ", ".join(
+                f"{p} {t:.4f}" for p, t in zip(products, yard)))
+        del x, w, args
 
 
 def flash_phases(rng):
@@ -361,13 +409,29 @@ def flash_phases(rng):
 
 # ---------------------------------------------------------------- profile
 
+def kernel_source(name):
+    """Which code a device kernel of the profile comes from, by its name:
+    "port" (csrc/: namespace vt, or fused_ffn_bwd.cu's anonymous one),
+    "cuDNN", "cuBLAS", else "other" (PyTorch's own kernels, memsets)."""
+    name = name.removeprefix("void ")
+    low = name.lower()
+    if name.startswith(("vt::", "(anonymous namespace)::")):
+        return "port"
+    if "cudnn" in low or "convolve" in low:
+        return "cuDNN"
+    if any(k in low for k in ("nvjet", "cutlass", "xmma", "cublas", "gemv")):
+        return "cuBLAS"
+    return "other"
+
+
 def profile_forward(forward, event_ms, n=3, what="forward", ranges=()):
     """Device kernels of ``n`` calls of ``forward`` under ``torch.profiler``:
     device ms per call for each kernel name, the device's busy share between
     the first kernel's start and the last kernel's end, and the summed
     kernel time over ``event_ms`` (one call by CUDA events, unprofiled);
-    then for each ``record_function`` range named in ``ranges`` the device
-    time of the kernels launched inside it."""
+    the same time split by the code the kernels come from
+    (``kernel_source``); then for each ``record_function`` range named in
+    ``ranges`` the device time of the kernels launched inside it."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -403,6 +467,13 @@ def profile_forward(forward, event_ms, n=3, what="forward", ranges=()):
         f"(ratio {summed / event_ms:.3f}); busy share of the traced device "
         f"span {busy / (last - first):.4f}, idle share "
         f"{1 - busy / (last - first):.4f}")
+    by_source = {}
+    for name, (ms, calls) in per_name.items():
+        src_ms, src_calls = by_source.get(kernel_source(name), (0.0, 0))
+        by_source[kernel_source(name)] = (src_ms + ms, src_calls + calls)
+    log(f"  by source (device ms per {what}, calls): " + ", ".join(
+        f"{src} {ms:.3f} ({calls // n})" for src, (ms, calls) in sorted(
+            by_source.items(), key=lambda kv: -kv[1][0])))
     for name, (ms, calls) in sorted(per_name.items(),
                                     key=lambda kv: -kv[1][0])[:24]:
         log(f"  {ms:9.3f} ms  {calls // n:4d} calls  {name[:110]}")
@@ -495,6 +566,14 @@ KERNEL_NAMES = ("fused_prenorm_mhsa", "fused_prenorm_ffn",
 def reset_counts():
     for mod, attr in KERNEL_COUNTERS:
         setattr(mod, attr, 0)
+    for variant in fused_mhsa.ATTENTION_LAUNCHES:
+        fused_mhsa.ATTENTION_LAUNCHES[variant] = 0
+
+
+# B1's attention kernels on a TimeSformer forward (a serving forward or a
+# train step): the dense one for the 12 spatial calls, the packed
+# block-diagonal one for the 12 temporal calls, never the CUDA-core one
+TIMESFORMER_ATTENTION = {"packed": DEPTH, "dense": DEPTH, "general": 0}
 
 
 def read_counts():
@@ -536,6 +615,7 @@ def run_train_steps(tree, batch):
         steps.append({"loss": float(stats["loss"]),
                       "grad_norm": float(stats["grad_norm"]),
                       "launches": read_counts(),
+                      "attention": dict(fused_mhsa.ATTENTION_LAUNCHES),
                       "ms": start.elapsed_time(end)})
     return tr, steps
 
@@ -587,6 +667,7 @@ def train_slice(rng, card):
                             p["grad_norm"]]).all(), (k, p)
         assert dl <= LOSS_REL_TOL and dn <= NORM_REL_TOL, (i, dl, dn)
         assert k["launches"] == want, (i, k["launches"])
+        assert k["attention"] == TIMESFORMER_ATTENTION, (i, k["attention"])
         assert not any(p["launches"].values()), p["launches"]
     steady = [st["ms"] for st in steps[1:]]
     ms = sum(steady) / len(steady)
@@ -677,9 +758,9 @@ def mim_slice(rng, card):
     """The mim main path: three MaskFeat steps through the kernels (counts
     from 0 per step) with cuDNN's deterministic algorithms, timed, and the
     same three from the same state through the plain versions, compared;
-    then further steps of the kernels' trainer with cuDNN's default
-    algorithms: one, then two timed, then a profile. Returns the launches
-    and the trainer."""
+    a profile of two more; then further steps of the kernels' trainer with
+    cuDNN's default algorithms: one, then two timed, then a profile. Returns
+    the launches and the trainer."""
     torch.cuda.reset_peak_memory_stats()
     tree = trainer_mod.VideoTransformerTrainer(mim_configs(), "cpu"
                                                ).params_tree()
@@ -690,10 +771,16 @@ def mim_slice(rng, card):
     # the deterministic algorithms, so each repeats to the bit.
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    step = lambda: tr.train_step(batch, MIM_LR, MIM_WD)
+    steady = lambda run: sum(st["ms"] for st in run[1:]) / (len(run) - 1)
     try:
         tr, steps = run_mim_steps(tree, batch)
         peak = torch.cuda.max_memory_allocated() / 2**30
         _, plain = with_plain_versions(run_mim_steps, tree, batch)
+        # where the timed steps' time went: cuDNN's share against the port's
+        profile_forward(step, steady(steps), 2,
+                        "mim train step (cuDNN deterministic)")
+        gc.collect()  # the profiler's garbage, before the timed steps
     finally:
         torch.backends.cudnn.deterministic = deterministic
     launches = {n: sum(st["launches"][n] for st in steps)
@@ -712,9 +799,7 @@ def mim_slice(rng, card):
         assert dl <= MIM_LOSS_REL_TOL and dn <= MIM_NORM_REL_TOL, (i, dl, dn)
         assert k["launches"] == MIM_WANT, (i, k["launches"])
         assert not any(p["launches"].values()), p["launches"]
-    steady = lambda run: sum(st["ms"] for st in run[1:]) / (len(run) - 1)
     det_ms = steady(steps)
-    step = lambda: tr.train_step(batch, MIM_LR, MIM_WD)
     ms = timed_ms(step, iters=2, warmup=1, queued=False)
     log(f"mim slice: {MIM_CLIPS} clips of {MIM_FRAMES}x{IMG} a step on "
         f"{card}; with cuDNN's deterministic algorithms {det_ms:.2f} ms per "
@@ -858,6 +943,12 @@ def main():
     report = flash_phases(rng)  # autograd on (the library's backward)
     with torch.inference_mode():
         report += kernel_phases(rng) + backward_phases(rng)
+        # its own generator: the main paths' weights and clips stay those
+        # of the runs before the stage lines were added
+        stage_phases(np.random.default_rng(SEED + 1))
+    # the profiler sessions leave garbage in reference cycles: collect it
+    # here rather than inside a timed step
+    gc.collect()
     t0 = lap("kernel phases", t0)
     with torch.inference_mode():
         predictor = build_slice(rng)
@@ -872,11 +963,14 @@ def main():
         logits = predict(batch)
         torch.cuda.synchronize()
         slice_counts = read_counts()
+        slice_attention = dict(fused_mhsa.ATTENTION_LAUNCHES)
         predictor.warmup()
         answers, stats = serve_requests(predictor, requests)
         serve_launches = read_counts()
         # ----
-        log(f"slice forward launches: {slice_counts}")
+        log(f"slice forward launches: {slice_counts}; B1's attention "
+            f"kernels: {slice_attention}")
+        assert slice_attention == TIMESFORMER_ATTENTION, slice_attention
         assert slice_counts == {
             "fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
             "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": 0,
@@ -901,7 +995,13 @@ def main():
             f"{scale:.4e}, rel {err / scale:.3e} (tol {SLICE_REL_TOL})")
         assert err <= SLICE_REL_TOL * scale, (err, scale)
         same = (logits.argmax(-1) == plain.argmax(-1)).tolist()
-        log(f"slice argmax equal on {sum(same)}/{len(same)} rows")
+        # a row's argmax can differ only where the plain top-1 minus top-2
+        # gap is below 2 max|kernel-plain|: the margin the check has left
+        top2 = plain.float().topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).min().item()
+        log(f"slice argmax equal on {sum(same)}/{len(same)} rows; smallest "
+            f"top-1 minus top-2 gap of the plain logits {gap:.4e} against "
+            f"2 max|kernel-plain| = {2 * err:.4e} (margin x{gap / (2 * err):.2f})")
         assert all(same), same
         ms = timed_ms(lambda: predict(batch), iters=10, warmup=2,
                       queued=False)

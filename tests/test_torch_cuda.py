@@ -67,6 +67,51 @@ def test_mhsa_kernel_matches_plain(cuda_device, B, N, D, H, block_diag, res):
     assert _rel_err(out, want) <= REL_TOL
 
 
+def _mhsa_case(rng, B, N, D, Da, H):
+    """bf16 x (B, N, D) and the weights of an MHSA of attention width Da."""
+    return [_bf16(rng, (B, N, D), 1.0), _bf16(rng, (D,), 0.1, 1.0),
+            _bf16(rng, (D,), 0.1), _bf16(rng, (3 * Da, D), 0.03),
+            _bf16(rng, (3 * Da,), 0.03), _bf16(rng, (D, Da), 0.03),
+            _bf16(rng, (D,), 0.03)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,Da,H,block_diag,variant", [
+    (7, 197, 768, 768, 12, 0, "dense"),     # 1379 rows: ragged against 128
+    (37, 8, 768, 768, 12, 8, "packed"),     # 296 temporal rows, ragged
+    (3, 896, 768, 768, 12, 8, "packed"),    # the packed layout
+    (5, 197, 768, 384, 6, 0, "dense"),      # attention width Da != D
+    (9, 8, 768, 384, 6, 8, "packed"),       # the same, temporal
+    (2, 100, 128, 128, 2, 0, "dense"),      # one key product (L <= 128)
+    (3, 250, 128, 128, 2, 0, "dense"),      # 256 keys
+])
+def test_mhsa_forward_variants_and_modes(cuda_device, B, N, D, Da, H,
+                                         block_diag, variant):
+    """B1 through each tensor-core attention kernel: out, and the saved qkv
+    and attn, against the plain forward; the same bits of out with a
+    gradient wanted (qkv and attn kept for the backward) and under
+    inference_mode."""
+    rng = np.random.default_rng(N + Da + B)
+    args = _mhsa_case(rng, B, N, D, Da, H)
+    tail = (H, (Da // H) ** -0.5, 1e-5, True, block_diag)
+    assert fused_mhsa.attention_variant(block_diag or N, Da // H) == variant
+    counts = dict(fused_mhsa.ATTENTION_LAUNCHES)
+    out, qkv, attn = fused_mhsa._launch(*args, *tail)
+    torch.cuda.synchronize()
+    assert fused_mhsa.ATTENTION_LAUNCHES[variant] == counts[variant] + 1
+    want = fused_mhsa._forward_reference(*[a.float() for a in args], *tail)
+    for name, a, b in zip(("out", "qkv", "attn"), (out, qkv, attn), want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    x = args[0].detach().clone().requires_grad_()
+    saved = fused_mhsa.fused_prenorm_mhsa(x, *args[1:], *tail)
+    with torch.inference_mode():
+        served = fused_mhsa.fused_prenorm_mhsa(*args, *tail)
+    assert saved.grad_fn is not None
+    assert torch.equal(saved.detach(), served)
+    assert torch.equal(served.reshape(out.shape), out)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,D,hidden", [(150, 64, 256), (1000, 768, 3072)])
 def test_ffn_kernel_matches_plain(cuda_device, M, D, hidden):
@@ -336,10 +381,13 @@ def test_flash_attention_function_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,D", [(50176, 192), (12544, 384)])
+@pytest.mark.parametrize("M,D", [(50176, 192), (12544, 384), (12544, 768),
+                                 (1003, 384)])
 def test_ffn_kernels_at_mvit_widths(cuda_device, M, D):
-    """B2 and B4 at MViT's fused-FFN widths (blocks 1 and 3-12 at batch 8)
-    with LayerNorm eps 1e-6, against the plain versions in fp32."""
+    """B2 and B4 at MViT's fused-FFN widths (blocks 1, 3-12 and 13-14 at
+    batch 8) and at a ragged row count, with LayerNorm eps 1e-6, against the
+    plain versions in fp32; B4's split weight gradients give the same bits
+    twice."""
     hidden, eps = 4 * D, 1e-6
     rng = np.random.default_rng(D)
     x = _bf16(rng, (M, D), 1.0)
@@ -357,6 +405,8 @@ def test_ffn_kernels_at_mvit_widths(cuda_device, M, D):
         *[a.float() for a in args], eps)
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= REL_TOL, _rel_err(a, b)
+    again = fused_ffn._launch_backward(*args, eps)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
 
 @pytest.mark.cuda

@@ -11,24 +11,49 @@
 //
 // `seq_len` = L cuts the rows into independent length-L sequences: L = N is
 // dense attention (divided spatial, N = 197), L = block_diag is the TPU
-// kernel's block-diagonal mode (divided temporal, L = 8). Each length-L
-// block is simply its own sequence here; no masked scores are computed, so
-// the TPU packing (_pack_group, _score_chunk) has no counterpart.
+// kernel's block-diagonal mode (divided temporal, L = 8).
 //
-// Four launches on the caller's stream: LayerNorm, the qkv GEMM, attention,
-// the projection GEMM. Unlike the TPU kernel, which kept them in VMEM, this
-// first version writes xn (rows x D), qkv (rows x 3Da) and attn_out
-// (rows x Da) to device memory: those round trips are the first thing to fuse.
-// At the main shapes the two GEMMs carry ~90% of the FLOPs, so the kernel is
-// bounded by the tensor-core rate of gemm_tile.cuh. The attention stage puts
-// QKᵀ and PV on the tensor cores for sequences of 32 tokens and more (dense
-// spatial, N = 197); the 8-token temporal sequences, whose products are too
-// small for 16x16 tiles, run on the CUDA cores, 16 sequences per block.
+// Bound: at the TimeSformer shapes the two projections carry ~97% of the
+// FLOPs (8·rows·D·Da of 8·rows·D·Da + 4·rows·L·Da), so the tensor-core rate
+// bounds the call. Design (four launches on the caller's stream):
+//
+// 1. LayerNorm statistics: (mean, rstd) of each row, 8 bytes a row.
+// 2. qkv = LN(x) · Wqkvᵀ + b on the wgmma/TMA core (sm90_gemm.cuh) with the
+//    LayerNorm applied to each A tile in shared memory (LN_A): xn never
+//    reaches device memory.
+// 3. Attention on the tensor cores, Q, K and V of a head by TMA from qkv:
+//    - dense (L <= 256, head dim 64; L = 197): a block per sequence and
+//      three heads, the whole Q, K and V of a head in shared memory
+//      (zero-filled past L), the next head's loading while this one
+//      computes; each warpgroup takes 64-query tiles: S = Q·Kᵀ as two
+//      wgmma products (128 + 80 keys at L = 197), the row's scores in
+//      registers, softmax, O = P̃·V with P̃ from registers;
+//    - packed (64 % L == 0, head dim 64; L = 8): eight sequences share a
+//      64-row wgmma tile, and a block-diagonal mask gives every key outside
+//      a row's own sequence p = 0 exactly (the TPU kernel's _score_chunk
+//      packing); the ×64/L masked products are free at the tensor cores'
+//      rate, so the stage is bound by reading qkv;
+//    - any other head dim or length: a CUDA-core kernel, one warp a query
+//      row (off the main paths).
+//    The rounding points are the TPU kernel's: fp32 scores × scale, the max
+//    over the row's own keys, p = exp(s - max) in fp32, the row sum taken
+//    before p is rounded to bf16 for P̃·V, O / sum rounded once. The exp is
+//    the special function unit's (__expf: a few fp32 ulps, far inside the
+//    bf16 rounding of p that follows): inlined 104 times a thread, expf's
+//    longer sequence took the dense stage from 0.23 to 0.33 ms on an H100.
+// 4. out = attn · Wprojᵀ + b (+ x in the epilogue) on the same core.
+//
+// What stays in device memory: qkv (rows x 3Da bf16, written and read once)
+// and attn (rows x Da, the same), in both modes of the wrapper; the train
+// step keeps them for the backward (the TPU kernel's save_qkv/save_attn).
 
-#include "gemm_tile.cuh"
-#include "layernorm.cuh"
+#include "flash_common.cuh"
+#include "layernorm.cuh"  // warp_sum, warp_max (the CUDA-core kernel)
+#include "sm90_gemm.cuh"
 
 namespace vt {
+
+// ---- other shapes: the CUDA-core kernel ------------------------------------
 
 constexpr int kAttnWarps = 8;
 constexpr int kAttnRowsTarget = 128;  // short sequences are grouped per block
@@ -121,238 +146,423 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   }
 }
 
-// ---- long sequences: QKᵀ and PV on the tensor cores ----------------------
-//
-// grid (nseq, heads); block kMmaWarps warps; one block per (sequence, head),
-// for head_dim 64 and 32 <= L <= kMmaMaxKeys. K (row-major) and V
-// (transposed) of the sequence sit in shared memory, padded with zeros to Lp
-// (a multiple of 16) keys. Each warp takes 16-query tiles with mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate): the whole 16 x Lp score tile stays in
-// registers, so the softmax sees every score of its row at once and keeps
-// the TPU kernel's rounding points exactly: fp32 scores x scale, max over
-// the row, p = exp(s - max) in fp32, the fp32 row sum, p rounded to bf16 as
-// the A operand of the PV product (the accumulator layout of m16n8k16 is
-// its A-operand layout), and O / sum rounded to bf16 at the end. Keys >= L
-// get p = 0.
+// ---- the tensor-core kernels (head dim 64) ----------------------------------
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaHd = 64;
-constexpr int kMmaMaxKeys = 256;
+constexpr int kHd = 64;
+constexpr uint32_t kTileBytes = 64 * kHd * 2;  // one 64-row tile of a head
 
-__host__ __device__ inline int mma_pad(int L) { return (L + 15) / 16 * 16; }
+enum Variant { kGeneral = 0, kPacked = 1, kDense = 2 };
 
-__host__ __device__ inline size_t mma_smem_bytes(int L) {
-  const int lp = mma_pad(L);
-  return ((size_t)lp * (kMmaHd + 8) + (size_t)kMmaHd * (lp + 8)) *
-         sizeof(bf16);
+// Softmax of one 64-row score tile held in wgmma's accumulator layout, in
+// place (s -> p in fp32): scores × scale, keys with valid(row, col) false
+// get p = 0, the max over the row's valid keys, p = exp(s - max), and the
+// row sums (of this thread's rows lane/4 and lane/4 + 8) before rounding.
+// `col0` offsets the columns of this accumulator within the row.
+template <int R, class Valid>
+__device__ __forceinline__ void scale_and_max(float (&s)[R], float (&mx)[2],
+                                              int col0, int t, float scale,
+                                              Valid valid) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] *= scale;
+    if (valid(h, col0 + acc_col(i, t))) mx[h] = fmaxf(mx[h], s[i]);
+  }
 }
 
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                         int L, int Da, float scale) {
-  constexpr int HD = kMmaHd;
-  constexpr int KLD = HD + 8;  // K row stride: 36 words, conflict-free
-  constexpr int MAX_NT = kMmaMaxKeys / 8;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  const int lp = mma_pad(L);
-  const int vld = lp + 8;  // Vt row stride (keys)
-  bf16* Ks = reinterpret_cast<bf16*>(mma_smem);  // [lp][KLD]
-  bf16* Vt = Ks + lp * KLD;                      // [HD][vld]
-
-  const int h = blockIdx.y;
-  const size_t row0 = (size_t)blockIdx.x * L;
-  const size_t ld = 3 * (size_t)Da;
-  for (int idx = threadIdx.x; idx < lp * (HD / 8); idx += blockDim.x) {
-    const int r = idx / (HD / 8);
-    const int c = (idx % (HD / 8)) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0);
-    uint4 vv = make_uint4(0, 0, 0, 0);
-    if (r < L) {
-      const bf16* src = qkv + (row0 + r) * ld + h * HD + c;
-      kv = *reinterpret_cast<const uint4*>(src + Da);
-      vv = *reinterpret_cast<const uint4*>(src + 2 * Da);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * KLD + c) = kv;
-    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+template <int R, class Valid>
+__device__ __forceinline__ void exp_and_sum(float (&s)[R], const float (&mx)[2],
+                                            float (&sum)[2], int col0, int t,
+                                            Valid valid) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) Vt[(c + e) * vld + r] = ve[e];
+  for (int i = 0; i < R; ++i) {
+    const int h = (i >> 1) & 1;
+    const bool in = valid(h, col0 + acc_col(i, t));
+    const float p = in ? __expf(s[i] - mx[h]) : 0.0f;
+    sum[h] += p;  // the row sum is taken before p is rounded
+    s[i] = p;
+  }
+}
+
+__device__ __forceinline__ void quad_reduce(float (&v)[2], bool is_max) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float w = __shfl_xor_sync(0xffffffffu, v[h], o);
+      v[h] = is_max ? fmaxf(v[h], w) : v[h] + w;
+    }
+}
+
+// O (64 x 64) / sum, rounded to bf16, into rows row0.. (of `limit`) of
+// `out` (row stride Da) at column col, 16 bytes a lane (quad_transpose).
+__device__ __forceinline__ void store_rows(const float (&o)[32],
+                                           const float (&sum)[2], bf16* out,
+                                           size_t row_base, int row0,
+                                           int limit, int Da, int col) {
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + warp * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int j0 = 0; j0 < kHd / 8; j0 += 4) {
+      uint32_t x[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+        x[jj] = wg::pack2(o[4 * j + 2 * h] / sum[h],
+                          o[4 * j + 2 * h + 1] / sum[h]);
+      }
+      const uint4 v = wg::quad_transpose(x, t);
+      if (row < limit)
+        *reinterpret_cast<uint4*>(out + (row_base + row) * Da + col +
+                                  (j0 + t) * 8) = v;
+    }
+  }
+}
+
+// Dense: grid (nseq, ceil(heads / kDenseHeads)); two consumer warpgroups
+// and a producer warpgroup that gives them its registers. Each block takes
+// kDenseHeads heads of one sequence in turn through two stages of shared
+// memory, so the next head's Q, K and V load while this one computes. Keys
+// padded to N1 + N2 (S in two products of N1 and N2 keys, N2 may be 0);
+// queries in up to four 64-row tiles, warpgroup w taking tiles w and w + 2.
+constexpr int kDenseHeads = 3;
+
+template <int N1, int N2>
+struct DenseCfg {
+  static constexpr int kKeys = N1 + N2;
+  static constexpr uint32_t kStageBytes = 4 * kTileBytes + 2 * kKeys * kHd * 2;
+  static constexpr size_t kSmem = 1024 + 2 * (size_t)kStageBytes + 32;
+};
+
+template <int N1, int N2>
+__global__ void __launch_bounds__(384, 1)
+    attention_dense_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap kv_map,
+                           bf16* __restrict__ out, int L, int Da, int heads,
+                           float scale) {
+  using Cfg = DenseCfg<N1, N2>;
+  constexpr int KP = Cfg::kKeys;
+  extern __shared__ unsigned char attn_smem[];
+  unsigned char* base = flash_smem_base(attn_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * Cfg::kStageBytes);
+  uint64_t* empty = full + 2;
+  const int seq = blockIdx.x;
+  const int h0 = blockIdx.y * kDenseHeads;
+  const int nh = min(kDenseHeads, heads - h0);
+  const int nq = (L + 63) / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, 8);  // the consumers' eight warps
+    }
+    sm90::mbar_fence_init();
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // fragment row (and row + 8)
-  const int tig = lane & 3;  // fragment column pair
-  const int nt_count = lp / 8;
-  const float neg_inf = __int_as_float(0xff800000);
-
-  for (int q0 = warp * 16; q0 < lp; q0 += kMmaWarps * 16) {
-    uint32_t qa[HD / 16][4];  // A fragments of the 16-query tile
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = q0 + g + (i & 1) * 8;
-        const int c = ks * 16 + tig * 2 + (i >> 1) * 8;
-        qa[ks][i] = r < L ? ld_u32(qkv + (row0 + r) * ld + h * HD + c) : 0u;
-      }
-
-    float s[MAX_NT][4];
-#pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      if (nt < nt_count) {
-#pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks) {
-          const bf16* kr = Ks + (nt * 8 + g) * KLD + ks * 16 + tig * 2;
-          const uint32_t b[2] = {ld_u32(kr), ld_u32(kr + 8)};
-          mma_16816(s[nt], qa[ks], b);
-        }
+  if (threadIdx.x >= 256) {  // producer
+    sm90::regs_dec<24>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < nh; ++i) {
+        const int s = i & 1, head = h0 + i;
+        if (i >= 2) sm90::mbar_wait(empty + s, ((i >> 1) - 1) & 1);
+        bf16* Qs = reinterpret_cast<bf16*>(base + s * Cfg::kStageBytes);
+        bf16* Ks = Qs + 4 * 64 * kHd;
+        sm90::mbar_expect_tx(full + s, nq * kTileBytes + 2 * KP * kHd * 2);
+        for (int q = 0; q < nq; ++q)
+          sm90::tma_load_3d(Qs + q * 64 * kHd, &q_map, full + s, head * kHd,
+                            64 * q, seq);
+        sm90::tma_load_3d(Ks, &kv_map, full + s, Da + head * kHd, 0, seq);
+        sm90::tma_load_3d(Ks + KP * kHd, &kv_map, full + s,
+                          2 * Da + head * kHd, 0, seq);
       }
     }
+    return;
+  }
 
-    // rows g (elements 0, 1) and g + 8 (elements 2, 3); a quad shares a row
-    float mx[2] = {neg_inf, neg_inf};
+  sm90::regs_inc<240>();
+  const int wgi = threadIdx.x / 128;
+  const int t = threadIdx.x % 4;
+  const float neg = neg_inf();
+  auto valid = [L](int, int col) { return col < L; };
+  for (int i = 0; i < nh; ++i) {
+    const int s = i & 1, head = h0 + i;
+    const bf16* Qs = reinterpret_cast<const bf16*>(base + s * Cfg::kStageBytes);
+    const bf16* Ks = Qs + 4 * 64 * kHd;
+    const bf16* Vs = Ks + KP * kHd;
+    sm90::mbar_wait(full + s, (i >> 1) & 1);
+    for (int qt = wgi; qt < nq; qt += 2) {
+      const bf16* Qt = Qs + qt * 64 * kHd;
+      float s1[N1 / 2];
+      float s2[N2 > 0 ? N2 / 2 : 2];
+      sm90::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt)
+      for (int ks = 0; ks < kHd / 16; ++ks)
+        sm90::Wgmma<N1, 0>::ss(s1, desc_kmajor<kHd, 64>(Qt, 0, ks),
+                               desc_kmajor<kHd, KP>(Ks, 0, ks), ks > 0);
+      if constexpr (N2 > 0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + tig * 2 + (e & 1);
-        s[nt][e] *= scale;
-        if (nt < nt_count && j < L) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        for (int ks = 0; ks < kHd / 16; ++ks)
+          sm90::Wgmma<N2, 0>::ss(s2, desc_kmajor<kHd, 64>(Qt, 0, ks),
+                                 desc_kmajor<kHd, KP>(Ks, N1, ks), ks > 0);
       }
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-#pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + tig * 2 + (e & 1);
-        const float p = (nt < nt_count && j < L) ? expf(s[nt][e] - mx[e >> 1])
-                                                 : 0.0f;
-        sum[e >> 1] += p;  // the row sum is taken before p is rounded
-        s[nt][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-    }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s1);
+      sm90::fence_regs(s2);
 
-    float o[HD / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
-#pragma unroll
-    for (int kt = 0; kt < MAX_NT / 2; ++kt) {
-      if (2 * kt < nt_count) {
-        const uint32_t a[4] = {pack_bf16x2(s[2 * kt][0], s[2 * kt][1]),
-                               pack_bf16x2(s[2 * kt][2], s[2 * kt][3]),
-                               pack_bf16x2(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                               pack_bf16x2(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-#pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-          const bf16* vr = Vt + (dt * 8 + g) * vld + kt * 16 + tig * 2;
-          const uint32_t b[2] = {ld_u32(vr), ld_u32(vr + 8)};
-          mma_16816(o[dt], a, b);
-        }
-      }
-    }
+      float mx[2] = {neg, neg}, sum[2] = {0.0f, 0.0f};
+      scale_and_max(s1, mx, 0, t, scale, valid);
+      if constexpr (N2 > 0) scale_and_max(s2, mx, N1, t, scale, valid);
+      quad_reduce(mx, true);
+      exp_and_sum(s1, mx, sum, 0, t, valid);
+      if constexpr (N2 > 0) exp_and_sum(s2, mx, sum, N1, t, valid);
+      quad_reduce(sum, false);
 
+      // O = P̃·V in two steps, so that only one of p1, p2 is live
+      float o[kHd / 2];
+      {
+        uint32_t p1[N1 / 4];
+        acc_to_a<N1 / 2>(p1, s1);
+        sm90::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = q0 + g + i * 8;
-      if (r >= L) continue;
-      bf16* dst = out + (row0 + r) * Da + h * HD + tig * 2;
+        for (int kk = 0; kk < N1 / 16; ++kk)
+          sm90::Wgmma<kHd, 1>::rs(o, p1 + 4 * kk,
+                                  desc_mnmajor<kHd, KP>(Vs, kk), kk > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(p1);
+        sm90::fence_regs(o);
+      }
+      if constexpr (N2 > 0) {
+        uint32_t p2[N2 / 4];
+        acc_to_a<N2 / 2>(p2, s2);
+        sm90::wgmma_fence();
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
-        *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
-            __floats2bfloat162_rn(o[dt][2 * i] / sum[i],
-                                  o[dt][2 * i + 1] / sum[i]);
+        for (int kk = 0; kk < N2 / 16; ++kk)
+          sm90::Wgmma<kHd, 1>::rs(o, p2 + 4 * kk,
+                                  desc_mnmajor<kHd, KP>(Vs, N1 / 16 + kk), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(p2);
+        sm90::fence_regs(o);
+      }
+      store_rows(o, sum, out, (size_t)seq * L, qt * 64, L, Da, head * kHd);
     }
+    if (threadIdx.x % 32 == 0) sm90::mbar_arrive(empty + s);
   }
 }
 
-// The tensor-core kernel takes head_dim 64 and 32..kMmaMaxKeys tokens
-// (dense spatial, N = 197); other shapes, and the 8-token temporal
-// sequences, whose products are too small for 16-row tiles, go to the
-// CUDA-core kernel above.
-inline bool use_mma_attention(int L, int hd) {
-  return hd == kMmaHd && L >= 32 && L <= kMmaMaxKeys;
+// Packed: grid (ceil(rows / 128), heads), two warpgroups, each one 64-row
+// tile of 64 / L whole sequences; keys of another sequence are masked.
+constexpr size_t kPackedSmem = 1024 + 6 * (size_t)kTileBytes + 8;
+
+__global__ void __launch_bounds__(256)
+    attention_packed_kernel(const __grid_constant__ CUtensorMap map,
+                            bf16* __restrict__ out, int rows, int L, int Da,
+                            float scale) {
+  extern __shared__ unsigned char attn_smem[];
+  unsigned char* base = flash_smem_base(attn_smem);
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // [2][64 x 64]
+  bf16* Ks = Qs + 2 * 64 * kHd;
+  bf16* Vs = Ks + 2 * 64 * kHd;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Vs + 2 * 64 * kHd);
+  const int r0 = blockIdx.x * 128, head = blockIdx.y;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(bar, 6 * kTileBytes);
+    for (int w = 0; w < 2; ++w) {
+      const int off = w * 64 * kHd;
+      sm90::tma_load_3d(Qs + off, &map, bar, head * kHd, r0 + 64 * w, 0);
+      sm90::tma_load_3d(Ks + off, &map, bar, Da + head * kHd, r0 + 64 * w, 0);
+      sm90::tma_load_3d(Vs + off, &map, bar, 2 * Da + head * kHd, r0 + 64 * w,
+                        0);
+    }
+  }
+  const int wgi = threadIdx.x / 128;
+  if (r0 + 64 * wgi >= rows) return;  // warpgroup 0 keeps the block alive
+  const int t = threadIdx.x % 4;
+  const int rbase = ((threadIdx.x % 128) / 32) * 16 + (threadIdx.x % 32) / 4;
+  const float neg = neg_inf();
+  // row (rbase + 8h) and key col of the tile lie in the same sequence
+  auto valid = [rbase, L](int h, int col) {
+    return (rbase + 8 * h) / L == col / L;
+  };
+  const int off = wgi * 64 * kHd;
+  sm90::mbar_wait(bar, 0);
+
+  float s[32];
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kHd / 16; ++ks)
+    sm90::Wgmma<64, 0>::ss(s, desc_kmajor<kHd, 64>(Qs + off, 0, ks),
+                           desc_kmajor<kHd, 64>(Ks + off, 0, ks), ks > 0);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+
+  float mx[2] = {neg, neg}, sum[2] = {0.0f, 0.0f};
+  scale_and_max(s, mx, 0, t, scale, valid);
+  quad_reduce(mx, true);
+  exp_and_sum(s, mx, sum, 0, t, valid);
+  quad_reduce(sum, false);
+
+  uint32_t p[16];
+  acc_to_a<32>(p, s);
+  float o[kHd / 2];
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::Wgmma<kHd, 1>::rs(o, p + 4 * kk, desc_mnmajor<kHd, 64>(Vs + off, kk),
+                            kk > 0);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(p);
+  sm90::fence_regs(o);
+  store_rows(o, sum, out, 0, r0 + 64 * wgi, rows, Da, head * kHd);
+}
+
+inline bool variant_fits(int variant, int L, int hd) {
+  if (variant == kPacked) return hd == kHd && L >= 1 && 64 % L == 0;
+  if (variant == kDense) return hd == kHd && L >= 1 && L <= 256;
+  return variant == kGeneral && L >= 1 && hd >= 2 && hd % 2 == 0;
+}
+
+inline size_t dense_smem(int L) {
+  if (L <= 64) return DenseCfg<64, 0>::kSmem;
+  if (L <= 128) return DenseCfg<128, 0>::kSmem;
+  if (L <= 208) return DenseCfg<128, 80>::kSmem;
+  return DenseCfg<128, 128>::kSmem;
+}
+
+template <int N1, int N2>
+cudaError_t launch_dense(const bf16* qkv, bf16* attn, int nseq, int L, int Da,
+                         int heads, float scale, cudaStream_t st) {
+  CUtensorMap qm, kvm;
+  if (!make_tensor_map_3d(&qm, qkv, nseq, L, 3 * Da, 64, kHd) ||
+      !make_tensor_map_3d(&kvm, qkv, nseq, L, 3 * Da, N1 + N2, kHd))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DenseCfg<N1, N2>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_dense_kernel<N1, N2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nseq, (heads + kDenseHeads - 1) / kDenseHeads);
+  attention_dense_kernel<N1, N2><<<grid, 384, smem, st>>>(qm, kvm, attn, L,
+                                                          Da, heads, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attention(int variant, const bf16* qkv, bf16* attn,
+                             int rows, int L, int Da, int heads, float scale,
+                             cudaStream_t st) {
+  const int hd = Da / heads;
+  const int nseq = rows / L;
+  if (variant == kDense) {
+    if (L <= 64)
+      return launch_dense<64, 0>(qkv, attn, nseq, L, Da, heads, scale, st);
+    if (L <= 128)
+      return launch_dense<128, 0>(qkv, attn, nseq, L, Da, heads, scale, st);
+    if (L <= 208)
+      return launch_dense<128, 80>(qkv, attn, nseq, L, Da, heads, scale, st);
+    return launch_dense<128, 128>(qkv, attn, nseq, L, Da, heads, scale, st);
+  }
+  cudaError_t err;
+  if (variant == kPacked) {
+    CUtensorMap m;
+    if (!make_tensor_map_3d(&m, qkv, 1, rows, 3 * Da, 64, kHd))
+      return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(attention_packed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kPackedSmem);
+    if (err != cudaSuccess) return err;
+    attention_packed_kernel<<<dim3((rows + 127) / 128, heads), 256,
+                              kPackedSmem, st>>>(m, attn, rows, L, Da, scale);
+    return cudaGetLastError();
+  }
+  const int spb = seqs_per_block(L);
+  const size_t smem = attention_smem_bytes(L, hd);
+  err = cudaFuncSetAttribute(attention_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_kernel<<<dim3((nseq + spb - 1) / spb, heads), kAttnWarps * 32,
+                     smem, st>>>(qkv, attn, nseq, L, Da, hd, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace vt
 
 extern "C" {
 
-// Dynamic shared memory the attention stage needs at (L, hd); the wrapper
-// refuses shapes above the card's 227 KB per block.
-int vt_mhsa_attention_smem_bytes(int seq_len, int head_dim) {
-  if (vt::use_mma_attention(seq_len, head_dim))
-    return (int)vt::mma_smem_bytes(seq_len);
+// Dynamic shared memory the attention stage's `variant` (0 the CUDA-core
+// kernel, 1 packed, 2 dense; the wrapper chooses) needs at (L, hd), or -1
+// when the variant does not take the shape. The wrapper refuses shapes
+// above the card's 227 KB per block.
+int vt_mhsa_attention_smem_bytes(int seq_len, int head_dim, int variant) {
+  if (!vt::variant_fits(variant, seq_len, head_dim)) return -1;
+  if (variant == vt::kPacked) return (int)vt::kPackedSmem;
+  if (variant == vt::kDense) return (int)vt::dense_smem(seq_len);
   return (int)vt::attention_smem_bytes(seq_len, head_dim);
 }
 
 // x (rows, D) with rows = nseq * seq_len; weights in (out, in) layout:
-// w_qkv (3Da, D), w_proj (Do, Da). xn/qkv/attn are caller-allocated scratch.
+// w_qkv (3Da, D), w_proj (Do, Da). stats (rows float2), qkv (rows, 3Da) and
+// attn (rows, Da) are caller-allocated; qkv and attn hold the saved
+// residuals when the call returns.
 int vt_fused_prenorm_mhsa(const void* x, const void* ln_w, const void* ln_b,
                           const void* w_qkv, const void* b_qkv,
-                          const void* w_proj, const void* b_proj, void* xn,
+                          const void* w_proj, const void* b_proj, void* stats,
                           void* qkv, void* attn, void* out, int rows, int D,
                           int Da, int Do, int num_heads, int seq_len,
-                          float scale, float ln_eps, int add_residual,
-                          void* stream) {
+                          int variant, float scale, float ln_eps,
+                          int add_residual, void* stream) {
   using vt::bf16;
+  namespace wg = vt::wg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows < 1 || num_heads < 1 || seq_len < 1 || rows % seq_len ||
+      Da % num_heads || D % wg::kBK ||
+      !vt::variant_fits(variant, seq_len, Da / num_heads))
+    return cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
-  cudaError_t err = vt::launch_layernorm(
-      xb, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
-      static_cast<bf16*>(xn), rows, D, ln_eps, st);
+  float2* st2 = static_cast<float2*>(stats);
+  cudaError_t err = wg::launch_ln_stats(xb, st2, rows, D, ln_eps, st);
   if (err != cudaSuccess) return err;
-  vt::GemmParams p{static_cast<const bf16*>(xn),
-                   static_cast<const bf16*>(w_qkv),
-                   static_cast<const bf16*>(b_qkv), nullptr, qkv, nullptr,
-                   nullptr, rows, 3 * Da, D};
-  err = vt::launch_gemm<vt::kBias>(p, st);
+  wg::Params p{};
+  p.bias = static_cast<const bf16*>(b_qkv);
+  p.C = qkv;
+  p.ln_stats = st2;
+  p.ln_w = static_cast<const bf16*>(ln_w);
+  p.ln_b = static_cast<const bf16*>(ln_b);
+  p.M = rows;
+  p.N = 3 * Da;
+  p.K = D;
+  err = wg::launch_gemm<256, 0, 0, wg::kBias, true>(
+      xb, static_cast<const bf16*>(w_qkv), p, 1, st);
   if (err != cudaSuccess) return err;
-
-  const int hd = Da / num_heads;
-  const int nseq = rows / seq_len;
-  if (vt::use_mma_attention(seq_len, hd)) {
-    const size_t smem = vt::mma_smem_bytes(seq_len);
-    err = cudaFuncSetAttribute(vt::attention_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(nseq, num_heads);
-    vt::attention_mma_kernel<<<grid, vt::kMmaWarps * 32, smem, st>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), seq_len, Da,
-        scale);
-  } else {
-    const int spb = vt::seqs_per_block(seq_len);
-    const size_t smem = vt::attention_smem_bytes(seq_len, hd);
-    err = cudaFuncSetAttribute(vt::attention_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((nseq + spb - 1) / spb, num_heads);
-    vt::attention_kernel<<<grid, vt::kAttnWarps * 32, smem, st>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(attn), nseq,
-        seq_len, Da, hd, scale);
-  }
-  err = cudaGetLastError();
+  err = vt::launch_attention(variant, static_cast<const bf16*>(qkv),
+                             static_cast<bf16*>(attn), rows, seq_len, Da,
+                             num_heads, scale, st);
   if (err != cudaSuccess) return err;
-
-  p = vt::GemmParams{static_cast<const bf16*>(attn),
-                     static_cast<const bf16*>(w_proj),
-                     static_cast<const bf16*>(b_proj),
-                     add_residual ? xb : nullptr, out, nullptr, nullptr, rows,
-                     Do, Da};
-  return add_residual ? vt::launch_gemm<vt::kBiasResidual>(p, st)
-                      : vt::launch_gemm<vt::kBias>(p, st);
+  p = wg::Params{};
+  p.bias = static_cast<const bf16*>(b_proj);
+  p.aux_in = add_residual ? xb : nullptr;
+  p.C = out;
+  p.M = rows;
+  p.N = Do;
+  p.K = Da;
+  const bf16* a = static_cast<const bf16*>(attn);
+  const bf16* w = static_cast<const bf16*>(w_proj);
+  return add_residual
+             ? wg::launch_gemm<128, 0, 0, wg::kBiasResidual>(a, w, p, 1, st)
+             : wg::launch_gemm<128, 0, 0, wg::kBias>(a, w, p, 1, st);
 }
 
 }  // extern "C"

@@ -38,13 +38,35 @@ _SIGNATURES = {
     + [ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "vt_fused_prenorm_ffn_bwd": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
+    "vt_fused_prenorm_ffn_bwd": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p],
-    "vt_ffn_bwd_scratch_floats": [ctypes.c_int] * 4,
+    "vt_ffn_bwd_scratch_floats": [ctypes.c_int] * 6,
 }
+
+# The backward's weight gradients (csrc/fused_ffn_bwd.cu) are products whose
+# K is the row count, on 128 x 128 output tiles (sm90_gemm.cuh) with 64-row
+# k tiles. Split over the rows they run as SPLIT_K_BLOCKS or more blocks
+# (two for each of an H100's 132 SMs) where the rows allow slices of at
+# least MIN_SLICE_KTILES k tiles, and never more than MAX_SLICES slices (one
+# chunk of the ordered sum).
+WGRAD_TILE, K_TILE = 128, 64
+SPLIT_K_BLOCKS, MIN_SLICE_KTILES, MAX_SLICES = 264, 8, 32
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def split_k(M, N, K):
+    """(slices, k tiles a slice) of an (M, N) weight gradient summed over K
+    rows: from the shape alone, so that every run sums the same slices in
+    the same order. Slice z takes k tiles [z·per, (z + 1)·per); every row
+    lies in exactly one slice and no slice is empty."""
+    tiles = -(-M // WGRAD_TILE) * -(-N // WGRAD_TILE)
+    ktiles = -(-K // K_TILE)
+    slices = max(1, min(-(-SPLIT_K_BLOCKS // tiles),
+                        ktiles // MIN_SLICE_KTILES, MAX_SLICES))
+    per = -(-ktiles // slices)
+    return -(-ktiles // per), per
 
 
 def _gelu(h):
@@ -176,7 +198,9 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre):
     return out, h_pre
 
 
-def _launch_backward(g, x, h_pre, ln_w, ln_b, w1, w2, ln_eps):
+def _launch_backward(g, x, h_pre, ln_w, ln_b, w1, w2, ln_eps, lib=None):
+    """The backward kernel's gradients; ``lib`` is another build of it
+    (``_build.load``), to compare designs."""
     global BWD_LAUNCHES
     name = "fused_prenorm_ffn backward"
     _build.check_operands(name, g=g, x=x, h_pre=h_pre, ln_w=ln_w, ln_b=ln_b,
@@ -186,16 +210,22 @@ def _launch_backward(g, x, h_pre, ln_w, ln_b, w1, w2, ln_eps):
     if g.numel() != rows * Do or h_pre.shape != (rows, hidden):
         raise ValueError(f"{name}: g {tuple(g.shape)} or h_pre "
                          f"{tuple(h_pre.shape)} do not fit x {tuple(x.shape)}")
-    if D % 64 or hidden % 64 or Do % 64 or D > 1024:
-        raise ValueError(f"{name}: D={D}, hidden={hidden} and Do={Do} must "
-                         f"be multiples of 64, D at most 1024")
-    lib = _build.load("fused_ffn_bwd", _BWD_SIGNATURES)
+    if D % 64 or hidden % 64 or Do % 8 or D > 1024:
+        raise ValueError(f"{name}: D={D} and hidden={hidden} must be "
+                         f"multiples of 64, Do={Do} of 8, D at most 1024")
+    if lib is None:
+        lib = _build.load("fused_ffn_bwd", _BWD_SIGNATURES)
+    split2, split1 = split_k(Do, hidden, rows), split_k(hidden, D, rows)
+    n_scratch = lib.vt_ffn_bwd_scratch_floats(rows, D, hidden, Do,
+                                              split2[0], split1[0])
+    if n_scratch < 0:
+        raise ValueError(f"{name}: scratch for {rows} rows is too large")
     dev = x.device
     bf = lambda *s: torch.empty(s, dtype=torch.bfloat16, device=dev)
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     xn, h, dh_pre, dxn = bf(rows, D), bf(rows, hidden), bf(rows, hidden), \
         f32(rows, D)
-    scratch = f32(lib.vt_ffn_bwd_scratch_floats(rows, D, hidden, Do))
+    scratch = f32(n_scratch)
     dx = bf(*x.shape)
     dln_w, dln_b, dw1, db1, dw2, db2 = (f32(D), f32(D), f32(hidden, D),
                                         f32(hidden), f32(Do, hidden), f32(Do))
@@ -203,8 +233,8 @@ def _launch_backward(g, x, h_pre, ln_w, ln_b, w1, w2, ln_eps):
     status = lib.vt_fused_prenorm_ffn_bwd(
         P(x), P(h_pre), P(g), P(ln_w), P(ln_b), P(w1), P(w2), P(xn), P(h),
         P(dh_pre), P(dxn), P(scratch), P(dx), P(dln_w), P(dln_b), P(dw1),
-        P(db1), P(dw2), P(db2), rows, D, hidden, Do, float(ln_eps),
-        _build.stream_handle())
+        P(db1), P(dw2), P(db2), rows, D, hidden, Do, *split2, *split1,
+        float(ln_eps), _build.stream_handle())
     _build.check_status(name, status)
     BWD_LAUNCHES += 1
     return (dx, dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype), dw1.to(w1.dtype),

@@ -11,7 +11,11 @@ only), or they raise; on a CPU tensor they run the plain PyTorch versions
 with the kernels' rounding order. There is no other branch.
 
 The forward's qkv and pre-projection attention output are the saved
-residuals (the TPU kernel's ``save_qkv``/``save_attn``). The backward's
+residuals (the TPU kernel's ``save_qkv``/``save_attn``). The kernel writes
+both to device memory in every mode, since its four launches pass them from
+one to the next; autograd keeps them for the backward only when it records
+a graph, and under ``torch.inference_mode`` or ``no_grad`` they are freed
+when the call returns. ``out`` has the same bits in every mode. The backward's
 projection gradients, ``do = g · W_proj`` and ``d_wqkv`` were XLA einsums
 outside the Pallas kernel (fused_mhsa_pallas.py:531-536, 548-554); here they
 are fp32 ``torch.matmul`` calls around the kernel. Weight and bias
@@ -32,15 +36,18 @@ from videotransformer_tpu_torch.kernels._plain import (
     layer_norm, layer_norm_backward, layer_norm_fp32, linear_fp32)
 
 # Calls that reached the CUDA kernels (not the plain versions): forward, and
-# backward.
+# backward; and the forward's calls by the kernel its attention stage took
+# (``attention_variant``).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+ATTENTION_LAUNCHES = {"packed": 0, "dense": 0, "general": 0}
+_VARIANT_CODES = {"general": 0, "packed": 1, "dense": 2}
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _SIGNATURES = {
-    "vt_fused_prenorm_mhsa": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    "vt_fused_prenorm_mhsa": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "vt_mhsa_attention_smem_bytes": [ctypes.c_int, ctypes.c_int],
+    "vt_mhsa_attention_smem_bytes": [ctypes.c_int] * 3,
 }
 _BWD_SIGNATURES = {
     "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
@@ -54,6 +61,19 @@ def _seq_len(N, block_diag):
     if block_diag and N % block_diag:
         raise ValueError(f"N={N} is not a multiple of block_diag={block_diag}")
     return block_diag or N
+
+
+def attention_variant(L, hd):
+    """The kernel of the forward's attention stage for sequences of L
+    tokens at head dim hd: "packed" (64 / L sequences a 64-row tensor-core
+    tile, block-diagonal mask; the divided temporal L = 8), "dense" (one
+    (sequence, head) a block on the tensor cores, L <= 256; the divided
+    spatial L = 197), else "general" (the CUDA-core kernel)."""
+    if hd == 64 and 64 % L == 0:
+        return "packed"
+    if hd == 64 and L <= 256:
+        return "dense"
+    return "general"
 
 
 def _split_heads(t, L, num_heads, parts):
@@ -209,7 +229,9 @@ def fused_prenorm_mhsa(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
 
 
 def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
-            ln_eps, add_residual, block_diag):
+            ln_eps, add_residual, block_diag, lib=None):
+    """(out, qkv, attn) from the forward kernel; ``lib`` is another build of
+    it (``_build.load``), to compare designs."""
     global LAUNCHES
     name = "fused_prenorm_mhsa"
     _build.check_operands(name, x=x, ln_w=ln_w, ln_b=ln_b, w_qkv=w_qkv,
@@ -231,24 +253,28 @@ def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
     if add_residual and Do != D:
         raise ValueError(f"{name}: residual needs Do == D ({Do} != {D})")
     L = _seq_len(N, block_diag)
-    lib = _build.load("fused_mhsa", _SIGNATURES)
-    smem = lib.vt_mhsa_attention_smem_bytes(L, Da // num_heads)
-    if smem > _MAX_SMEM:
+    if lib is None:
+        lib = _build.load("fused_mhsa", _SIGNATURES)
+    variant = attention_variant(L, Da // num_heads)
+    code = _VARIANT_CODES[variant]
+    smem = lib.vt_mhsa_attention_smem_bytes(L, Da // num_heads, code)
+    if not 0 <= smem <= _MAX_SMEM:
         raise ValueError(f"{name}: sequence length {L} needs {smem} bytes of "
                          f"shared memory, above {_MAX_SMEM}")
     rows = B * N
-    xn = torch.empty((rows, D), dtype=x.dtype, device=x.device)
+    stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
     qkv = torch.empty((rows, Da3), dtype=x.dtype, device=x.device)
     attn = torch.empty((rows, Da), dtype=x.dtype, device=x.device)
     out = torch.empty((rows, Do), dtype=x.dtype, device=x.device)
     P = _build.ptr
     status = lib.vt_fused_prenorm_mhsa(
         P(x), P(ln_w), P(ln_b), P(w_qkv), P(b_qkv), P(w_proj), P(b_proj),
-        P(xn), P(qkv), P(attn), P(out), rows, D, Da, Do, num_heads, L,
-        float(scale), float(ln_eps), int(bool(add_residual)),
+        P(stats), P(qkv), P(attn), P(out), rows, D, Da, Do, num_heads, L,
+        code, float(scale), float(ln_eps), int(bool(add_residual)),
         _build.stream_handle())
     _build.check_status(name, status)
     LAUNCHES += 1
+    ATTENTION_LAUNCHES[variant] += 1
     return out, qkv, attn
 
 

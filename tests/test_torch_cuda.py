@@ -208,6 +208,98 @@ def test_mhsa_backward_kernel_matches_plain(cuda_device, B, N, D, H,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("M,D,eps", [
+    (37656, 768, 1e-5),   # serving: 8 clips x 3 crops, TimeSformer-B
+    (12552, 768, 1e-5),   # the TimeSformer train step, 8 clips
+    (50176, 192, 1e-6),   # MViT-B blocks 1, 3-12, 13-14 at batch 8
+    (12544, 384, 1e-6),
+    (12544, 768, 1e-6),
+    (1003, 384, 1e-6),    # ragged against the 128-row tiles
+])
+def test_ffn_forward_at_main_shapes(cuda_device, M, D, eps, save):
+    """B2 on the wgmma/TMA core at each main path's width, with h_pre saved
+    (training) and without (serving): out and h_pre against the plain
+    forward in fp32, and out the same bits in both modes."""
+    hidden = 4 * D
+    rng = np.random.default_rng(M + D)
+    x = _bf16(rng, (M, D), 1.0)
+    w = [_bf16(rng, (D,), 0.1, 1.0), _bf16(rng, (D,), 0.1),
+         _bf16(rng, (hidden, D), 0.02), _bf16(rng, (hidden,), 0.02),
+         _bf16(rng, (D, hidden), 0.02), _bf16(rng, (D,), 0.02)]
+    n0 = fused_ffn.LAUNCHES
+    out, h_pre = fused_ffn._launch(x, *w, eps, save)
+    torch.cuda.synchronize()
+    assert fused_ffn.LAUNCHES == n0 + 1
+    want_out, want_h = fused_ffn._forward_reference(
+        *[a.float() for a in (x, *w)], eps)
+    assert _rel_err(out, want_out) <= REL_TOL, _rel_err(out, want_out)
+    if save:
+        assert _rel_err(h_pre, want_h) <= REL_TOL, _rel_err(h_pre, want_h)
+    else:
+        assert h_pre is None
+    other, _ = fused_ffn._launch(x, *w, eps, not save)
+    assert torch.equal(out, other)
+
+
+# (B, N, D, Da, H, block_diag, variant): B3 through each attention backward
+# kernel at Da != D
+MHSA_BWD_VARIANTS = [
+    (3, 197, 256, 128, 2, 0, "dense"),     # the spatial length, 128 + 80 keys
+    (4, 65, 128, 64, 1, 0, "dense"),       # ragged against the 64-row tiles
+    (2, 256, 128, 192, 3, 0, "dense"),     # 256 keys
+    (37, 8, 768, 384, 6, 8, "packed"),     # temporal, 296 rows: ragged
+    (5, 32, 128, 256, 4, 32, "packed"),    # two sequences a tile
+    (7, 9, 128, 64, 1, 9, "general"),      # cls + 8: the CUDA-core kernel
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [True, False])
+@pytest.mark.parametrize("B,N,D,Da,H,block_diag,variant", MHSA_BWD_VARIANTS)
+def test_mhsa_backward_variants(cuda_device, B, N, D, Da, H, block_diag,
+                                variant, res):
+    """The whole backward (one call) against the plain backward in fp32, and
+    B3 alone (attention, d_xn, LayerNorm backward, sums) against its plain
+    version; each twice to the same bits."""
+    rng = np.random.default_rng(N + Da + B)
+    x = _bf16(rng, (B, N, D), 1.0)
+    w = [_bf16(rng, (D,), 0.1, 1.0), _bf16(rng, (D,), 0.1),
+         _bf16(rng, (3 * Da, D), 0.03), _bf16(rng, (3 * Da,), 0.03),
+         _bf16(rng, (D, Da), 0.03), _bf16(rng, (D,), 0.03)]
+    cfg = (H, (Da // H) ** -0.5, 1e-5, res, block_diag)
+    assert fused_mhsa.attention_bwd_variant(block_diag or N, Da // H) == \
+        variant
+    _, qkv, attn = fused_mhsa._forward_reference(x, *w, *cfg)
+    g = _bf16(rng, (B, N, D), 1.0)
+    ln_w, ln_b, w_qkv, _, w_proj, _ = w
+    args = (g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj)
+    counts = dict(fused_mhsa.ATTENTION_BWD_LAUNCHES)
+    got = fused_mhsa._launch_backward(*args, *cfg)
+    torch.cuda.synchronize()
+    assert fused_mhsa.ATTENTION_BWD_LAUNCHES[variant] == counts[variant] + 1
+    want = fused_mhsa.fused_prenorm_mhsa_backward_reference(
+        *[a.float() for a in args], *cfg)
+    names = ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    again = fused_mhsa._launch_backward(*args, *cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    do = (g.float().reshape(-1, D) @ w_proj.float()).to(torch.bfloat16)
+    core = (x, qkv, do, g.reshape(-1, D) if res else None, ln_w, w_qkv, H,
+            cfg[1], 1e-5, block_diag)
+    got = fused_mhsa._attn_bwd_launch(*core)
+    want = fused_mhsa._attn_bwd_reference(
+        *[a.float() if torch.is_tensor(a) else a for a in core])
+    for name, a, b in zip(("dqkv", "dx", "dln_w", "dln_b", "dbqkv"), got,
+                          want):
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    again = fused_mhsa._attn_bwd_launch(*core)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M,D,hidden", [(150, 64, 256), (1000, 768, 3072)])
 def test_ffn_backward_kernel_matches_plain(cuda_device, M, D, hidden):
     rng = np.random.default_rng(M + 1)

@@ -14,7 +14,12 @@ Tolerances: fp32 rtol 5e-4, atol 5e-5 (those of tests/test_fused_mhsa.py:
 only the summation order differs); bf16 1e-2 · max|ref| of each gradient
 (about two bf16 ulps of its scale: the rounding points of the kernels agree,
 the accumulation order does not, and autodiff of the jnp twin rounds at its
-own points)."""
+own points). d_wqkv in bf16: the port multiplies dqkv by xn rounded to
+bf16 (as its kernel reads it), where the JAX package keeps xn in fp32, so
+d_wqkv is held to DW_QKV_BF16_REL = 6e-3 of max|ref| (the rounding of xn,
+2^-9 relative, partly cancelling over the rows: 3.1e-3 to 4.2e-3 in these
+cases); the other gradients at the same rounding points agree to the bit
+or to 1.5e-3."""
 
 import numpy as np
 import pytest
@@ -28,7 +33,9 @@ from videotransformer_tpu.kernels import fused_mhsa_pallas
 from videotransformer_tpu_torch.kernels import fused_ffn, fused_mhsa
 
 BF16_REL = 1e-2
+DW_QKV_BF16_REL = 6e-3
 WEIGHTS = (3, 5)  # positions of the (in, out) JAX weights among the args
+DW_QKV = 3  # position of w_qkv among the args
 
 
 def _mhsa_args(B, N, D, seed):
@@ -58,7 +65,8 @@ def _port_grads(fn, args, g, dtype):
             for i, t in enumerate(grads)]
 
 
-def _assert_grads_close(got, want, dtype):
+def _assert_grads_close(got, want, dtype, rel=None):
+    """``rel`` maps an argument's position to a bf16 tolerance of its own."""
     for i, (a, b) in enumerate(zip(got, want)):
         b = np.asarray(jnp.asarray(b, jnp.float32))
         assert a.shape == b.shape, i
@@ -68,7 +76,7 @@ def _assert_grads_close(got, want, dtype):
                                        err_msg=f"grad {i}")
         else:
             err = np.abs(a - b).max() / np.abs(b).max()
-            assert err <= BF16_REL, (i, err)
+            assert err <= (rel or {}).get(i, BF16_REL), (i, err)
 
 
 MHSA_CASES = [
@@ -98,7 +106,7 @@ def test_mhsa_plain_backward_matches_jax(B, N, H, block_diag, res, dtype):
     with pltpu.force_tpu_interpret_mode():
         pallas = _jax_grads(lambda *a: fused_mhsa_pallas.fused_prenorm_mhsa(
             *a, *cfg), args, g, jdt)
-    _assert_grads_close(got, pallas, dtype)
+    _assert_grads_close(got, pallas, dtype, {DW_QKV: DW_QKV_BF16_REL})
 
 
 def _autograd_of_plain(fn, plain, args):

@@ -1,6 +1,7 @@
 """Host-side logic of the fused kernels' wrappers, on the CPU: the row slices
-of B4's split weight gradients, the choice of B1's attention kernel, and
-B1's output with a gradient wanted and without."""
+of B4's and B3's split weight gradients, the choice of B1's and B3's
+attention kernels, B3's refusals, and B1's output with a gradient wanted
+and without."""
 
 import numpy as np
 import pytest
@@ -97,3 +98,82 @@ def test_mhsa_modes_give_the_same_output(B, N, block_diag):
     assert torch.equal(quiet, served)
     trained.square().sum().backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("L,hd,variant", [
+    (197, 64, "dense"),      # divided spatial, TimeSformer-B
+    (65, 64, "dense"),
+    (256, 64, "dense"),
+    (33, 64, "dense"),
+    (8, 64, "packed"),       # divided temporal
+    (32, 64, "packed"),
+    (64, 64, "packed"),
+    (9, 64, "general"),      # cls + 8: the CUDA-core kernel
+    (257, 64, "general"),
+    (197, 16, "general"),
+    (8, 96, "general"),
+])
+def test_attention_bwd_variant(L, hd, variant):
+    assert fused_mhsa.attention_bwd_variant(L, hd) == variant
+
+
+# (rows, D, Da, Do, heads, L): B3 at the TimeSformer train shapes (dense and
+# temporal), at Da != D, and small and ragged row counts
+PLAN_SHAPES = [(12608, 768, 768, 768, 12, 197), (12544, 768, 768, 768, 12, 8),
+               (591, 256, 128, 256, 2, 197), (296, 768, 384, 768, 6, 8),
+               (130, 64, 64, 64, 1, 65), (8, 64, 64, 64, 1, 8)]
+
+
+@pytest.mark.parametrize("rows,D,Da,Do,H,L", PLAN_SHAPES)
+def test_backward_plan_splits_cover_every_row_once(rows, D, Da, Do, H, L):
+    """dw_proj (Do, Da) and dw_qkv (3Da, D) are summed over the rows in
+    fused_ffn.split_k's slices: from the shape alone, every row in one
+    slice, none empty."""
+    plan = fused_mhsa.backward_plan(rows, D, Da, Do, H, L)
+    assert plan == fused_mhsa.backward_plan(rows, D, Da, Do, H, L)
+    assert plan.variant == fused_mhsa.attention_bwd_variant(L, Da // H)
+    assert plan.split_proj == fused_ffn.split_k(Do, Da, rows)
+    assert plan.split_qkv == fused_ffn.split_k(3 * Da, D, rows)
+    ktiles = -(-rows // fused_ffn.K_TILE)
+    for slices, per in (plan.split_proj, plan.split_qkv):
+        assert 1 <= slices <= fused_ffn.MAX_SLICES
+        assert (slices - 1) * per < ktiles <= slices * per
+
+
+def test_backward_plan_at_the_train_shapes():
+    """TimeSformer-B's train step: dw_proj's 36 output tiles take 8 slices,
+    dw_qkv's 108 take 3 (the card's 132 SMs twice over)."""
+    dense = fused_mhsa.backward_plan(64 * 197, 768, 768, 768, 12, 197)
+    temporal = fused_mhsa.backward_plan(1568 * 8, 768, 768, 768, 12, 8)
+    assert (dense.variant, temporal.variant) == ("dense", "packed")
+    assert dense.split_proj[0] == temporal.split_proj[0] == 8
+    assert dense.split_qkv[0] == temporal.split_qkv[0] == 3
+
+
+@pytest.mark.parametrize("rows,D,Da,Do,H,L,match", [
+    (100, 96, 64, 96, 5, 10, "multiple of heads"),
+    (100, 64, 64, 64, 1, 8, "sequences of 8"),
+    (64, 100, 64, 100, 1, 8, "multiples of 8"),
+    (64, 2048, 64, 2048, 1, 8, "at most 1024"),
+    (64, 64, 68, 64, 2, 8, "multiples of 8"),
+])
+def test_backward_plan_refuses(rows, D, Da, Do, H, L, match):
+    with pytest.raises(ValueError, match=match):
+        fused_mhsa.backward_plan(rows, D, Da, Do, H, L)
+
+
+def test_backward_launch_refuses_cpu_tensors():
+    """The kernel wrappers take CUDA tensors only: a CPU tensor is the plain
+    version's (the autograd.Function chooses), never the kernel's."""
+    args = _mhsa_args(np.random.default_rng(0), 2, 8, 64)
+    bf = [a.to(torch.bfloat16) for a in args]
+    x, ln_w, ln_b, w_qkv, _, w_proj, _ = bf
+    rows = 16
+    qkv = torch.zeros(rows, 3 * 64, dtype=torch.bfloat16)
+    attn = torch.zeros(rows, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_mhsa._launch_backward(x, x, qkv, attn, ln_w, ln_b, w_qkv,
+                                    w_proj, 1, 0.125, 1e-5, True, 8)
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_mhsa._attn_bwd_launch(x, qkv, attn, None, ln_w, w_qkv, 1,
+                                    0.125, 1e-5, 8)

@@ -34,228 +34,14 @@
 // dh_pre (bf16) and dxn (fp32) still go through device memory, where the TPU
 // kernel kept them in VMEM.
 
+#include "bwd_common.cuh"
 #include "layernorm.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
 
 using vt::wg::bf16;
-
-constexpr int kSumThreads = 256;
-constexpr int kSumChunk = 32;  // rows a thread adds in the first pass
-constexpr int kMaxSlices = kSumChunk;
-
-// out[N] = column sums of in[R][N] (bf16 or fp32): the first pass adds each
-// kSumChunk-row chunk of a column top to bottom (into `out` when there is one
-// chunk, else into part[chunk][N]); the second takes 32 columns a block:
-// warp w adds the chunk sums w, w + 8, ... of its lane's column in order,
-// then warp 0 adds the eight warps' sums in order.
-struct SumJob {
-  const void* in;
-  float* out;
-  float* part;
-  int in_bf16, R, N, chunks;
-};
-
-constexpr int kMaxJobs = 6;
-struct SumJobs {
-  SumJob job[kMaxJobs];
-  int n;
-};
-
-__host__ __device__ inline int col_blocks(const SumJob& j) {
-  return (j.N + kSumThreads - 1) / kSumThreads;
-}
-
-__host__ __device__ inline int pass_blocks(const SumJob& j, int pass) {
-  if (pass == 1) return j.chunks * col_blocks(j);
-  return j.chunks > 1 ? (j.N + 31) / 32 : 0;
-}
-
-__global__ void __launch_bounds__(kSumThreads)
-    colsum_jobs_kernel(const SumJobs jobs, int pass) {
-  int b = blockIdx.x, k = 0;
-  for (; k < jobs.n; ++k) {
-    const int nb = pass_blocks(jobs.job[k], pass);
-    if (b < nb) break;
-    b -= nb;
-  }
-  if (k == jobs.n) return;
-  const SumJob& j = jobs.job[k];
-  float s = 0.0f;
-  if (pass == 2) {
-    __shared__ float warp_sums[kSumThreads / 32][32];
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    const int c = b * 32 + lane;
-    if (c < j.N)
-      for (int q = warp; q < j.chunks; q += kSumThreads / 32)
-        s += j.part[(size_t)q * j.N + c];
-    warp_sums[warp][lane] = s;
-    __syncthreads();
-    if (warp == 0 && c < j.N) {
-      float t = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kSumThreads / 32; ++w) t += warp_sums[w][lane];
-      j.out[c] = t;
-    }
-    return;
-  }
-  const int cb = col_blocks(j);
-  const int chunk = b / cb;
-  const int c = (b % cb) * kSumThreads + threadIdx.x;
-  if (c >= j.N) return;
-  const int r1 = min(j.R, (chunk + 1) * kSumChunk);
-#pragma unroll 8
-  for (int r = chunk * kSumChunk; r < r1; ++r) {
-    const size_t off = (size_t)r * j.N + c;
-    s += j.in_bf16 ? __bfloat162float(static_cast<const bf16*>(j.in)[off])
-                   : static_cast<const float*>(j.in)[off];
-  }
-  (j.chunks == 1 ? j.out : j.part + (size_t)chunk * j.N)[c] = s;
-}
-
-int chunks_of(int R) { return (R + kSumChunk - 1) / kSumChunk; }
-
-// LayerNorm backward (fused_ffn_pallas.py:213-220), one warp a row:
-//   xhat = (x - mean) * rstd, dxhat = dxn * w,
-//   dx   = bf16(rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)))
-// in fp32, with the statistics recomputed as layernorm.cuh computes them
-// (the mean, then the mean of squared deviations). Lane l holds the 8-column
-// chunks l, l + 32, ... (16-byte loads of x, 32-byte of dxn); each warp adds
-// the weight and bias gradients of its kLnbRows rows in registers and writes
-// them as one partial row.
-constexpr int kLnbRows = 8;
-
-int ln_bwd_part_rows(int rows) { return (rows + kLnbRows - 1) / kLnbRows; }
-
-template <int CPL>  // 8-column chunks a lane: D <= 256 * CPL
-__global__ void __launch_bounds__(256)
-    ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dxn,
-                  const bf16* __restrict__ w, bf16* __restrict__ dx,
-                  float* __restrict__ part_w, float* __restrict__ part_b,
-                  int rows, int D, float eps) {
-  const int gw = (blockIdx.x * 256 + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (gw * kLnbRows >= rows) return;  // whole warp leaves together
-  float aw[CPL][8], ab[CPL][8], wv[CPL][8];
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) {
-    const int col = (lane + 32 * c) * 8;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) aw[c][e] = ab[c][e] = wv[c][e] = 0.0f;
-    if (col < D) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(w + col));
-      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(b2[e]);
-        wv[c][2 * e] = f.x;
-        wv[c][2 * e + 1] = f.y;
-      }
-    }
-  }
-  for (int rr = 0; rr < kLnbRows; ++rr) {
-    const int row = gw * kLnbRows + rr;
-    if (row >= rows) break;
-    float xv[CPL][8], dv[CPL][8];
-    float sx = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int col = (lane + 32 * c) * 8;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) xv[c][e] = dv[c][e] = 0.0f;
-      if (col < D) {
-        const size_t off = (size_t)row * D + col;
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(x + off));
-        const float4 d0 = __ldg(reinterpret_cast<const float4*>(dxn + off));
-        const float4 d1 = __ldg(reinterpret_cast<const float4*>(dxn + off + 4));
-        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(b2[e]);
-          xv[c][2 * e] = f.x;
-          xv[c][2 * e + 1] = f.y;
-        }
-        dv[c][0] = d0.x; dv[c][1] = d0.y; dv[c][2] = d0.z; dv[c][3] = d0.w;
-        dv[c][4] = d1.x; dv[c][5] = d1.y; dv[c][6] = d1.z; dv[c][7] = d1.w;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sx += xv[c][e];
-    }
-    const float mean = vt::warp_sum(sx) / D;
-    float sq = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c)
-      if ((lane + 32 * c) * 8 < D)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float d = xv[c][e] - mean;
-          sq += d * d;
-        }
-    const float rstd = rsqrtf(vt::warp_sum(sq) / D + eps);
-    float m1 = 0.0f, m2 = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        xv[c][e] = (xv[c][e] - mean) * rstd;  // xhat from here on
-        aw[c][e] += dv[c][e] * xv[c][e];
-        ab[c][e] += dv[c][e];
-        dv[c][e] *= wv[c][e];  // dxhat from here on
-        m1 += dv[c][e];
-        m2 += dv[c][e] * xv[c][e];
-      }
-    m1 = vt::warp_sum(m1) / D;
-    m2 = vt::warp_sum(m2) / D;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int col = (lane + 32 * c) * 8;
-      if (col >= D) continue;
-      uint4 u;
-      __nv_bfloat162* b2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        b2[e] = __floats2bfloat162_rn(
-            rstd * (dv[c][2 * e] - m1 - xv[c][2 * e] * m2),
-            rstd * (dv[c][2 * e + 1] - m1 - xv[c][2 * e + 1] * m2));
-      *reinterpret_cast<uint4*>(dx + (size_t)row * D + col) = u;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) {
-    const int col = (lane + 32 * c) * 8;
-    if (col >= D) continue;
-    float* pw = part_w + (size_t)gw * D + col;
-    float* pb = part_b + (size_t)gw * D + col;
-#pragma unroll
-    for (int e = 0; e < 8; e += 4) {
-      *reinterpret_cast<float4*>(pw + e) =
-          make_float4(aw[c][e], aw[c][e + 1], aw[c][e + 2], aw[c][e + 3]);
-      *reinterpret_cast<float4*>(pb + e) =
-          make_float4(ab[c][e], ab[c][e + 1], ab[c][e + 2], ab[c][e + 3]);
-    }
-  }
-}
-
-cudaError_t launch_ln_bwd(const bf16* x, const float* dxn, const bf16* w,
-                          bf16* dx, float* part_w, float* part_b, int rows,
-                          int D, float eps, cudaStream_t st) {
-  const int blocks = (ln_bwd_part_rows(rows) + 7) / 8;
-  if (D % 8 || D > 1024) return cudaErrorInvalidValue;
-  if (D <= 256)
-    ln_bwd_kernel<1><<<blocks, 256, 0, st>>>(x, dxn, w, dx, part_w, part_b,
-                                             rows, D, eps);
-  else if (D <= 512)
-    ln_bwd_kernel<2><<<blocks, 256, 0, st>>>(x, dxn, w, dx, part_w, part_b,
-                                             rows, D, eps);
-  else if (D <= 768)
-    ln_bwd_kernel<3><<<blocks, 256, 0, st>>>(x, dxn, w, dx, part_w, part_b,
-                                             rows, D, eps);
-  else
-    ln_bwd_kernel<4><<<blocks, 256, 0, st>>>(x, dxn, w, dx, part_w, part_b,
-                                             rows, D, eps);
-  return cudaGetLastError();
-}
+namespace bwd = vt::bwd;
 
 // fp32 scratch, in order: db1 partials, the weight gradients' slices (when
 // split), the LayerNorm partials, then the chunk sums of the column sums.
@@ -270,24 +56,14 @@ FfnBwdScratch ffn_bwd_scratch(int rows, int D, int hidden, int Do,
                               int slices2, int slices1) {
   FfnBwdScratch s;
   const int part_rows = vt::wg::col_part_rows(rows);
-  const int ln_rows = ln_bwd_part_rows(rows);
+  const int ln_rows = bwd::ln_bwd_part_rows(rows);
   s.db1_part = (size_t)part_rows * hidden;
   s.dw2_slices = slices2 > 1 ? (size_t)slices2 * Do * hidden : 0;
   s.dw1_slices = slices1 > 1 ? (size_t)slices1 * hidden * D : 0;
   s.ln_w = s.ln_b = (size_t)ln_rows * D;
-  auto chunk_part = [](int R, int N) {
-    return chunks_of(R) > 1 ? (size_t)chunks_of(R) * N : 0;
-  };
-  s.chunks = chunk_part(part_rows, hidden) + chunk_part(rows, Do) +
-             2 * chunk_part(ln_rows, D);
+  s.chunks = bwd::chunk_floats(part_rows, hidden) +
+             bwd::chunk_floats(rows, Do) + 2 * bwd::chunk_floats(ln_rows, D);
   return s;
-}
-
-bool slices_cover(int slices, int per, int K) {
-  const int ktiles = (K + vt::wg::kBK - 1) / vt::wg::kBK;
-  return slices >= 1 && slices <= kMaxSlices && per >= 1 &&
-         (long long)slices * per >= ktiles &&
-         (long long)(slices - 1) * per < ktiles;
 }
 
 }  // namespace
@@ -322,7 +98,8 @@ int vt_fused_prenorm_ffn_bwd(const void* x, const void* h_pre, const void* g,
   namespace wg = vt::wg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows < 1 || D % 64 || hidden % 64 || Do % 8 || Do < 8 ||
-      !slices_cover(slices2, per2, rows) || !slices_cover(slices1, per1, rows))
+      !bwd::slices_cover(slices2, per2, rows) ||
+      !bwd::slices_cover(slices1, per1, rows))
     return cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gb = static_cast<const bf16*>(g);
@@ -379,40 +156,25 @@ int vt_fused_prenorm_ffn_bwd(const void* x, const void* h_pre, const void* g,
   err = wg::launch_gemm<128, 0, 1, wg::kF32>(
       dhb, static_cast<const bf16*>(w1), p, 1, st);
   if (err != cudaSuccess) return err;
-  err = launch_ln_bwd(xb, static_cast<const float*>(dxn),
-                      static_cast<const bf16*>(ln_w), static_cast<bf16*>(dx),
-                      part_w, part_b, rows, D, ln_eps, st);
+  err = bwd::launch_ln_bwd(xb, static_cast<const float*>(dxn),
+                           static_cast<const bf16*>(ln_w), nullptr,
+                           static_cast<bf16*>(dx), part_w, part_b, rows, D,
+                           ln_eps, st);
   if (err != cudaSuccess) return err;
 
   // the column sums and the slices' sums, two ordered passes for all
-  SumJobs jobs{};
-  auto add = [&](const void* in, bool is_bf16, int R, int N, void* out) {
-    SumJob& j = jobs.job[jobs.n++];
-    j.in = in;
-    j.out = static_cast<float*>(out);
-    j.in_bf16 = is_bf16;
-    j.R = R;
-    j.N = N;
-    j.chunks = chunks_of(R);
-    j.part = chunk;
-    if (j.chunks > 1) chunk += (size_t)j.chunks * N;
-  };
-  const int ln_rows = ln_bwd_part_rows(rows);
-  add(db1_part, false, wg::col_part_rows(rows), hidden, db1);
-  add(gb, true, rows, Do, db2);
-  add(part_w, false, ln_rows, D, dln_w);
-  add(part_b, false, ln_rows, D, dln_b);
-  if (slices2 > 1) add(dw2_slices, false, slices2, Do * hidden, dw2);
-  if (slices1 > 1) add(dw1_slices, false, slices1, hidden * D, dw1);
-  for (int pass = 1; pass <= 2; ++pass) {
-    int blocks = 0;
-    for (int k = 0; k < jobs.n; ++k) blocks += pass_blocks(jobs.job[k], pass);
-    if (blocks == 0) continue;
-    colsum_jobs_kernel<<<blocks, kSumThreads, 0, st>>>(jobs, pass);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  bwd::SumPlan sums(chunk);
+  const int ln_rows = bwd::ln_bwd_part_rows(rows);
+  sums.add(db1_part, false, wg::col_part_rows(rows), hidden,
+           static_cast<float*>(db1));
+  sums.add(gb, true, rows, Do, static_cast<float*>(db2));
+  sums.add(part_w, false, ln_rows, D, static_cast<float*>(dln_w));
+  sums.add(part_b, false, ln_rows, D, static_cast<float*>(dln_b));
+  if (slices2 > 1)
+    sums.add(dw2_slices, false, slices2, Do * hidden, static_cast<float*>(dw2));
+  if (slices1 > 1)
+    sums.add(dw1_slices, false, slices1, hidden * D, static_cast<float*>(dw1));
+  return sums.run(st);
 }
 
 }  // extern "C"

@@ -153,47 +153,6 @@ constexpr uint32_t kTileBytes = 64 * kHd * 2;  // one 64-row tile of a head
 
 enum Variant { kGeneral = 0, kPacked = 1, kDense = 2 };
 
-// Softmax of one 64-row score tile held in wgmma's accumulator layout, in
-// place (s -> p in fp32): scores × scale, keys with valid(row, col) false
-// get p = 0, the max over the row's valid keys, p = exp(s - max), and the
-// row sums (of this thread's rows lane/4 and lane/4 + 8) before rounding.
-// `col0` offsets the columns of this accumulator within the row.
-template <int R, class Valid>
-__device__ __forceinline__ void scale_and_max(float (&s)[R], float (&mx)[2],
-                                              int col0, int t, float scale,
-                                              Valid valid) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int h = (i >> 1) & 1;
-    s[i] *= scale;
-    if (valid(h, col0 + acc_col(i, t))) mx[h] = fmaxf(mx[h], s[i]);
-  }
-}
-
-template <int R, class Valid>
-__device__ __forceinline__ void exp_and_sum(float (&s)[R], const float (&mx)[2],
-                                            float (&sum)[2], int col0, int t,
-                                            Valid valid) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int h = (i >> 1) & 1;
-    const bool in = valid(h, col0 + acc_col(i, t));
-    const float p = in ? __expf(s[i] - mx[h]) : 0.0f;
-    sum[h] += p;  // the row sum is taken before p is rounded
-    s[i] = p;
-  }
-}
-
-__device__ __forceinline__ void quad_reduce(float (&v)[2], bool is_max) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      const float w = __shfl_xor_sync(0xffffffffu, v[h], o);
-      v[h] = is_max ? fmaxf(v[h], w) : v[h] + w;
-    }
-}
-
 // O (64 x 64) / sum, rounded to bf16, into rows row0.. (of `limit`) of
 // `out` (row stride Da) at column col, 16 bytes a lane (quad_transpose).
 __device__ __forceinline__ void store_rows(const float (&o)[32],

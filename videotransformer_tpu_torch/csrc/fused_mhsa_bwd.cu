@@ -1,10 +1,11 @@
 // Fused prenorm multi-head self-attention, backward, for Hopper (sm_90a).
 //
 // Replaces videotransformer_tpu/kernels/fused_mhsa_pallas.py::_attn_bwd_kernel
-// (reached through _attn_bwd / _vjp_bwd). From the forward's saved qkv
-// (bf16, rows x 3Da), the gradient do of the pre-projection attention output
-// and, with the residual, the output gradient g:
+// (reached through _attn_bwd) and the products of _vjp_bwd around it
+// (fused_mhsa_pallas.py:523-556). From the output gradient g, the forward's
+// saved qkv (bf16, rows x 3Da) and attn (rows x Da), per row:
 //
+//   db_proj = sum of g;  dw_proj = gᵀ · attn (fp32);  do = bf16(g · Wproj)
 //   per sequence and head, with deferred normalisation (s = q kᵀ · scale,
 //   p_un = exp(s - max), inv_l = 1 / sum p_un, all fp32):
 //     dv    = bf16(p_un)ᵀ · bf16(do · inv_l)
@@ -15,44 +16,55 @@
 //   dqkv   = concat(dq, dk, dv) (bf16);  dbqkv = sum of dqkv over rows (fp32)
 //   d_xn   = dqkv · Wqkv (fp32)
 //   dx     = bf16(LayerNorm backward of d_xn [+ g]);  dln_w, dln_b (fp32)
+//   dw_qkv = dqkvᵀ · bf16(LayerNorm(x)) (fp32)
 //
 // The rounding points are the TPU kernel's (fused_mhsa_pallas.py:351-414).
-// The projection gradients and d_wqkv stay outside, as they were XLA
-// einsums outside the Pallas kernel (kernels/fused_mhsa.py).
+// One deviation: _vjp_bwd multiplies dqkv by the fp32 xn; here xn is the
+// bf16 LayerNorm (as B4's dW1 reads it), which is what the TPU's default
+// matmul precision feeds its MXU from fp32 operands too.
 //
-// Bound: at the train shapes the d_xn GEMM (2·rows·3Da·D FLOPs) and the
-// attention products (five per head) are tensor-core work; the LayerNorm
-// backward and the column sums are bandwidth. Design:
-// - Dense sequences (32 < L <= 256, head dim 64; the spatial N = 197): one
-//   block per (sequence, head) holds q, k, v, do of the sequence in shared
-//   memory. Phase 1, per 16-query tile and warp: the row max (one pass of
-//   QKᵀ), then l and c (a second pass, with dP = dO·Vᵀ), then dq (a third,
-//   with dS·K); the stats m, inv_l, c and the scaled operands
-//   bf16(q·scale·inv_l), bf16(do·inv_l) stay in shared memory. Phase 2, per
-//   16-key tile and warp: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are recomputed from the
-//   stored row stats, and dk, dv are summed over the query tiles in
-//   registers. Every product is mma.sync m16n8k16; no score tile leaves the
-//   registers, and no sum crosses blocks.
-// - Short sequences (L <= 32: the temporal L = 8, or 9 with the cls token),
-//   and any other shape whose tiles fit in shared memory: 8x8 products are
-//   too small for 16-row tiles, so each warp takes one (sequence, head) on
-//   the CUDA cores, with q, k, v, do and the L x L score and dP tiles in its
-//   slice of shared memory.
-// - dbqkv and the LayerNorm gradients are partial rows reduced by an
-//   ordered second pass (reduce.cuh): no atomics, the same bits every run.
-// This first version writes dqkv (bf16) and d_xn (fp32) to device memory
-// where the TPU kernel kept them in VMEM.
+// Bound: at the train shapes the four projection-sized products (d_xn,
+// dw_qkv: 2·rows·D·3Da FLOPs each; dw_proj, do: 2·rows·Da·Do each) at the
+// tensor-core rate; the attention products are a few percent of that, and
+// the LayerNorm passes and sums are bandwidth. Design, all launches on the
+// caller's stream from one call:
+// - The four products run on the wgmma/TMA core (sm90_gemm.cuh): the weight
+//   gradients read g, attn, dqkv and xn MN-major as they lie, split over the
+//   rows into fused_ffn.split_k slices summed in order; do with a bf16
+//   epilogue; d_xn with an fp32 one.
+// - Attention on the tensor cores (head dim 64), Q, K, V and dO of a head by
+//   TMA, in two passes: a query pass (per 64-query tile and warpgroup: S and
+//   the row statistics m, inv_l in registers, dP in key chunks twice, for c
+//   and then for ds, dq = ds·K with ds from registers; it leaves m, c and
+//   the scaled operands bf16(q·scale·inv_l), bf16(do·inv_l) in shared
+//   memory), then a key pass (per 64-key tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+//   recomputed from the stored statistics, dv += bf16(pᵀ)·bf16(do·inv_l)
+//   and dk += dsᵀ·bf16(q·scale·inv_l) with pᵀ and dsᵀ from registers):
+//   - dense (32 < L <= 256; the spatial L = 197): a block per (sequence,
+//     head), the whole head in shared memory, keys padded as in B1's dense
+//     forward (S as a 128 + 80-key product at L = 197);
+//   - packed (64 % L == 0; the temporal L = 8): 64 / L sequences share a
+//     64-row tile, and keys of another sequence get p = 0 exactly (B1's
+//     packed forward run backward).
+//   Other shapes (head dim != 64, or L <= 32 not dividing 64) take a
+//   CUDA-core kernel, one warp per (sequence, head); off the main paths.
+//   The wrapper chooses the variant (kernels/fused_mhsa.py).
+// - The LayerNorm backward (with g added where the residual is) and every
+//   column sum and slice sum are bwd_common.cuh's: partial rows reduced in
+//   a fixed order, no atomics, the same bits on every run.
+// dqkv, xn, do (bf16) and d_xn (fp32) go through device memory, where the
+// TPU kernel kept its intermediates in VMEM.
 
-#include "gemm_tile.cuh"
+#include "bwd_common.cuh"
+#include "flash_common.cuh"
 #include "layernorm.cuh"
-#include "reduce.cuh"
+#include "sm90_gemm.cuh"
 
 namespace vt {
 
 // ---- short sequences, CUDA cores ------------------------------------------
 
 constexpr int kSmallWarps = 4;
-constexpr int kSmallMaxL = 32;  // longer sequences at head dim 64: mma
 
 __host__ __device__ inline size_t small_bwd_warp_floats(int L, int hd) {
   return 4 * (size_t)L * (hd + 1) + 2 * (size_t)L * L + L;
@@ -150,362 +162,679 @@ __global__ void __launch_bounds__(kSmallWarps * 32)
   }
 }
 
-// ---- dense sequences, tensor cores ----------------------------------------
+// ---- head dim 64, tensor cores ---------------------------------------------
 
-constexpr int kMmaBwdWarps = 8;
-constexpr int kMmaBwdHd = 64;
-constexpr int kMmaBwdMaxL = 256;
-constexpr int kMmaBwdLd = kMmaBwdHd + 8;  // padded row: 144 bytes
+constexpr int kBHd = 64;
+constexpr uint32_t kBTile = 64 * kBHd * 2;  // one 64-row tile of a head
+constexpr int kBTileElems = 64 * kBHd;
 
-__host__ __device__ inline int bwd_pad(int L) { return (L + 15) / 16 * 16; }
+enum BwdVariant { kBwdGeneral = 0, kBwdPacked = 1, kBwdDense = 2 };
 
-// q, k, v, do, bf16(q·scale·inv_l), bf16(do·inv_l), and m, inv_l, c
-__host__ __device__ inline size_t mma_bwd_smem_bytes(int L) {
-  const size_t lp = bwd_pad(L);
-  return 6 * lp * kMmaBwdLd * sizeof(bf16) + 3 * lp * sizeof(float);
-}
-
-// s (two n8 tiles: 16 keys) = q_tile · k_tileᵀ for 16 rows; qa the A
-// fragments (4 k-steps of head dim), kbase the first key row in smem.
-__device__ __forceinline__ void qk_tile16(float (*s)[4], uint32_t (*qa)[4],
-                                          const bf16* kbase, int lane) {
+// bf16(src · f) of this thread's two rows (warp·16 + lane/4 + 8h) of a
+// 64-row tile, into dst: lane t of a quad takes the row's 16-byte chunks
+// 2t and 2t + 1. Both tiles lie as TMA writes them (128-byte swizzle
+// within a row), and a row's scale does not care where its chunks lie.
+__device__ __forceinline__ void scale_tile_rows(bf16* dst, const bf16* src,
+                                                const float (&f)[2]) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + (lane >> 2) + 8 * h;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+    for (int c = 0; c < 2; ++c) {
+      const int off = r * kBHd + (2 * t + c) * 8;
+      uint4 u = *reinterpret_cast<const uint4*>(src + off);
+      __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-  for (int ks = 0; ks < kMmaBwdHd / 16; ++ks) {
-    uint32_t b[4];
-    load_b_nk(b, kbase + ks * 16, kMmaBwdLd, lane);
-    mma_16816(s[0], qa[ks], b);
-    mma_16816(s[1], qa[ks], b + 2);
-  }
-}
-
-// acc (8 n8 tiles of head dim) += a (16 x 16) · B, B stored [k][d] from
-// `base` (16 rows of the k index).
-__device__ __forceinline__ void av_tile16(float (*acc)[4], const uint32_t* a,
-                                          const bf16* base, int lane) {
-#pragma unroll
-  for (int dt = 0; dt < kMmaBwdHd / 16; ++dt) {
-    uint32_t b[4];
-    load_b_kn(b, base + dt * 16, kMmaBwdLd, lane);
-    mma_16816(acc[2 * dt], a, b);
-    mma_16816(acc[2 * dt + 1], a, b + 2);
-  }
-}
-
-// grid (nseq, heads); block kMmaBwdWarps warps.
-__global__ void __launch_bounds__(kMmaBwdWarps * 32, 1)
-    attention_bwd_mma_kernel(const bf16* __restrict__ qkv,
-                             const bf16* __restrict__ dout,
-                             bf16* __restrict__ dqkv, int L, int Da,
-                             float scale) {
-  constexpr int HD = kMmaBwdHd;
-  constexpr int LD = kMmaBwdLd;
-  extern __shared__ __align__(16) unsigned char sm_mma[];
-  const int lp = bwd_pad(L);
-  bf16* Qs = reinterpret_cast<bf16*>(sm_mma);
-  bf16* Ks = Qs + lp * LD;
-  bf16* Vs = Ks + lp * LD;
-  bf16* DOs = Vs + lp * LD;
-  bf16* QSs = DOs + lp * LD;   // bf16(q · scale · inv_l)
-  bf16* DOSs = QSs + lp * LD;  // bf16(do · inv_l)
-  float* Mrow = reinterpret_cast<float*>(DOSs + lp * LD);
-  float* Inv = Mrow + lp;
-  float* Crow = Inv + lp;
-
-  const int h = blockIdx.y;
-  const size_t row0 = (size_t)blockIdx.x * L;
-  const size_t ld = 3 * (size_t)Da;
-  for (int idx = threadIdx.x; idx < lp * (HD / 8); idx += blockDim.x) {
-    const int r = idx / (HD / 8);
-    const int c = (idx % (HD / 8)) * 8;
-    uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q, o = q;
-    if (r < L) {
-      const bf16* src = qkv + (row0 + r) * ld + h * HD + c;
-      q = *reinterpret_cast<const uint4*>(src);
-      k = *reinterpret_cast<const uint4*>(src + Da);
-      v = *reinterpret_cast<const uint4*>(src + 2 * Da);
-      o = *reinterpret_cast<const uint4*>(dout + (row0 + r) * Da + h * HD + c);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LD + c) = q;
-    *reinterpret_cast<uint4*>(Ks + r * LD + c) = k;
-    *reinterpret_cast<uint4*>(Vs + r * LD + c) = v;
-    *reinterpret_cast<uint4*>(DOs + r * LD + c) = o;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // fragment row (and row + 8)
-  const int tig = lane & 3;  // fragment column pair
-  const int tiles = lp / 16;
-  const float neg_inf = __int_as_float(0xff800000);
-
-  // ---- phase 1: per query tile, the row stats and dq
-  for (int qt = warp; qt < tiles; qt += kMmaBwdWarps) {
-    const int q0 = qt * 16;
-    uint32_t qa[HD / 16][4], da[HD / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      load_a_mk(qa[ks], Qs + q0 * LD + ks * 16, LD, lane);
-      load_a_mk(da[ks], DOs + q0 * LD + ks * 16, LD, lane);
-    }
-    float mx[2] = {neg_inf, neg_inf};
-    for (int k0 = 0; k0 < lp; k0 += 16) {
-      float s[2][4];
-      qk_tile16(s, qa, Ks + k0 * LD, lane);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + nt * 8 + tig * 2 + (e & 1) < L)
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e] * scale);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    float l[2] = {0.0f, 0.0f}, cs[2] = {0.0f, 0.0f};
-    for (int k0 = 0; k0 < lp; k0 += 16) {
-      float s[2][4], dp[2][4];
-      qk_tile16(s, qa, Ks + k0 * LD, lane);
-      qk_tile16(dp, da, Vs + k0 * LD, lane);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool valid = k0 + nt * 8 + tig * 2 + (e & 1) < L;
-          const float p = valid ? expf(s[nt][e] * scale - mx[e >> 1]) : 0.0f;
-          l[e >> 1] += p;
-          cs[e >> 1] += dp[nt][e] * p;
-        }
-    }
-    float inv[2], c[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-      cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], 1);
-      cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], 2);
-      inv[i] = 1.0f / l[i];
-      c[i] = cs[i] * inv[i];
-    }
-    if (tig == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = q0 + g + i * 8;
-        const bool valid = r < L;
-        Mrow[r] = valid ? mx[i] : 0.0f;
-        Inv[r] = valid ? inv[i] : 0.0f;
-        Crow[r] = valid ? c[i] : 0.0f;
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(v[e]);
+        v[e] = __floats2bfloat162_rn(x.x * f[h], x.y * f[h]);
       }
-    }
-    __syncwarp();
-    // the scaled operands of phase 2, for this tile's rows (zero past L)
-    for (int idx = lane; idx < 16 * HD; idx += 32) {
-      const int r = q0 + idx / HD, d = idx % HD;
-      const float iv = Inv[r];
-      QSs[r * LD + d] =
-          __float2bfloat16(__bfloat162float(Qs[r * LD + d]) * (scale * iv));
-      DOSs[r * LD + d] = __float2bfloat16(__bfloat162float(DOs[r * LD + d]) * iv);
-    }
-    // dq = (ds_un · k) · (scale · inv_l)
-    float acc[HD / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
-    for (int k0 = 0; k0 < lp; k0 += 16) {
-      float s[2][4], dp[2][4];
-      qk_tile16(s, qa, Ks + k0 * LD, lane);
-      qk_tile16(dp, da, Vs + k0 * LD, lane);
-      float ds[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool valid = k0 + nt * 8 + tig * 2 + (e & 1) < L;
-          const float p = valid ? expf(s[nt][e] * scale - mx[e >> 1]) : 0.0f;
-          ds[nt][e] = p * (dp[nt][e] - c[e >> 1]);
-        }
-      const uint32_t a[4] = {pack_bf16x2(ds[0][0], ds[0][1]),
-                             pack_bf16x2(ds[0][2], ds[0][3]),
-                             pack_bf16x2(ds[1][0], ds[1][1]),
-                             pack_bf16x2(ds[1][2], ds[1][3])};
-      av_tile16(acc, a, Ks + k0 * LD, lane);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = q0 + g + i * 8;
-      if (r >= L) continue;
-      const float f = scale * inv[i];
-      bf16* dst = dqkv + (row0 + r) * ld + h * HD + tig * 2;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
-        *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
-            __floats2bfloat162_rn(acc[dt][2 * i] * f, acc[dt][2 * i + 1] * f);
+      *reinterpret_cast<uint4*>(dst + off) = u;
     }
   }
-  __syncthreads();
+}
 
-  // ---- phase 2: per key tile, dk and dv summed over the query tiles
-  for (int kt = warp; kt < tiles; kt += kMmaBwdWarps) {
-    const int k0 = kt * 16;
-    uint32_t ka[HD / 16][4], va[HD / 16][4];
+// bf16(acc · f) of a 64 x 64 accumulator (f per row), tile rows < limit,
+// into rows row0.. of `out` (row stride ld) at column col; 16 bytes a lane.
+__device__ __forceinline__ void store_tile(const float (&acc)[32],
+                                           const float (&f)[2], bf16* out,
+                                           size_t row0, int limit, size_t ld,
+                                           int col) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int t = lane & 3;
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      load_a_mk(ka[ks], Ks + k0 * LD + ks * 16, LD, lane);
-      load_a_mk(va[ks], Vs + k0 * LD + ks * 16, LD, lane);
-    }
-    float dk[HD / 8][4], dv[HD / 8][4];
+  for (int h = 0; h < 2; ++h) {
+    const int row = warp * 16 + (lane >> 2) + 8 * h;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
+    for (int j0 = 0; j0 < kBHd / 8; j0 += 4) {
+      uint32_t x[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.0f;
-    for (int q0 = 0; q0 < lp; q0 += 16) {
-      float st[2][4], dpt[2][4];  // rows: keys; columns: queries
-      qk_tile16(st, ka, Qs + q0 * LD, lane);
-      qk_tile16(dpt, va, DOs + q0 * LD, lane);
-      float pt[2][4], dst[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = q0 + nt * 8 + tig * 2 + (e & 1);
-          const float p = q < L ? expf(st[nt][e] * scale - Mrow[q]) : 0.0f;
-          pt[nt][e] = p;
-          dst[nt][e] = p * (dpt[nt][e] - Crow[q]);
-        }
-      const uint32_t ap[4] = {pack_bf16x2(pt[0][0], pt[0][1]),
-                              pack_bf16x2(pt[0][2], pt[0][3]),
-                              pack_bf16x2(pt[1][0], pt[1][1]),
-                              pack_bf16x2(pt[1][2], pt[1][3])};
-      const uint32_t as[4] = {pack_bf16x2(dst[0][0], dst[0][1]),
-                              pack_bf16x2(dst[0][2], dst[0][3]),
-                              pack_bf16x2(dst[1][0], dst[1][1]),
-                              pack_bf16x2(dst[1][2], dst[1][3])};
-      av_tile16(dv, ap, DOSs + q0 * LD, lane);
-      av_tile16(dk, as, QSs + q0 * LD, lane);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = k0 + g + i * 8;
-      if (r >= L) continue;
-      bf16* dst = dqkv + (row0 + r) * ld + h * HD + tig * 2;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + Da + dt * 8) =
-            __floats2bfloat162_rn(dk[dt][2 * i], dk[dt][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dst + 2 * Da + dt * 8) =
-            __floats2bfloat162_rn(dv[dt][2 * i], dv[dt][2 * i + 1]);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+        x[jj] = wg::pack2(acc[4 * j + 2 * h] * f[h],
+                          acc[4 * j + 2 * h + 1] * f[h]);
       }
+      const uint4 v = wg::quad_transpose(x, t);
+      if (row < limit)
+        *reinterpret_cast<uint4*>(out + (row0 + row) * ld + col +
+                                  (j0 + t) * 8) = v;
     }
   }
 }
 
-inline bool use_mma_bwd(int L, int hd) {
-  return hd == kMmaBwdHd && L > kSmallMaxL && L <= kMmaBwdMaxL;
+// dp (64 x NC) = dO · V[key0 .. key0 + NC)ᵀ, both K-major 64-wide rows.
+template <int NC>
+__device__ __forceinline__ void dp_chunk(float (&dp)[NC / 2], const bf16* DOt,
+                                         const bf16* Vs, int key0) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kBHd / 16; ++ks)
+    sm90::Wgmma<NC, 0>::ss(dp, desc_kmajor<kBHd, 64>(DOt, 0, ks),
+                           desc_kmajor<kBHd, 64>(Vs, key0, ks), ks > 0);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dp);
 }
 
-struct MhsaBwdScratch {
-  size_t bias_sum, ln_w, ln_b, ln_sum;
-  size_t total() const { return bias_sum + ln_w + ln_b + ln_sum; }
+// cs += sum over the chunk's keys of dp · p_un; p[OFF..] are its p_un.
+template <int NC, int OFF, int R>
+__device__ __forceinline__ void c_chunk(const float (&p)[R], const bf16* DOt,
+                                        const bf16* Vs, int key0,
+                                        float (&cs)[2]) {
+  float dp[NC / 2];
+  dp_chunk<NC>(dp, DOt, Vs, key0);
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) cs[(i >> 1) & 1] += dp[i] * p[OFF + i];
+}
+
+// dq += bf16(p_un · (dp - c)) · K[key0 .. key0 + NC), ds from registers.
+template <int NC, int OFF, int R>
+__device__ __forceinline__ void dq_chunk(const float (&p)[R],
+                                         const float (&c)[2], const bf16* DOt,
+                                         const bf16* Ks, const bf16* Vs,
+                                         int key0, float (&dq)[32]) {
+  float ds[NC / 2];
+  dp_chunk<NC>(ds, DOt, Vs, key0);
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i)
+    ds[i] = p[OFF + i] * (ds[i] - c[(i >> 1) & 1]);
+  uint32_t a[NC / 4];
+  acc_to_a<NC / 2>(a, ds);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk)
+    sm90::Wgmma<kBHd, 1>::rs(dq, a + 4 * kk,
+                             desc_mnmajor<kBHd, 64>(Ks, key0 / 16 + kk), 1);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(a);
+  sm90::fence_regs(dq);
+}
+
+// The query pass of one 64-query tile (Qt, DOt) against N1 + N2 keys (Ks,
+// Vs; N1 64 or 128, N2 0, 80 or 128): dq into rows row0.. of dqkv (tile
+// rows < valid_rows), the tile's m and c into Mrow, Crow, and its scaled
+// operands bf16(q·scale·inv_l), bf16(do·inv_l) into QSt, DOSt (0 on rows
+// past valid_rows), fenced for the tensor cores. valid(h, key) is false for
+// keys outside the row's sequence (p = 0 exactly).
+template <int N1, int N2, class Valid>
+__device__ __forceinline__ void query_pass(
+    const bf16* Qt, const bf16* DOt, const bf16* Ks, const bf16* Vs,
+    bf16* QSt, bf16* DOSt, float* Mrow, float* Crow, int valid_rows,
+    float scale, Valid valid, bf16* dqkv, size_t row0, size_t ld, int col) {
+  static_assert((N1 == 64 || N1 == 128) && (N2 == 0 || N2 == 80 || N2 == 128),
+                "key chunks");
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int t = lane & 3;
+  float s1[N1 / 2];
+  float s2[N2 > 0 ? N2 / 2 : 2];
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kBHd / 16; ++ks)
+    sm90::Wgmma<N1, 0>::ss(s1, desc_kmajor<kBHd, 64>(Qt, 0, ks),
+                           desc_kmajor<kBHd, 64>(Ks, 0, ks), ks > 0);
+  if constexpr (N2 > 0) {
+#pragma unroll
+    for (int ks = 0; ks < kBHd / 16; ++ks)
+      sm90::Wgmma<N2, 0>::ss(s2, desc_kmajor<kBHd, 64>(Qt, 0, ks),
+                             desc_kmajor<kBHd, 64>(Ks, N1, ks), ks > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s1);
+  sm90::fence_regs(s2);
+
+  const float neg = neg_inf();
+  float mx[2] = {neg, neg}, l[2] = {0.0f, 0.0f};
+  scale_and_max(s1, mx, 0, t, scale, valid);
+  if constexpr (N2 > 0) scale_and_max(s2, mx, N1, t, scale, valid);
+  quad_reduce(mx, true);
+  exp_and_sum(s1, mx, l, 0, t, valid);  // s1, s2 hold p_un from here on
+  if constexpr (N2 > 0) exp_and_sum(s2, mx, l, N1, t, valid);
+  quad_reduce(l, false);
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+
+  // c = sum(dp · p_un) · inv_l; dP in key chunks, computed again for ds
+  float c[2] = {0.0f, 0.0f};
+  c_chunk<64, 0>(s1, DOt, Vs, 0, c);
+  if constexpr (N1 == 128) c_chunk<64, 32>(s1, DOt, Vs, 64, c);
+  if constexpr (N2 == 80) c_chunk<80, 0>(s2, DOt, Vs, N1, c);
+  if constexpr (N2 == 128) {
+    c_chunk<64, 0>(s2, DOt, Vs, N1, c);
+    c_chunk<64, 32>(s2, DOt, Vs, N1 + 64, c);
+  }
+  quad_reduce(c, false);
+  c[0] *= inv[0];
+  c[1] *= inv[1];
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+  dq_chunk<64, 0>(s1, c, DOt, Ks, Vs, 0, dq);
+  if constexpr (N1 == 128) dq_chunk<64, 32>(s1, c, DOt, Ks, Vs, 64, dq);
+  if constexpr (N2 == 80) dq_chunk<80, 0>(s2, c, DOt, Ks, Vs, N1, dq);
+  if constexpr (N2 == 128) {
+    dq_chunk<64, 0>(s2, c, DOt, Ks, Vs, N1, dq);
+    dq_chunk<64, 32>(s2, c, DOt, Ks, Vs, N1 + 64, dq);
+  }
+  const float fq[2] = {scale * inv[0], scale * inv[1]};
+  store_tile(dq, fq, dqkv, row0, valid_rows, ld, col);
+
+  float fs[2], fo[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + (lane >> 2) + 8 * h;
+    const bool in = r < valid_rows;
+    fs[h] = in ? fq[h] : 0.0f;
+    fo[h] = in ? inv[h] : 0.0f;
+    if (t == 0) {
+      Mrow[r] = mx[h];
+      Crow[r] = c[h];
+    }
+  }
+  scale_tile_rows(QSt, Qt, fs);
+  scale_tile_rows(DOSt, DOt, fo);
+  wg::fence_proxy_async();  // the generic writes, before wgmma reads them
+}
+
+// The key pass of one 64-key tile (Kt, Vt) over nq 64-query tiles: dk and dv
+// summed over the query tiles from the stored m, c and scaled operands, into
+// rows row0.. (tile rows < limit) of dqkv at columns col_k, col_v.
+// valid(h, q) is false where key row warp·16 + lane/4 + 8h and query q do
+// not both exist in one sequence.
+template <class Valid>
+__device__ __forceinline__ void key_pass(
+    const bf16* Kt, const bf16* Vt, const bf16* Qs, const bf16* DOs,
+    const bf16* QSs, const bf16* DOSs, const float* Mrow, const float* Crow,
+    int nq, float scale, Valid valid, bf16* dqkv, size_t row0, int limit,
+    size_t ld, int col_k, int col_v) {
+  const int t = threadIdx.x % 4;
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  for (int qc = 0; qc < nq; ++qc) {
+    const int o = qc * kBTileElems;
+    float st[32], dpt[32];  // rows: keys; columns: queries
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBHd / 16; ++ks)
+      sm90::Wgmma<64, 0>::ss(st, desc_kmajor<kBHd, 64>(Kt, 0, ks),
+                             desc_kmajor<kBHd, 64>(Qs + o, 0, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < kBHd / 16; ++ks)
+      sm90::Wgmma<64, 0>::ss(dpt, desc_kmajor<kBHd, 64>(Vt, 0, ks),
+                             desc_kmajor<kBHd, 64>(DOs + o, 0, ks), ks > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int q = qc * 64 + acc_col(i, t);
+      const bool in = valid((i >> 1) & 1, q);
+      const float p = in ? __expf(st[i] * scale - Mrow[q]) : 0.0f;
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - Crow[q]);  // ds_un, rounded below
+    }
+    uint32_t ap[16], as[16];
+    acc_to_a<32>(ap, st);
+    acc_to_a<32>(as, dpt);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::Wgmma<kBHd, 1>::rs(dv, ap + 4 * kk,
+                               desc_mnmajor<kBHd, 64>(DOSs + o, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::Wgmma<kBHd, 1>::rs(dk, as + 4 * kk,
+                               desc_mnmajor<kBHd, 64>(QSs + o, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(ap);
+    sm90::fence_regs(as);
+    sm90::fence_regs(dk);
+    sm90::fence_regs(dv);
+  }
+  const float one[2] = {1.0f, 1.0f};
+  store_tile(dk, one, dqkv, row0, limit, ld, col_k);
+  store_tile(dv, one, dqkv, row0, limit, ld, col_v);
+}
+
+// Dense: grid (nseq, heads), two warpgroups. Every tile of the head is
+// kRows rows in shared memory (zero-filled past L): Q, K, V, dO, then the
+// scaled operands QS, DOS; the query pass gives warpgroup w query tiles
+// w, w + 2, the key pass key tiles w, w + 2.
+template <int N1, int N2>
+struct DenseBwdCfg {
+  static constexpr int kRows = (N1 + N2 + 63) / 64 * 64;
+  static constexpr uint32_t kBytes = kRows * kBHd * 2;
+  static constexpr size_t kSmem =
+      1024 + 6 * (size_t)kBytes + 2 * kRows * sizeof(float) + 16;
 };
 
-inline MhsaBwdScratch mhsa_bwd_scratch(int rows, int D, int Da) {
-  const int ln_rows = layernorm_bwd_part_rows(rows);
+template <int N1, int N2>
+__global__ void __launch_bounds__(256, 1)
+    attention_bwd_dense_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               bf16* __restrict__ dqkv, int L, int Da,
+                               float scale) {
+  constexpr int R = DenseBwdCfg<N1, N2>::kRows;
+  extern __shared__ unsigned char bwd_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(flash_smem_base(bwd_smem));
+  bf16* Ks = Qs + R * kBHd;
+  bf16* Vs = Ks + R * kBHd;
+  bf16* DOs = Vs + R * kBHd;
+  bf16* QSs = DOs + R * kBHd;
+  bf16* DOSs = QSs + R * kBHd;
+  float* Mrow = reinterpret_cast<float*>(DOSs + R * kBHd);
+  float* Crow = Mrow + R;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Crow + R);
+  const int seq = blockIdx.x, head = blockIdx.y;
+  const int nq = (L + 63) / 64;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(bar, (2 * nq + 2 * (R / 64)) * kBTile);
+    for (int q = 0; q < nq; ++q) {
+      sm90::tma_load_3d(Qs + q * kBTileElems, &qkv_map, bar, head * kBHd,
+                        64 * q, seq);
+      sm90::tma_load_3d(DOs + q * kBTileElems, &do_map, bar, head * kBHd,
+                        64 * q, seq);
+    }
+    for (int k = 0; k < R / 64; ++k) {
+      sm90::tma_load_3d(Ks + k * kBTileElems, &qkv_map, bar,
+                        Da + head * kBHd, 64 * k, seq);
+      sm90::tma_load_3d(Vs + k * kBTileElems, &qkv_map, bar,
+                        2 * Da + head * kBHd, 64 * k, seq);
+    }
+  }
+  sm90::mbar_wait(bar, 0);
+  const int wgi = threadIdx.x / 128;
+  const size_t ld = 3 * (size_t)Da;
+  const size_t row0 = (size_t)seq * L;
+  auto key_in = [L](int, int col) { return col < L; };
+  for (int qt = wgi; qt < nq; qt += 2) {
+    const int o = qt * kBTileElems;
+    query_pass<N1, N2>(Qs + o, DOs + o, Ks, Vs, QSs + o, DOSs + o,
+                       Mrow + 64 * qt, Crow + 64 * qt, L - 64 * qt, scale,
+                       key_in, dqkv, row0 + 64 * qt, ld, head * kBHd);
+  }
+  __syncthreads();  // every tile's m, c, QS and DOS
+  const int rbase = (threadIdx.x % 128) / 32 * 16 + (threadIdx.x % 32) / 4;
+  for (int kt = wgi; kt < nq; kt += 2) {
+    const int k0 = 64 * kt;
+    auto both_in = [L, k0, rbase](int h, int q) {
+      return q < L && k0 + rbase + 8 * h < L;
+    };
+    key_pass(Ks + kt * kBTileElems, Vs + kt * kBTileElems, Qs, DOs, QSs,
+             DOSs, Mrow, Crow, nq, scale, both_in, dqkv, row0 + k0, L - k0,
+             ld, Da + head * kBHd, 2 * Da + head * kBHd);
+  }
+}
+
+// Packed: grid (ceil(rows / 128), heads), two warpgroups, each one 64-row
+// tile of 64 / L whole sequences with its own Q, K, V, dO, QS and DOS; keys
+// of another sequence are masked in both passes.
+constexpr size_t kPackedBwdSmem = 1024 + 12 * (size_t)kBTile + 4 * 64 * 4 + 16;
+
+__global__ void __launch_bounds__(256)
+    attention_bwd_packed_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                                const __grid_constant__ CUtensorMap do_map,
+                                bf16* __restrict__ dqkv, int rows, int L,
+                                int Da, float scale) {
+  extern __shared__ unsigned char bwd_smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(flash_smem_base(bwd_smem));
+  float* stats = reinterpret_cast<float*>(tiles + 12 * kBTileElems);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stats + 4 * 64);
+  const int r0 = blockIdx.x * 128, head = blockIdx.y;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(bar, 8 * kBTile);
+    for (int w = 0; w < 2; ++w) {
+      bf16* T = tiles + 6 * w * kBTileElems;  // Q, K, V, dO, QS, DOS
+      const int r = r0 + 64 * w;
+      for (int part = 0; part < 3; ++part)
+        sm90::tma_load_3d(T + part * kBTileElems, &qkv_map, bar,
+                          part * Da + head * kBHd, r, 0);
+      sm90::tma_load_3d(T + 3 * kBTileElems, &do_map, bar, head * kBHd, r, 0);
+    }
+  }
+  const int wgi = threadIdx.x / 128;
+  const int r = r0 + 64 * wgi;
+  if (r >= rows) return;  // warpgroup 0 keeps the block alive
+  sm90::mbar_wait(bar, 0);
+  bf16* T = tiles + 6 * wgi * kBTileElems;
+  bf16* QS = T + 4 * kBTileElems;
+  bf16* DOS = QS + kBTileElems;
+  float* Mrow = stats + 64 * wgi;
+  float* Crow = stats + 128 + 64 * wgi;
+  const int rbase = (threadIdx.x % 128) / 32 * 16 + (threadIdx.x % 32) / 4;
+  // row (query, or key in the key pass) rbase + 8h and column col of the
+  // tile lie in the same sequence
+  auto same_seq = [rbase, L](int h, int col) {
+    return (rbase + 8 * h) / L == col / L;
+  };
+  const size_t ld = 3 * (size_t)Da;
+  query_pass<64, 0>(T, T + 3 * kBTileElems, T + kBTileElems,
+                    T + 2 * kBTileElems, QS, DOS, Mrow, Crow, rows - r, scale,
+                    same_seq, dqkv, r, ld, head * kBHd);
+  sm90::bar_sync(1 + wgi, 128);  // this tile's m, c, QS and DOS
+  key_pass(T + kBTileElems, T + 2 * kBTileElems, T, T + 3 * kBTileElems, QS,
+           DOS, Mrow, Crow, 1, scale, same_seq, dqkv, r, rows - r, ld,
+           Da + head * kBHd, 2 * Da + head * kBHd);
+}
+
+inline bool bwd_variant_fits(int variant, int L, int hd) {
+  if (variant == kBwdPacked) return hd == kBHd && L >= 1 && 64 % L == 0;
+  if (variant == kBwdDense) return hd == kBHd && L > 32 && L <= 256;
+  return variant == kBwdGeneral && L >= 1 && hd >= 1;
+}
+
+inline size_t dense_bwd_smem(int L) {
+  if (L <= 64) return DenseBwdCfg<64, 0>::kSmem;
+  if (L <= 128) return DenseBwdCfg<128, 0>::kSmem;
+  if (L <= 208) return DenseBwdCfg<128, 80>::kSmem;
+  return DenseBwdCfg<128, 128>::kSmem;
+}
+
+template <int N1, int N2>
+cudaError_t launch_dense_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv,
+                             int nseq, int L, int Da, int heads, float scale,
+                             cudaStream_t st) {
+  CUtensorMap qm, dm;
+  if (!make_tensor_map_3d(&qm, qkv, nseq, L, 3 * Da, 64, kBHd) ||
+      !make_tensor_map_3d(&dm, dout, nseq, L, Da, 64, kBHd))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DenseBwdCfg<N1, N2>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_dense_kernel<N1, N2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_dense_kernel<N1, N2><<<dim3(nseq, heads), 256, smem, st>>>(
+      qm, dm, dqkv, L, Da, scale);
+  return cudaGetLastError();
+}
+
+// dqkv from qkv and do through the attention backward `variant`.
+cudaError_t launch_attention_bwd(int variant, const bf16* qkv,
+                                 const bf16* dout, bf16* dqkv, int rows,
+                                 int L, int Da, int heads, float scale,
+                                 cudaStream_t st) {
+  const int hd = Da / heads;
+  const int nseq = rows / L;
+  if (variant == kBwdDense) {
+    if (L <= 64)
+      return launch_dense_bwd<64, 0>(qkv, dout, dqkv, nseq, L, Da, heads,
+                                     scale, st);
+    if (L <= 128)
+      return launch_dense_bwd<128, 0>(qkv, dout, dqkv, nseq, L, Da, heads,
+                                      scale, st);
+    if (L <= 208)
+      return launch_dense_bwd<128, 80>(qkv, dout, dqkv, nseq, L, Da, heads,
+                                       scale, st);
+    return launch_dense_bwd<128, 128>(qkv, dout, dqkv, nseq, L, Da, heads,
+                                      scale, st);
+  }
+  cudaError_t err;
+  if (variant == kBwdPacked) {
+    CUtensorMap qm, dm;
+    if (!make_tensor_map_3d(&qm, qkv, 1, rows, 3 * Da, 64, kBHd) ||
+        !make_tensor_map_3d(&dm, dout, 1, rows, Da, 64, kBHd))
+      return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(attention_bwd_packed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kPackedBwdSmem);
+    if (err != cudaSuccess) return err;
+    attention_bwd_packed_kernel<<<dim3((rows + 127) / 128, heads), 256,
+                                  kPackedBwdSmem, st>>>(qm, dm, dqkv, rows, L,
+                                                        Da, scale);
+    return cudaGetLastError();
+  }
+  const size_t smem = small_bwd_smem_bytes(L, hd);
+  err = cudaFuncSetAttribute(attention_bwd_small_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((nseq + kSmallWarps - 1) / kSmallWarps, heads);
+  attention_bwd_small_kernel<<<grid, kSmallWarps * 32, smem, st>>>(
+      qkv, dout, dqkv, nseq, L, Da, hd, scale);
+  return cudaGetLastError();
+}
+
+// fp32 scratch, in order: d_xn, the LayerNorm partials, the weight
+// gradients' slices (when split), then the chunk sums of the column sums.
+struct MhsaBwdScratch {
+  size_t d_xn, ln_w, ln_b, proj_slices, qkv_slices, chunks;
+  size_t total() const {
+    return d_xn + ln_w + ln_b + proj_slices + qkv_slices + chunks;
+  }
+};
+
+inline MhsaBwdScratch mhsa_bwd_scratch(int rows, int D, int Da, int Do,
+                                       int slices_proj, int slices_qkv) {
+  const int ln_rows = bwd::ln_bwd_part_rows(rows);
   MhsaBwdScratch s;
-  s.bias_sum = colsum_scratch(rows, 3 * Da);
+  s.d_xn = (size_t)rows * D;
   s.ln_w = s.ln_b = (size_t)ln_rows * D;
-  s.ln_sum = colsum_scratch(ln_rows, D);
+  s.proj_slices = slices_proj > 1 ? (size_t)slices_proj * Do * Da : 0;
+  s.qkv_slices = slices_qkv > 1 ? (size_t)slices_qkv * 3 * Da * D : 0;
+  s.chunks = bwd::chunk_floats(rows, Do) + bwd::chunk_floats(rows, 3 * Da) +
+             2 * bwd::chunk_floats(ln_rows, D);
   return s;
+}
+
+inline bool shapes_fit(int rows, int D, int Da, int heads, int L,
+                       int variant) {
+  return rows >= 1 && heads >= 1 && L >= 1 && rows % L == 0 &&
+         Da % heads == 0 && D % 8 == 0 && D <= 1024 && Da % 8 == 0 &&
+         bwd_variant_fits(variant, L, Da / heads) &&
+         (variant != kBwdGeneral ||
+          small_bwd_smem_bytes(L, Da / heads) <= 232448);
+}
+
+// B3's attention backward and what follows it: dqkv, d_xn = dqkv · Wqkv,
+// the LayerNorm backward (+ g_res) into dx and its partial rows; the sums of
+// dbqkv, dln_w and dln_b join `sums`.
+cudaError_t attention_core(const bf16* x, const bf16* qkv, const bf16* dout,
+                           const bf16* g_res, const bf16* ln_w,
+                           const bf16* w_qkv, bf16* dqkv, float* scratch,
+                           bf16* dx, float* dln_w, float* dln_b, float* dbqkv,
+                           int rows, int D, int Da, int heads, int L,
+                           int variant, float scale, float eps,
+                           const MhsaBwdScratch& sz, bwd::SumPlan& sums,
+                           cudaStream_t st) {
+  float* d_xn = scratch;
+  float* part_w = d_xn + sz.d_xn;
+  float* part_b = part_w + sz.ln_w;
+  cudaError_t err = launch_attention_bwd(variant, qkv, dout, dqkv, rows, L,
+                                         Da, heads, scale, st);
+  if (err != cudaSuccess) return err;
+  // d_xn = dqkv · Wqkv: (rows, D), K = 3Da, the weight read N-major
+  wg::Params p{};
+  p.C = d_xn;
+  p.M = rows;
+  p.N = D;
+  p.K = 3 * Da;
+  err = wg::launch_gemm<128, 0, 1, wg::kF32>(dqkv, w_qkv, p, 1, st);
+  if (err != cudaSuccess) return err;
+  err = bwd::launch_ln_bwd(x, d_xn, ln_w, g_res, dx, part_w, part_b, rows, D,
+                           eps, st);
+  if (err != cudaSuccess) return err;
+  const int ln_rows = bwd::ln_bwd_part_rows(rows);
+  sums.add(dqkv, true, rows, 3 * Da, dbqkv);
+  sums.add(part_w, false, ln_rows, D, dln_w);
+  sums.add(part_b, false, ln_rows, D, dln_b);
+  return cudaSuccess;
 }
 
 }  // namespace vt
 
 extern "C" {
 
-// Dynamic shared memory the attention backward needs at (L, hd); the
-// wrapper refuses shapes above the card's 227 KB per block.
-int vt_mhsa_bwd_smem_bytes(int seq_len, int head_dim) {
-  if (vt::use_mma_bwd(seq_len, head_dim))
-    return (int)vt::mma_bwd_smem_bytes(seq_len);
+// Dynamic shared memory the attention backward's `variant` (0 the CUDA-core
+// kernel, 1 packed, 2 dense; the wrapper chooses) needs at (L, hd), or -1
+// when the variant does not take the shape. The wrapper refuses shapes
+// above the card's 227 KB per block.
+int vt_mhsa_bwd_smem_bytes(int seq_len, int head_dim, int variant) {
+  if (!vt::bwd_variant_fits(variant, seq_len, head_dim)) return -1;
+  if (variant == vt::kBwdPacked) return (int)vt::kPackedBwdSmem;
+  if (variant == vt::kBwdDense) return (int)vt::dense_bwd_smem(seq_len);
   return (int)vt::small_bwd_smem_bytes(seq_len, head_dim);
 }
 
-// fp32 floats of scratch vt_fused_prenorm_mhsa_bwd needs.
-int vt_mhsa_bwd_scratch_floats(int rows, int D, int Da) {
-  return (int)vt::mhsa_bwd_scratch(rows, D, Da).total();
+// fp32 floats of scratch both entry points below need, with dw_proj and
+// dw_qkv split into slices_proj and slices_qkv row slices (1: not split);
+// -1 above 2^31.
+int vt_mhsa_bwd_scratch_floats(int rows, int D, int Da, int Do,
+                               int slices_proj, int slices_qkv) {
+  const size_t n =
+      vt::mhsa_bwd_scratch(rows, D, Da, Do, slices_proj, slices_qkv).total();
+  return n > 0x7fffffffu ? -1 : (int)n;
 }
 
-// x (rows, D), qkv (rows, 3Da), dout (rows, Da) = d(attention output),
-// g_res (rows, D) or null (no residual); ln_w (D), w_qkv (3Da, D) in
-// (out, in) layout. d_xn (rows, D) fp32 and `scratch`
-// (vt_mhsa_bwd_scratch_floats) are caller-allocated. Outputs: dqkv
-// (rows, 3Da) and dx (rows, D) bf16; dln_w, dln_b (D) and dbqkv (3Da) fp32.
-int vt_fused_prenorm_mhsa_bwd(const void* x, const void* qkv, const void* dout,
-                              const void* g_res, const void* ln_w,
-                              const void* w_qkv, void* dqkv, void* d_xn,
-                              void* scratch, void* dx, void* dln_w,
-                              void* dln_b, void* dbqkv, int rows, int D,
-                              int Da, int num_heads, int seq_len, float scale,
-                              float ln_eps, void* stream) {
+// B3 alone, from do: x (rows, D), qkv (rows, 3Da), dout (rows, Da), g_res
+// (rows, D) or null (no residual); ln_w (D), w_qkv (3Da, D) in (out, in)
+// layout. dqkv (rows, 3Da) bf16 and `scratch` (vt_mhsa_bwd_scratch_floats)
+// are caller-allocated. Outputs: dx (rows, D) bf16; dln_w, dln_b (D) and
+// dbqkv (3Da) fp32.
+int vt_mhsa_attn_bwd(const void* x, const void* qkv, const void* dout,
+                     const void* g_res, const void* ln_w, const void* w_qkv,
+                     void* dqkv, void* scratch, void* dx, void* dln_w,
+                     void* dln_b, void* dbqkv, int rows, int D, int Da,
+                     int num_heads, int seq_len, int variant, float scale,
+                     float ln_eps, void* stream) {
   using vt::bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hd = Da / num_heads;
-  const int nseq = rows / seq_len;
-  const bf16* qkvb = static_cast<const bf16*>(qkv);
-  const bf16* dob = static_cast<const bf16*>(dout);
-  bf16* dqkvb = static_cast<bf16*>(dqkv);
-  cudaError_t err;
-  if (vt::use_mma_bwd(seq_len, hd)) {
-    const size_t smem = vt::mma_bwd_smem_bytes(seq_len);
-    err = cudaFuncSetAttribute(vt::attention_bwd_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(nseq, num_heads);
-    vt::attention_bwd_mma_kernel<<<grid, vt::kMmaBwdWarps * 32, smem, st>>>(
-        qkvb, dob, dqkvb, seq_len, Da, scale);
-  } else {
-    const size_t smem = vt::small_bwd_smem_bytes(seq_len, hd);
-    err = cudaFuncSetAttribute(vt::attention_bwd_small_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((nseq + vt::kSmallWarps - 1) / vt::kSmallWarps, num_heads);
-    vt::attention_bwd_small_kernel<<<grid, vt::kSmallWarps * 32, smem, st>>>(
-        qkvb, dob, dqkvb, nseq, seq_len, Da, hd, scale);
-  }
-  err = cudaGetLastError();
+  if (!vt::shapes_fit(rows, D, Da, num_heads, seq_len, variant))
+    return cudaErrorInvalidValue;
+  const vt::MhsaBwdScratch sz = vt::mhsa_bwd_scratch(rows, D, Da, 8, 1, 1);
+  float* fs = static_cast<float*>(scratch);
+  vt::bwd::SumPlan sums(fs + sz.total() - sz.chunks);
+  const cudaError_t err = vt::attention_core(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(qkv),
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(g_res),
+      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(w_qkv),
+      static_cast<bf16*>(dqkv), fs, static_cast<bf16*>(dx),
+      static_cast<float*>(dln_w), static_cast<float*>(dln_b),
+      static_cast<float*>(dbqkv), rows, D, Da, num_heads, seq_len, variant,
+      scale, ln_eps, sz, sums, st);
   if (err != cudaSuccess) return err;
+  return sums.run(st);
+}
 
-  const vt::MhsaBwdScratch sz = vt::mhsa_bwd_scratch(rows, D, Da);
-  float* bias_sum = static_cast<float*>(scratch);
-  float* part_w = bias_sum + sz.bias_sum;
-  float* part_b = part_w + sz.ln_w;
-  float* ln_sum = part_b + sz.ln_b;
-  err = vt::launch_colsum(static_cast<const bf16*>(dqkvb), bias_sum,
-                          static_cast<float*>(dbqkv), rows, 3 * Da, st);
+// The whole backward of the fused prenorm MHSA from the output gradient g
+// (rows, Do): x (rows, D), the forward's qkv (rows, 3Da) and attn (rows,
+// Da), ln_w, ln_b (D), w_qkv (3Da, D), w_proj (Do, Da) in (out, in) layout.
+// bf_scratch (rows · (D + 4Da) bf16: xn, do, dqkv) and `scratch`
+// (vt_mhsa_bwd_scratch_floats) are caller-allocated; dw_proj and dw_qkv are
+// split into slices_proj / slices_qkv slices of per_proj / per_qkv 64-row k
+// tiles. Outputs: dx (rows, D) bf16; fp32 dln_w, dln_b (D), dw_qkv (3Da, D),
+// dbqkv (3Da), dw_proj (Do, Da), db_proj (Do).
+int vt_fused_prenorm_mhsa_bwd(
+    const void* g, const void* x, const void* qkv, const void* attn,
+    const void* ln_w, const void* ln_b, const void* w_qkv, const void* w_proj,
+    void* bf_scratch, void* scratch, void* dx, void* dln_w, void* dln_b,
+    void* dw_qkv, void* dbqkv, void* dw_proj, void* db_proj, int rows, int D,
+    int Da, int Do, int num_heads, int seq_len, int variant, int slices_proj,
+    int per_proj, int slices_qkv, int per_qkv, int add_residual, float scale,
+    float ln_eps, void* stream) {
+  using vt::bf16;
+  namespace wg = vt::wg;
+  namespace bwd = vt::bwd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!vt::shapes_fit(rows, D, Da, num_heads, seq_len, variant) || Do < 8 ||
+      Do % 8 || (add_residual && Do != D) ||
+      !bwd::slices_cover(slices_proj, per_proj, rows) ||
+      !bwd::slices_cover(slices_qkv, per_qkv, rows))
+    return cudaErrorInvalidValue;
+  const bf16* gb = static_cast<const bf16*>(g);
+  bf16* xn = static_cast<bf16*>(bf_scratch);
+  bf16* dout = xn + (size_t)rows * D;
+  bf16* dqkv = dout + (size_t)rows * Da;
+  const vt::MhsaBwdScratch sz =
+      vt::mhsa_bwd_scratch(rows, D, Da, Do, slices_proj, slices_qkv);
+  float* fs = static_cast<float*>(scratch);
+  float* proj_slices = fs + sz.d_xn + sz.ln_w + sz.ln_b;
+  float* qkv_slices = proj_slices + sz.proj_slices;
+  bwd::SumPlan sums(qkv_slices + sz.qkv_slices);
+
+  // dw_proj = gᵀ · attn: (Do, Da), K = rows, in slices_proj row slices
+  wg::Params p{};
+  p.C = slices_proj > 1 ? proj_slices : dw_proj;
+  p.M = Do;
+  p.N = Da;
+  p.K = rows;
+  p.ktiles_per_slice = per_proj;
+  cudaError_t err = wg::launch_gemm<128, 1, 1, wg::kF32>(
+      gb, static_cast<const bf16*>(attn), p, slices_proj, st);
   if (err != cudaSuccess) return err;
-  // d_xn = dqkv · Wqkv: (rows, D), K = 3Da, the weight read N-major
-  vt::GemmParams p{dqkvb, static_cast<const bf16*>(w_qkv), nullptr, nullptr,
-                   d_xn, nullptr, nullptr, rows, D, 3 * Da};
-  err = vt::launch_gemm<vt::kF32, false, true>(p, st);
+  // do = bf16(g · Wproj): (rows, Da), K = Do, the weight read N-major
+  p = wg::Params{};
+  p.C = dout;
+  p.M = rows;
+  p.N = Da;
+  p.K = Do;
+  err = wg::launch_gemm<128, 0, 1, wg::kPlain>(
+      gb, static_cast<const bf16*>(w_proj), p, 1, st);
   if (err != cudaSuccess) return err;
-  err = vt::launch_layernorm_bwd(
-      static_cast<const bf16*>(x), static_cast<const float*>(d_xn),
-      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(g_res),
-      static_cast<bf16*>(dx), part_w, part_b, rows, D, ln_eps, st);
+  const bf16* xb = static_cast<const bf16*>(x);
+  err = vt::attention_core(
+      xb, static_cast<const bf16*>(qkv), dout, add_residual ? gb : nullptr,
+      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(w_qkv), dqkv,
+      fs, static_cast<bf16*>(dx), static_cast<float*>(dln_w),
+      static_cast<float*>(dln_b), static_cast<float*>(dbqkv), rows, D, Da,
+      num_heads, seq_len, variant, scale, ln_eps, sz, sums, st);
   if (err != cudaSuccess) return err;
-  const int ln_rows = vt::layernorm_bwd_part_rows(rows);
-  err = vt::launch_colsum(part_w, ln_sum, static_cast<float*>(dln_w), ln_rows,
-                          D, st);
+  // dw_qkv = dqkvᵀ · xn: (3Da, D), K = rows, xn the bf16 LayerNorm
+  err = vt::launch_layernorm(xb, static_cast<const bf16*>(ln_w),
+                             static_cast<const bf16*>(ln_b), xn, rows, D,
+                             ln_eps, st);
   if (err != cudaSuccess) return err;
-  return vt::launch_colsum(part_b, ln_sum, static_cast<float*>(dln_b), ln_rows,
-                           D, st);
+  p = wg::Params{};
+  p.C = slices_qkv > 1 ? qkv_slices : dw_qkv;
+  p.M = 3 * Da;
+  p.N = D;
+  p.K = rows;
+  p.ktiles_per_slice = per_qkv;
+  err = wg::launch_gemm<128, 1, 1, wg::kF32>(dqkv, xn, p, slices_qkv, st);
+  if (err != cudaSuccess) return err;
+  sums.add(gb, true, rows, Do, static_cast<float*>(db_proj));
+  if (slices_proj > 1)
+    sums.add(proj_slices, false, slices_proj, Do * Da,
+             static_cast<float*>(dw_proj));
+  if (slices_qkv > 1)
+    sums.add(qkv_slices, false, slices_qkv, 3 * Da * D,
+             static_cast<float*>(dw_qkv));
+  return sums.run(st);
 }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 // mbarrier ring, wgmma products with fp32 accumulators in registers, and
 // the epilogues of the port's fused kernels applied from the registers.
 // Used by fused_mhsa.cu (B1: the qkv product with LayerNorm folded into its
-// A operand, the output projection with the residual) and fused_ffn_bwd.cu
-// (B4: dh with the GELU backward, the weight gradients split over the rows,
-// dxn).
+// A operand, the output projection with the residual), fused_ffn.cu (B2:
+// fc1 with the bias and GELU, fc2 with the bias), fused_ffn_bwd.cu (B4: dh
+// with the GELU backward, the weight gradients split over the rows, dxn) and
+// fused_mhsa_bwd.cu (B3: the projection gradients, do, d_xn, d_wqkv).
 //
 //   C[M, N] = epilogue(A · B)
 //
@@ -77,13 +78,16 @@ enum Epi {
   kF32 = 2,           // C (fp32, split-K slice z) = acc
   kGeluBwd = 3,       // d = acc · gelu'(aux_in); C = bf16(d);
                       // aux_out = bf16(gelu(aux_in)); col_part += d by column
+  kBiasGelu = 4,      // C = bf16(gelu(acc + bias))
+  kBiasGeluSave = 5,  // the same, and aux_out = bf16(acc + bias)
+  kPlain = 6,         // C = bf16(acc)
 };
 
 struct Params {
   const bf16* bias;      // [N]
   const bf16* aux_in;    // [M][N]: residual, or h_pre (kGeluBwd)
   void* C;               // [M][N] bf16, or [slices][M][N] fp32 (kF32)
-  bf16* aux_out;         // [M][N] (kGeluBwd)
+  bf16* aux_out;         // [M][N] (kGeluBwd, kBiasGeluSave)
   float* col_part;       // [8 · ceil(M / 128)][N] (kGeluBwd): one row a warp
   const float2* ln_stats;  // [M] (mean, rstd) (LN_A)
   const bf16* ln_w;        // [K] (LN_A)
@@ -108,6 +112,26 @@ __device__ __noinline__ float4 gelu_and_grad(float2 v) {
   const float py = expf(-0.5f * v.y * v.y) * 0.39894228040143268f;
   return make_float4(0.5f * v.x * (1.0f + ex), 0.5f * (1.0f + ex) + v.x * px,
                      0.5f * v.y * (1.0f + ey), 0.5f * (1.0f + ey) + v.y * py);
+}
+
+// A thread's 16 values of one group of four 8-column blocks, [block][half]
+// [2], as the epilogue below walks them.
+struct Floats16 {
+  float v[16];
+};
+
+// The exact erf-GELU, 0.5·v·(1 + erf(v/√2)), with erff (fp32 rounding, as
+// torch.erf), of one group's 16 values: not inlined, for the reason above,
+// and 16 values a call, because one warp a scheduler runs the epilogue and
+// the call's independent erff chains are what hide their latency (fc1 at
+// (37656, 768) on an H100: 2 values a call 0.537 ms, 4 0.491, 16 0.471;
+// PERF.md).
+__device__ __noinline__ Floats16 gelu16(Floats16 a) {
+  Floats16 r;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    r.v[i] = 0.5f * a.v[i] * (1.0f + erff(a.v[i] * 0.70710678118654752f));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -361,6 +385,18 @@ __host__ __device__ constexpr bool has_aux() {
   return EPI == kBiasResidual || EPI == kGeluBwd;
 }
 
+template <int EPI>
+__host__ __device__ constexpr bool has_bias() {
+  return EPI == kBias || EPI == kBiasResidual || EPI == kBiasGelu ||
+         EPI == kBiasGeluSave;
+}
+
+// Epilogues that write a second bf16 output, aux_out.
+template <int EPI>
+__host__ __device__ constexpr bool has_aux_out() {
+  return EPI == kGeluBwd || EPI == kBiasGeluSave;
+}
+
 // The residual or h_pre of this thread's accumulator positions, [n8 block]
 // [half]; loaded before the tile's products, so that their latency hides
 // behind them.
@@ -398,7 +434,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
   const int n0 = tl.n0;
 #pragma unroll
   for (int j0 = 0; j0 < BN / 8; j0 += 4) {
-    uint32_t out[2][4], out2[2][4];  // [half][block]: C, and h (kGeluBwd)
+    uint32_t out[2][4], out2[2][4];  // [half][block]: C, and aux_out
+    Floats16 pre{};  // fc1's values before the GELU
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -409,7 +446,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
       const int col = n0 + j * 8 + 2 * t;
       if (col >= p.N) continue;
       float2 bv = make_float2(0.0f, 0.0f);
-      if (EPI == kBias || EPI == kBiasResidual)
+      if (has_bias<EPI>())
         bv = __bfloat1622float2(
             __ldg(reinterpret_cast<const __nv_bfloat162*>(p.bias + col)));
       float cs0 = 0.0f, cs1 = 0.0f;
@@ -442,6 +479,12 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
           v0 += av.x;
           v1 += av.y;
         }
+        if (EPI == kBiasGelu || EPI == kBiasGeluSave) {
+          if (EPI == kBiasGeluSave) out2[h][jj] = pack2(v0, v1);  // h_pre
+          pre.v[4 * jj + 2 * h] = v0;  // the GELU and C below
+          pre.v[4 * jj + 2 * h + 1] = v1;
+          continue;
+        }
         out[h][jj] = pack2(v0, v1);
       }
       if (EPI == kGeluBwd) {
@@ -458,6 +501,15 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
               make_float2(cs0, cs1);
       }
     }
+    if (EPI == kBiasGelu || EPI == kBiasGeluSave) {
+      pre = gelu16(pre);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          out[h][jj] =
+              pack2(pre.v[4 * jj + 2 * h], pre.v[4 * jj + 2 * h + 1]);
+    }
     if (EPI == kF32) continue;
     const int col = n0 + (j0 + t) * 8;  // this lane's block after the swap
 #pragma unroll
@@ -465,11 +517,12 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
       const int row = row0 + 8 * h;
       const uint4 c = quad_transpose(out[h], t);
       uint4 c2 = make_uint4(0, 0, 0, 0);
-      if (EPI == kGeluBwd) c2 = quad_transpose(out2[h], t);
+      if (has_aux_out<EPI>()) c2 = quad_transpose(out2[h], t);
       if (row >= p.M || col >= p.N) continue;
       const size_t off = (size_t)row * p.N + col;
       *reinterpret_cast<uint4*>(static_cast<bf16*>(p.C) + off) = c;
-      if (EPI == kGeluBwd) *reinterpret_cast<uint4*>(p.aux_out + off) = c2;
+      if (has_aux_out<EPI>())
+        *reinterpret_cast<uint4*>(p.aux_out + off) = c2;
     }
   }
 }

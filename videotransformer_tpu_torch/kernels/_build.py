@@ -112,7 +112,8 @@ def check_status(name, status):
 
 def check_operands(name, **tensors):
     """The kernels take contiguous bf16 CUDA tensors on one device, with
-    16-byte aligned storage (cp.async moves 16 bytes at a time)."""
+    16-byte aligned storage (TMA and the kernels' loads move 16 bytes at a
+    time)."""
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":

@@ -36,6 +36,8 @@ BWD_LAUNCHES = 0
 _SIGNATURES = {
     "vt_fused_prenorm_ffn": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p],
+    "vt_ffn_fc1_stage": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
     "vt_fused_prenorm_ffn_bwd": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
@@ -43,7 +45,8 @@ _BWD_SIGNATURES = {
     "vt_ffn_bwd_scratch_floats": [ctypes.c_int] * 6,
 }
 
-# The backward's weight gradients (csrc/fused_ffn_bwd.cu) are products whose
+# The backward's weight gradients (csrc/fused_ffn_bwd.cu, and B3's in
+# csrc/fused_mhsa_bwd.cu) are products whose
 # K is the row count, on 128 x 128 output tiles (sm90_gemm.cuh) with 64-row
 # k tiles. Split over the rows they run as SPLIT_K_BLOCKS or more blocks
 # (two for each of an H100's 132 SMs) where the rows allow slices of at
@@ -174,7 +177,9 @@ def _check_shapes(name, x, ln_w, ln_b, w1, b1, w2, b2):
     return D, hidden, Do
 
 
-def _launch(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre):
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre, lib=None):
+    """(out, h_pre or None) from the forward kernel; ``lib`` is another
+    build of it (``_build.load``), to compare designs."""
     global LAUNCHES
     name = "fused_prenorm_ffn"
     _build.check_operands(name, x=x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1,
@@ -184,7 +189,8 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre):
         raise ValueError(f"{name}: D={D} and hidden={hidden} must be "
                          f"multiples of 64, Do={Do} of 8")
     rows = x.numel() // D
-    lib = _build.load("fused_ffn", _SIGNATURES)
+    if lib is None:
+        lib = _build.load("fused_ffn", _SIGNATURES)
     empty = lambda *s: torch.empty(s, dtype=x.dtype, device=x.device)
     xn, h, out = empty(rows, D), empty(rows, hidden), empty(rows, Do)
     h_pre = empty(rows, hidden) if save_h_pre else None

@@ -15,11 +15,16 @@ residuals (the TPU kernel's ``save_qkv``/``save_attn``). The kernel writes
 both to device memory in every mode, since its four launches pass them from
 one to the next; autograd keeps them for the backward only when it records
 a graph, and under ``torch.inference_mode`` or ``no_grad`` they are freed
-when the call returns. ``out`` has the same bits in every mode. The backward's
-projection gradients, ``do = g · W_proj`` and ``d_wqkv`` were XLA einsums
-outside the Pallas kernel (fused_mhsa_pallas.py:531-536, 548-554); here they
-are fp32 ``torch.matmul`` calls around the kernel. Weight and bias
-gradients come back in the weight's dtype, as ``_vjp_bwd`` returns them.
+when the call returns. ``out`` has the same bits in every mode. The backward
+is one call into the kernel library: B3 (the attention backward, d_xn, the
+LayerNorm backward and the sums) with ``_vjp_bwd``'s products around it
+(``dw_proj = gᵀ · attn``, ``do = g · W_proj``, ``d_wqkv = dqkvᵀ · xn``; XLA
+einsums outside the Pallas kernel, fused_mhsa_pallas.py:531-536, 548-554),
+all on the tensor cores. xn there is the LayerNorm rounded to the working
+type (the JAX package multiplies its fp32 xn, which the TPU's default matmul
+precision feeds to the MXU in bf16 passes); in fp32 the rounding does
+nothing. Weight and bias gradients come back in the weight's dtype, as
+``_vjp_bwd`` returns them.
 
 Layouts: x is (B, N, D) as in the JAX package; weights are in nn.Linear's
 (out, in) layout: w_qkv (3·Da, D), w_proj (Do, Da). ``block_diag=T`` (N
@@ -28,19 +33,22 @@ which is what the TPU kernel's block-diagonal mask computes.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from videotransformer_tpu_torch.kernels import _build
 from videotransformer_tpu_torch.kernels._plain import (
-    layer_norm, layer_norm_backward, layer_norm_fp32, linear_fp32)
+    layer_norm, layer_norm_backward, linear_fp32)
+from videotransformer_tpu_torch.kernels.fused_ffn import split_k
 
 # Calls that reached the CUDA kernels (not the plain versions): forward, and
-# backward; and the forward's calls by the kernel its attention stage took
-# (``attention_variant``).
+# backward; and each direction's calls by the kernel its attention stage
+# took (``attention_variant``, ``attention_bwd_variant``).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 ATTENTION_LAUNCHES = {"packed": 0, "dense": 0, "general": 0}
+ATTENTION_BWD_LAUNCHES = {"packed": 0, "dense": 0, "general": 0}
 _VARIANT_CODES = {"general": 0, "packed": 1, "dense": 2}
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
@@ -50,10 +58,12 @@ _SIGNATURES = {
     "vt_mhsa_attention_smem_bytes": [ctypes.c_int] * 3,
 }
 _BWD_SIGNATURES = {
-    "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+    "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-    "vt_mhsa_bwd_smem_bytes": [ctypes.c_int, ctypes.c_int],
-    "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 3,
+    "vt_mhsa_attn_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    "vt_mhsa_bwd_smem_bytes": [ctypes.c_int] * 3,
+    "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 6,
 }
 
 
@@ -74,6 +84,43 @@ def attention_variant(L, hd):
     if hd == 64 and L <= 256:
         return "dense"
     return "general"
+
+
+def attention_bwd_variant(L, hd):
+    """The kernel of the backward's attention stage for sequences of L
+    tokens at head dim hd: "packed" (64 / L sequences a 64-row tensor-core
+    tile, keys of other sequences masked; the divided temporal L = 8),
+    "dense" (one (sequence, head) a block on the tensor cores, 32 < L <=
+    256; the divided spatial L = 197), else "general" (the CUDA-core
+    kernel, one warp a (sequence, head))."""
+    if hd == 64 and 64 % L == 0:
+        return "packed"
+    if hd == 64 and 32 < L <= 256:
+        return "dense"
+    return "general"
+
+
+class BackwardPlan(NamedTuple):
+    """What the backward kernel runs for one shape: the attention variant,
+    and the (slices, k tiles a slice) of dw_proj (Do, Da) and dw_qkv (3Da,
+    D), split over the rows as ``fused_ffn.split_k`` splits B4's."""
+    variant: str
+    split_proj: tuple
+    split_qkv: tuple
+
+
+def backward_plan(rows, D, Da, Do, num_heads, L):
+    """The plan of the backward kernel at these widths, from the shape
+    alone; raises ValueError on shapes the kernels do not take."""
+    if Da % num_heads or rows % L:
+        raise ValueError(f"fused_prenorm_mhsa backward: Da={Da} is not a "
+                         f"multiple of heads={num_heads}, or {rows} rows of "
+                         f"sequences of {L}")
+    if D % 8 or Da % 8 or Do % 8 or D > 1024:
+        raise ValueError(f"fused_prenorm_mhsa backward: D={D}, Da={Da} and "
+                         f"Do={Do} must be multiples of 8, D at most 1024")
+    return BackwardPlan(attention_bwd_variant(L, Da // num_heads),
+                        split_k(Do, Da, rows), split_k(3 * Da, D, rows))
 
 
 def _split_heads(t, L, num_heads, parts):
@@ -157,7 +204,8 @@ def _attn_bwd_reference(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
 def _backward(attn_bwd, g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj,
               num_heads, scale, ln_eps, add_residual, block_diag):
     """_vjp_bwd (fused_mhsa_pallas.py:523-556) around ``attn_bwd`` (plain or
-    kernel B3): (dx, dln_w, dln_b, dw_qkv, db_qkv, dw_proj, db_proj)."""
+    kernel B3): (dx, dln_w, dln_b, dw_qkv, db_qkv, dw_proj, db_proj), with
+    xn rounded to the working type for dw_qkv, as the kernel reads it."""
     B, N, D = x.shape
     g2 = g.reshape(B * N, -1)
     gf = g2.float()
@@ -167,7 +215,7 @@ def _backward(attn_bwd, g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj,
     dqkv, dx, dln_w, dln_b, dbqkv = attn_bwd(
         x, qkv, do, g2 if add_residual else None, ln_w, w_qkv, num_heads,
         scale, ln_eps, block_diag)
-    xn = layer_norm_fp32(x.reshape(B * N, D), ln_w, ln_b, ln_eps)
+    xn = layer_norm(x.reshape(B * N, D), ln_w, ln_b, ln_eps).float()
     dw_qkv = (dqkv.float().t() @ xn).to(w_qkv.dtype)
     return (dx.reshape(x.shape), dln_w.to(ln_w.dtype), dln_b.to(ln_w.dtype),
             dw_qkv, dbqkv.to(w_qkv.dtype), dw_proj, db_proj)
@@ -181,13 +229,6 @@ def fused_prenorm_mhsa_backward_reference(g, x, qkv, attn, ln_w, ln_b, w_qkv,
     w_proj, b_proj) from the output gradient g and the saved qkv and attn
     (rows, ·), in the kernels' rounding order."""
     return _backward(_attn_bwd_reference, g, x, qkv, attn, ln_w, ln_b, w_qkv,
-                     w_proj, num_heads, scale, ln_eps, add_residual,
-                     block_diag)
-
-
-def _launch_backward(g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj, num_heads,
-                     scale, ln_eps, add_residual, block_diag):
-    return _backward(_attn_bwd_launch, g, x, qkv, attn, ln_w, ln_b, w_qkv,
                      w_proj, num_heads, scale, ln_eps, add_residual,
                      block_diag)
 
@@ -278,46 +319,113 @@ def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
     return out, qkv, attn
 
 
-def _attn_bwd_launch(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
-                     ln_eps, block_diag):
-    """Kernel B3 (csrc/fused_mhsa_bwd.cu); the same contract as
-    ``_attn_bwd_reference``."""
+def _bwd_prepare(name, x, qkv, w_qkv, Do, num_heads, block_diag, lib):
+    """(rows, D, Da, L, plan, lib) of a backward call, after the checks that
+    need the library (shared memory)."""
+    B, N, D = x.shape
+    rows, Da3 = B * N, w_qkv.shape[0]
+    Da = Da3 // 3
+    if w_qkv.shape != (Da3, D) or Da3 % 3 or qkv.shape != (rows, Da3):
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} or w_qkv "
+                         f"{tuple(w_qkv.shape)} do not fit x {tuple(x.shape)}")
+    L = _seq_len(N, block_diag)
+    plan = backward_plan(rows, D, Da, Do, num_heads, L)
+    if lib is None:
+        lib = _build.load("fused_mhsa_bwd", _BWD_SIGNATURES)
+    hd = Da // num_heads
+    smem = lib.vt_mhsa_bwd_smem_bytes(L, hd, _VARIANT_CODES[plan.variant])
+    if not 0 <= smem <= _MAX_SMEM:
+        raise ValueError(f"{name}: sequence length {L} at head dim {hd} "
+                         f"needs {smem} bytes of shared memory, above "
+                         f"{_MAX_SMEM}")
+    return rows, D, Da, L, plan, lib
+
+
+def _count_bwd(variant):
     global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    ATTENTION_BWD_LAUNCHES[variant] += 1
+
+
+def _launch_backward(g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj, num_heads,
+                     scale, ln_eps, add_residual, block_diag, lib=None):
+    """The whole backward (csrc/fused_mhsa_bwd.cu, one call): the gradients
+    of (x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj), as
+    ``fused_prenorm_mhsa_backward_reference`` returns them; ``lib`` is
+    another build of the library (``_build.load``), to compare designs."""
+    name = "fused_prenorm_mhsa backward"
+    _build.check_operands(name, g=g, x=x, qkv=qkv, attn=attn, ln_w=ln_w,
+                          ln_b=ln_b, w_qkv=w_qkv, w_proj=w_proj)
+    Do = w_proj.shape[0]
+    rows, D, Da, L, plan, lib = _bwd_prepare(name, x, qkv, w_qkv, Do,
+                                             num_heads, block_diag, lib)
+    if (attn.shape != (rows, Da) or g.numel() != rows * Do
+            or w_proj.shape != (Do, Da) or ln_w.shape != (D,)
+            or ln_b.shape != (D,)):
+        raise ValueError(f"{name}: g {tuple(g.shape)}, attn "
+                         f"{tuple(attn.shape)} or the weights do not fit x "
+                         f"{tuple(x.shape)}")
+    if add_residual and Do != D:
+        raise ValueError(f"{name}: residual needs Do == D ({Do} != {D})")
+    n_scratch = lib.vt_mhsa_bwd_scratch_floats(rows, D, Da, Do,
+                                               plan.split_proj[0],
+                                               plan.split_qkv[0])
+    if n_scratch < 0:
+        raise ValueError(f"{name}: scratch for {rows} rows is too large")
+    dev = x.device
+    bf_scratch = torch.empty(rows * (D + 4 * Da), dtype=torch.bfloat16,
+                             device=dev)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    dx = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+    sizes = (D, D, 3 * Da * D, 3 * Da, Do * Da, Do)
+    outs = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    dln_w, dln_b, dw_qkv, dbqkv, dw_proj, db_proj = outs.split(sizes)
+    P = _build.ptr
+    status = lib.vt_fused_prenorm_mhsa_bwd(
+        P(g), P(x), P(qkv), P(attn), P(ln_w), P(ln_b), P(w_qkv), P(w_proj),
+        P(bf_scratch), P(scratch), P(dx), P(dln_w), P(dln_b), P(dw_qkv),
+        P(dbqkv), P(dw_proj), P(db_proj), rows, D, Da, Do, num_heads, L,
+        _VARIANT_CODES[plan.variant], *plan.split_proj, *plan.split_qkv,
+        int(bool(add_residual)), float(scale), float(ln_eps),
+        _build.stream_handle())
+    _build.check_status(name, status)
+    _count_bwd(plan.variant)
+    wt, wdt = ln_w.dtype, w_qkv.dtype
+    return (dx, dln_w.to(wt), dln_b.to(wt), dw_qkv.reshape(3 * Da, D).to(wdt),
+            dbqkv.to(wdt), dw_proj.reshape(Do, Da).to(w_proj.dtype),
+            db_proj.to(w_proj.dtype))
+
+
+def _attn_bwd_launch(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
+                     ln_eps, block_diag, lib=None):
+    """B3 alone from do (csrc/fused_mhsa_bwd.cu's ``vt_mhsa_attn_bwd``: the
+    attention backward, d_xn, the LayerNorm backward and the sums); the
+    same contract as ``_attn_bwd_reference``. The backward of the autograd
+    Function calls ``_launch_backward``; this entry times and tests B3's
+    own part."""
     name = "fused_prenorm_mhsa backward"
     tensors = dict(x=x, qkv=qkv, do=do, ln_w=ln_w, w_qkv=w_qkv)
     if g_res is not None:
         tensors["g"] = g_res
     _build.check_operands(name, **tensors)
-    B, N, D = x.shape
-    rows = B * N
-    Da3 = w_qkv.shape[0]
-    Da = Da3 // 3
-    if qkv.shape != (rows, Da3) or do.shape != (rows, Da):
-        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} or do "
-                         f"{tuple(do.shape)} do not fit x {tuple(x.shape)}")
-    if D > 1024:
-        raise ValueError(f"{name}: D={D} is above 1024")
-    L = _seq_len(N, block_diag)
-    hd = Da // num_heads
-    lib = _build.load("fused_mhsa_bwd", _BWD_SIGNATURES)
-    smem = lib.vt_mhsa_bwd_smem_bytes(L, hd)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: sequence length {L} at head dim {hd} "
-                         f"needs {smem} bytes of shared memory, above "
-                         f"{_MAX_SMEM}")
+    D = x.shape[-1]
+    rows, D, Da, L, plan, lib = _bwd_prepare(name, x, qkv, w_qkv, D,
+                                             num_heads, block_diag, lib)
+    if do.shape != (rows, Da):
+        raise ValueError(f"{name}: do {tuple(do.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
     dev = x.device
-    dqkv = torch.empty((rows, Da3), dtype=torch.bfloat16, device=dev)
+    dqkv = torch.empty((rows, 3 * Da), dtype=torch.bfloat16, device=dev)
     dx = torch.empty((rows, D), dtype=torch.bfloat16, device=dev)
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    d_xn = f32(rows, D)
-    scratch = f32(lib.vt_mhsa_bwd_scratch_floats(rows, D, Da))
-    dln_w, dln_b, dbqkv = f32(D), f32(D), f32(Da3)
+    scratch = f32(lib.vt_mhsa_bwd_scratch_floats(rows, D, Da, D, 1, 1))
+    dln_w, dln_b, dbqkv = f32(D), f32(D), f32(3 * Da)
     P = _build.ptr
-    status = lib.vt_fused_prenorm_mhsa_bwd(
+    status = lib.vt_mhsa_attn_bwd(
         P(x), P(qkv), P(do), P(g_res) if g_res is not None else None,
-        P(ln_w), P(w_qkv), P(dqkv), P(d_xn), P(scratch), P(dx), P(dln_w),
-        P(dln_b), P(dbqkv), rows, D, Da, num_heads, L, float(scale),
-        float(ln_eps), _build.stream_handle())
+        P(ln_w), P(w_qkv), P(dqkv), P(scratch), P(dx), P(dln_w), P(dln_b),
+        P(dbqkv), rows, D, Da, num_heads, L, _VARIANT_CODES[plan.variant],
+        float(scale), float(ln_eps), _build.stream_handle())
     _build.check_status(name, status)
-    BWD_LAUNCHES += 1
+    _count_bwd(plan.variant)
     return dqkv, dx, dln_w, dln_b, dbqkv

@@ -1,23 +1,25 @@
-"""Times the fused prenorm-MHSA forward (B1) and the fused prenorm-FFN
-backward (B4) at the main paths' shapes, whole and stage by stage, beside
-the bound and ``torch.matmul`` at each product's GEMM shape, and beside the
-kernels of another checkout when one is given: both are built from their own
-``csrc/`` and timed in turns (baseline, kernel, kernel, baseline) on one
-card.
+"""Times the fused prenorm kernels at the main paths' shapes, whole and stage
+by stage, beside the bound and ``torch.matmul`` at each product's GEMM
+shape, and beside the kernels of another checkout when one is given: both
+are built from their own ``csrc/`` and timed in turns (baseline, kernel,
+kernel, baseline) on one card. The kernels: B1 (the MHSA forward), B2 (the
+FFN forward), B3 (the MHSA backward, alone from do and as the whole call
+with its projection products) and B4 (the FFN backward).
 
     python3 -m videotransformer_tpu_torch.tools.fused_bench [--baseline DIR]
 
-DIR is the root of another checkout (its
-``videotransformer_tpu_torch/csrc/fused_mhsa.cu`` and ``fused_ffn_bwd.cu``
-are built into ``DIR/build/fused_bench``). Both builds are called through
-the wrappers (``fused_mhsa._launch``, ``fused_ffn._launch_backward``); a
-checkout from before the wgmma redesign takes other C arguments and gets a
-shim. Prints for each shape: device ms of each build, its share of the
-bound, the host µs to issue a call, then each build's stages (device ms per
-call from ``torch.profiler``: LN, qkv, attention and proj for B1; LN, dh,
-dW2, dW1, dxn, LN backward and the sums for B4) with ``torch.matmul``'s
-device ms beside each product (a yardstick the port never calls), and the
-card's name and power limit. Needs a CUDA card and nvcc.
+DIR is the root of another checkout of the wgmma design or later (its
+``videotransformer_tpu_torch/csrc/`` has ``sm90_gemm.cuh``); its libraries
+are built into ``DIR/build/fused_bench``. Both builds are called through the
+wrappers (``_launch``, ``_launch_backward``, ``_attn_bwd_launch``, each with
+``lib``); a checkout whose B3 has no one-call backward gets a shim: its B3
+call with the projection products around it as fp32 ``torch.matmul``, as
+its wrapper ran them. Prints for each shape: device ms of each build, its
+share of the bound, the host µs to issue a call, then each build's stages
+(device ms per call from ``torch.profiler``) with ``torch.matmul``'s device
+ms beside each product (a yardstick the port never calls), B2's fc1 with
+and without its GELU epilogue, and the card's name and power limit. Needs a
+CUDA card and nvcc.
 """
 
 import argparse
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from videotransformer_tpu_torch.kernels import _build, fused_ffn, fused_mhsa
+from videotransformer_tpu_torch.kernels._plain import layer_norm
 from videotransformer_tpu_torch.tools.flash_bench import (
     bound, card_name, issue_us, timed_ms)
 
@@ -37,13 +40,18 @@ MHSA_SHAPES = (("serve dense", (192, 197, D), 0, 12),
                ("serve temporal", (4704, 8, D), 8, 12),
                ("train dense", (64, 197, D), 0, 12),
                ("train temporal", (1568, 8, D), 8, 12))
-# (label, (rows, D), LayerNorm eps, calls a step)
-FFN_SHAPES = (("TimeSformer train", (12552, D), 1e-5, 12),
-              ("MViT D=192", (50176, 192), 1e-6, 1),
-              ("MViT D=384", (12544, 384), 1e-6, 10),
-              ("MViT D=768", (12544, 768), 1e-6, 2))
+MHSA_BWD_SHAPES = MHSA_SHAPES[2:]
+# (label, (rows, D), LayerNorm eps, calls a forward or a step)
+FFN_FWD_SHAPES = (("serve", (37656, D), 1e-5, 12),
+                  ("TimeSformer train", (12552, D), 1e-5, 12),
+                  ("MViT D=192", (50176, 192), 1e-6, 1),
+                  ("MViT D=384", (12544, 384), 1e-6, 10),
+                  ("MViT D=768", (12544, 768), 1e-6, 2))
+FFN_SHAPES = FFN_FWD_SHAPES[1:]
 MHSA_PRODUCTS = ("qkv", "proj")
+FFN_FWD_PRODUCTS = ("fc1", "fc2")
 FFN_PRODUCTS = ("dh", "dW2", "dW1", "dxn")
+MHSA_BWD_PRODUCTS = ("dW_proj", "do", "d_xn", "dW_qkv")
 
 
 def mhsa_bound(rows, L, d):
@@ -53,6 +61,24 @@ def mhsa_bound(rows, L, d):
                  2 * (2 * rows * d + 4 * d * d + 6 * d))
 
 
+def ffn_fwd_bound(rows, d):
+    """(ms, by) of one B2 call (hidden 4d): two products against x read and
+    out written, the weights once."""
+    return bound(16 * rows * d * d, 2 * (2 * rows * d + 8 * d * d + 7 * d))
+
+
+def mhsa_bwd_bound(rows, L, d, whole=True):
+    """(ms, by) of one B3 call at Da = Do = d: alone, the attention backward
+    (five products a head) and d_xn against x, qkv and do read and dx and
+    dqkv written; whole, also dw_proj, do and dw_qkv, against g, x, qkv and
+    attn read, dx and the fp32 weight gradients written."""
+    if not whole:
+        return bound(10 * rows * L * d + 6 * rows * d * d,
+                     2 * (9 * rows * d + 3 * d * d))
+    return bound(10 * rows * L * d + 16 * rows * d * d,
+                 2 * (7 * rows * d + 4 * d * d) + 4 * (4 * d * d + 6 * d))
+
+
 def ffn_bwd_bound(rows, d):
     """(ms, by) of one B4 call: four products against x, h_pre, g read, dx
     written, the weights read and their fp32 gradients written."""
@@ -60,64 +86,75 @@ def ffn_bwd_bound(rows, d):
                  2 * (7 * rows * d + 8 * d * d) + 4 * 8 * d * d)
 
 
-class _OldMhsa:
-    """A pre-redesign B1 library behind the new C arguments: it took a bf16
-    xn scratch (rows, D) where the new one takes the LayerNorm statistics,
-    had no attention variant argument, and sized shared memory from (L,
-    hd)."""
+class MhsaBwd:
+    """B3 through the wrappers, with another build's library or this one's
+    (``lib`` None): ``alone`` from do, ``whole`` the backward call."""
 
-    def __init__(self, lib):
-        self.lib, self.xn = lib, None
+    def __init__(self, lib=None):
+        self.lib = lib
 
-    def vt_mhsa_attention_smem_bytes(self, L, hd, variant):
-        return self.lib.vt_mhsa_attention_smem_bytes(L, hd)
+    def alone(self, *core):
+        return fused_mhsa._attn_bwd_launch(*core, lib=self.lib)
 
-    def vt_fused_prenorm_mhsa(self, *a):
-        a = list(a)
-        rows, d = a[11], a[12]
-        if self.xn is None or self.xn.shape != (rows, d):
-            self.xn = torch.empty((rows, d), dtype=torch.bfloat16,
-                                  device="cuda")
-        a[7] = _build.ptr(self.xn)
-        del a[17]
-        return self.lib.vt_fused_prenorm_mhsa(*a)
+    def whole(self, *args):
+        return fused_mhsa._launch_backward(*args, lib=self.lib)
 
 
-class _OldFfnBwd:
-    """A pre-redesign B4 library behind the new C arguments: no row slices
-    (its weight gradients were one product over all rows)."""
+class _OldMhsaBwd:
+    """A B3 library from before the one-call backward: B3 alone from do (its
+    kernel chose the attention variant), with dw_proj, do and dw_qkv as fp32
+    ``torch.matmul`` around it (``fused_mhsa._backward``, whose xn is now
+    rounded to bf16 before the same fp32 product)."""
+
+    SIGNATURES = {
+        "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 13
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float,
+                                ctypes.c_void_p],
+        "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 3}
 
     def __init__(self, lib):
         self.lib = lib
 
-    def vt_ffn_bwd_scratch_floats(self, rows, d, hidden, do, s2, s1):
-        return self.lib.vt_ffn_bwd_scratch_floats(rows, d, hidden, do)
+    def alone(self, x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
+              ln_eps, block_diag):
+        B, N, d = x.shape
+        rows, Da = B * N, w_qkv.shape[0] // 3
+        bf = lambda *s: torch.empty(s, dtype=torch.bfloat16, device=x.device)
+        f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=x.device)
+        dqkv, dx, d_xn = bf(rows, 3 * Da), bf(rows, d), f32(rows, d)
+        scratch = f32(self.lib.vt_mhsa_bwd_scratch_floats(rows, d, Da))
+        dln_w, dln_b, dbqkv = f32(d), f32(d), f32(3 * Da)
+        P = _build.ptr
+        _build.check_status("baseline B3", self.lib.vt_fused_prenorm_mhsa_bwd(
+            P(x), P(qkv), P(do), P(g_res) if g_res is not None else None,
+            P(ln_w), P(w_qkv), P(dqkv), P(d_xn), P(scratch), P(dx),
+            P(dln_w), P(dln_b), P(dbqkv), rows, d, Da, num_heads,
+            block_diag or N, float(scale), float(ln_eps),
+            _build.stream_handle()))
+        return dqkv, dx, dln_w, dln_b, dbqkv
 
-    def vt_fused_prenorm_ffn_bwd(self, *a):
-        a = list(a)
-        del a[23:27]
-        return self.lib.vt_fused_prenorm_ffn_bwd(*a)
+    def whole(self, *args):
+        return fused_mhsa._backward(self.alone, *args)
 
 
 def checkout_libs(root):
-    """(B1, B4) libraries built from the checkout at ``root`` into
-    ``root/build/fused_bench``, for the wrappers' ``lib``."""
+    """{B1, B2, B3, B4} of the checkout at ``root`` (built into
+    ``root/build/fused_bench``), for the wrappers' ``lib``."""
     csrc = os.path.join(root, "videotransformer_tpu_torch", "csrc")
     build_dir = os.path.join(root, "build", "fused_bench")
-    if os.path.exists(os.path.join(csrc, "sm90_gemm.cuh")):
-        return (_build.load("fused_mhsa", fused_mhsa._SIGNATURES, csrc,
-                            build_dir),
-                _build.load("fused_ffn_bwd", fused_ffn._BWD_SIGNATURES, csrc,
-                            build_dir))
-    ints = lambda n: [ctypes.c_int] * n
-    mhsa = {"vt_fused_prenorm_mhsa": [ctypes.c_void_p] * 11 + ints(6)
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-            "vt_mhsa_attention_smem_bytes": ints(2)}
-    ffn = {"vt_fused_prenorm_ffn_bwd": [ctypes.c_void_p] * 19 + ints(4)
-           + [ctypes.c_float, ctypes.c_void_p],
-           "vt_ffn_bwd_scratch_floats": ints(4)}
-    return (_OldMhsa(_build.load("fused_mhsa", mhsa, csrc, build_dir)),
-            _OldFfnBwd(_build.load("fused_ffn_bwd", ffn, csrc, build_dir)))
+    if not os.path.exists(os.path.join(csrc, "sm90_gemm.cuh")):
+        raise ValueError(f"{root}: not a checkout of the wgmma design")
+    load = lambda name, sigs: _build.load(name, sigs, csrc, build_dir)
+    with open(os.path.join(csrc, "fused_mhsa_bwd.cu")) as f:
+        one_call = "vt_mhsa_attn_bwd" in f.read()
+    ffn_sigs = {"vt_fused_prenorm_ffn":
+                fused_ffn._SIGNATURES["vt_fused_prenorm_ffn"]}
+    return {"B1": load("fused_mhsa", fused_mhsa._SIGNATURES),
+            "B2": load("fused_ffn", ffn_sigs),
+            "B3": MhsaBwd(load("fused_mhsa_bwd", fused_mhsa._BWD_SIGNATURES))
+            if one_call else _OldMhsaBwd(load("fused_mhsa_bwd",
+                                              _OldMhsaBwd.SIGNATURES)),
+            "B4": load("fused_ffn_bwd", fused_ffn._BWD_SIGNATURES)}
 
 
 def _stage_name(name, products, counter):
@@ -178,27 +215,48 @@ def format_stages(stages):
     return ", ".join(f"{s} {ms:.4f}" for s, ms in stages)
 
 
-def mhsa_case(rng, shape, block_diag):
-    d = shape[-1]
-    mk = lambda s, std, mean=0.0: torch.from_numpy(
+def _maker(rng):
+    return lambda s, std, mean=0.0: torch.from_numpy(
         rng.standard_normal(s, dtype=np.float32) * std + mean).to(
             "cuda", torch.bfloat16)
+
+
+def mhsa_case(rng, shape, block_diag):
+    d = shape[-1]
+    mk = _maker(rng)
     args = [mk(shape, 1.0), mk((d,), 0.1, 1.0), mk((d,), 0.1),
             mk((3 * d, d), 0.02), mk((3 * d,), 0.02), mk((d, d), 0.02),
             mk((d,), 0.02)]
     return args, (HEADS, (d // HEADS) ** -0.5, 1e-5, True, block_diag)
 
 
-def ffn_case(rng, shape, eps):
+def ffn_fwd_case(rng, shape):
+    """x (rows, d) and the weights of a width-d FFN, hidden 4d."""
     rows, d = shape
-    mk = lambda s, std, mean=0.0: torch.from_numpy(
-        rng.standard_normal(s, dtype=np.float32) * std + mean).to(
-            "cuda", torch.bfloat16)
-    x, g = mk(shape, 1.0), mk(shape, 1.0)
-    w = [mk((d,), 0.1, 1.0), mk((d,), 0.1), mk((4 * d, d), 0.02),
-         mk((4 * d,), 0.02), mk((d, 4 * d), 0.02), mk((d,), 0.02)]
+    mk = _maker(rng)
+    return [mk(shape, 1.0), mk((d,), 0.1, 1.0), mk((d,), 0.1),
+            mk((4 * d, d), 0.02), mk((4 * d,), 0.02), mk((d, 4 * d), 0.02),
+            mk((d,), 0.02)]
+
+
+def ffn_case(rng, shape, eps):
+    x, *w = ffn_fwd_case(rng, shape)
+    g = _maker(rng)(shape, 1.0)
     _, h_pre = fused_ffn._launch(x, *w, eps, True)
     return (g, x, h_pre, w[0], w[1], w[2], w[4]), (eps,)
+
+
+def mhsa_bwd_case(rng, shape, block_diag):
+    """The arguments of B3's whole call, ``_launch_backward`` (the forward
+    kernel's own qkv and attn), its config, and B3 alone's (do from g)."""
+    a, cfg = mhsa_case(rng, shape, block_diag)
+    x, ln_w, ln_b, w_qkv, _, w_proj, _ = a
+    _, qkv, attn = fused_mhsa._launch(*a, *cfg)
+    g = _maker(rng)(shape, 1.0)
+    d = shape[-1]
+    do = (g.float().reshape(-1, d) @ w_proj.float()).to(torch.bfloat16)
+    core = (x, qkv, do, g.reshape(-1, d), ln_w, w_qkv, *cfg[:3], block_diag)
+    return (g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj), cfg, core
 
 
 def matmul_ms(pairs):
@@ -211,12 +269,45 @@ def mhsa_products(args, rows, d):
     return [(x, args[3].t()), (x, args[5].t())]
 
 
+def ffn_fwd_products(args, rows, d):
+    x, w1, w2 = args[0], args[3], args[5]
+    h = torch.empty((rows, w1.shape[0]), dtype=x.dtype, device=x.device)
+    return [(x, w1.t()), (h, w2.t())]
+
+
 def ffn_products(args, rows, d):
     g, x, h_pre, _, _, w1, w2 = args
     return [(g, w2), (g.t(), h_pre), (h_pre.t(), x), (h_pre, w1)]
 
 
-def compare(label, calls, bound_ms, products, pairs, totals, count):
+def mhsa_bwd_products(args, rows, d):
+    """dw_proj = gᵀ·attn, do = g·Wproj, d_xn = dqkv·Wqkv, dw_qkv =
+    dqkvᵀ·xn (qkv and x stand in for dqkv and xn: the same shapes)."""
+    g, x, qkv, attn, _, _, w_qkv, w_proj = args
+    g2, x2 = g.reshape(rows, -1), x.reshape(rows, d)
+    return [(g2.t(), attn), (g2, w_proj), (qkv, w_qkv), (qkv.t(), x2)]
+
+
+def fc1_epilogue_ms(args, eps):
+    """B2's fc1 alone at (x's rows, hidden): device ms with its bias + GELU
+    epilogue and with the bias alone (csrc/fused_ffn.cu's
+    ``vt_ffn_fc1_stage``)."""
+    x, ln_w, ln_b, w1, b1 = args[:5]
+    rows, d = x.shape
+    lib = _build.load("fused_ffn", fused_ffn._SIGNATURES)
+    xn = layer_norm(x, ln_w, ln_b, eps)
+    h = torch.empty((rows, w1.shape[0]), dtype=x.dtype, device=x.device)
+    P = _build.ptr
+
+    def fc1(gelu):
+        return lambda: _build.check_status("fc1", lib.vt_ffn_fc1_stage(
+            P(xn), P(w1), P(b1), P(h), rows, d, w1.shape[0], gelu,
+            _build.stream_handle()))
+
+    return timed_ms(fc1(1)), timed_ms(fc1(0))
+
+
+def compare(kind, label, calls, bound_ms, products, pairs, totals, count):
     """Times each build's call in turns, prints the line and the stages."""
     order = ["baseline", "kernel", "kernel", "baseline"] \
         if "baseline" in calls else ["kernel", "kernel"]
@@ -225,10 +316,10 @@ def compare(label, calls, bound_ms, products, pairs, totals, count):
         got.setdefault(name, []).append(timed_ms(calls[name]))
     ms = {name: sum(t) / len(t) for name, t in got.items()}
     bms, by = bound_ms
+    key = f"{kind} {label.split()[0]}"
     for name, t in ms.items():
-        totals[(label.split()[0], name)] = totals.get(
-            (label.split()[0], name), 0.0) + count * t
-    print(f"{label}: " + ", ".join(
+        totals[(key, name)] = totals.get((key, name), 0.0) + count * t
+    print(f"{kind} {label}: " + ", ".join(
         f"{name} {t:.4f} ms ({bms / t:.1%} of the bound; issued in "
         f"{issue_us(calls[name]):.1f} us)" for name, t in ms.items())
         + f"; bound {bms:.4f} ms ({by}); x{count}", flush=True)
@@ -249,7 +340,7 @@ def main():
     card = card_name()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    libs = {"kernel": (None, None)}
+    libs = {"kernel": {"B1": None, "B2": None, "B3": MhsaBwd(), "B4": None}}
     if args.baseline:
         libs["baseline"] = checkout_libs(os.path.abspath(args.baseline))
     rng = np.random.default_rng(0)
@@ -258,23 +349,49 @@ def main():
         for label, shape, block_diag, count in MHSA_SHAPES:
             a, tail = mhsa_case(rng, shape, block_diag)
             rows = shape[0] * shape[1]
-            calls = {name: (lambda m=m: fused_mhsa._launch(*a, *tail, lib=m))
-                     for name, (m, _) in libs.items()}
-            compare(f"B1 {label} {shape}", calls,
+            calls = {n: (lambda m=lib["B1"]: fused_mhsa._launch(*a, *tail,
+                                                                 lib=m))
+                     for n, lib in libs.items()}
+            compare("B1", f"{label} {shape}", calls,
                     mhsa_bound(rows, block_diag or shape[1], D),
                     MHSA_PRODUCTS, mhsa_products(a, rows, D), totals, count)
             del a
+        for label, shape, eps, count in FFN_FWD_SHAPES:
+            a = ffn_fwd_case(rng, shape)
+            calls = {n: (lambda m=lib["B2"]: fused_ffn._launch(
+                *a, eps, False, lib=m)) for n, lib in libs.items()}
+            compare("B2", f"{label} {shape}", calls, ffn_fwd_bound(*shape),
+                    FFN_FWD_PRODUCTS, ffn_fwd_products(a, *shape), totals,
+                    count)
+            with_gelu, without = fc1_epilogue_ms(a, eps)
+            print(f"  kernel fc1 with its bias + GELU epilogue {with_gelu:.4f} "
+                  f"ms, with the bias alone {without:.4f} ms", flush=True)
+            del a
+        for label, shape, block_diag, count in MHSA_BWD_SHAPES:
+            a, cfg, core = mhsa_bwd_case(rng, shape, block_diag)
+            rows = shape[0] * shape[1]
+            L = block_diag or shape[1]
+            calls = {n: (lambda b=lib["B3"]: b.alone(*core))
+                     for n, lib in libs.items()}
+            compare("B3 alone", f"{label} {shape}", calls,
+                    mhsa_bwd_bound(rows, L, D, whole=False), ("d_xn",),
+                    mhsa_bwd_products(a, rows, D)[2:3], totals, count)
+            calls = {n: (lambda b=lib["B3"]: b.whole(*a, *cfg))
+                     for n, lib in libs.items()}
+            compare("B3 whole call", f"{label} {shape}", calls,
+                    mhsa_bwd_bound(rows, L, D), MHSA_BWD_PRODUCTS,
+                    mhsa_bwd_products(a, rows, D), totals, count)
+            del a, core
         for label, shape, eps, count in FFN_SHAPES:
             a, tail = ffn_case(rng, shape, eps)
-            calls = {name: (lambda f=f: fused_ffn._launch_backward(
-                *a, *tail, lib=f)) for name, (_, f) in libs.items()}
-            compare(f"B4 {label} {shape}", calls,
-                    ffn_bwd_bound(*shape), FFN_PRODUCTS,
-                    ffn_products(a, *shape), totals, count)
+            calls = {n: (lambda f=lib["B4"]: fused_ffn._launch_backward(
+                *a, *tail, lib=f)) for n, lib in libs.items()}
+            compare("B4", f"{label} {shape}", calls, ffn_bwd_bound(*shape),
+                    FFN_PRODUCTS, ffn_products(a, *shape), totals, count)
             del a
-    print("summed over the calls of a forward or a step (B1: 12 serving + "
-          "12 train calls a shape; B4: 12 TimeSformer, 13 MViT): " + ", ".join(
-              f"{k} {n} {t:.4f}" for (k, n), t in totals.items()))
+    print("summed over the calls of a serving forward or a train or mim "
+          "step (x the count on each line): "
+          + ", ".join(f"{k} {n} {t:.4f}" for (k, n), t in totals.items()))
     print(f"card: {card}")
 
 

@@ -11,6 +11,15 @@ weights from a seed:
 - training: three supervised AdamW steps of the trainer on TimeSformer-B
   with a batch of 8 clips (fp32 parameters, bf16 compute, DropPath 0.1),
   repeated from the same state with the plain versions patched in;
+- ViViT: the same on ViViT-B/16 at 16x224 (tube 2: 8 effective frames),
+  8 clips a step, full width and depth, for joint space-time attention
+  (12 calls a step over 1569 tokens: B1's and B3's long variant) and for
+  the factorised encoder (12 spatial calls over 197 tokens, 4 temporal
+  ones over 9), each profiled;
+- TimeSformer-B's joint space-time and space-only types at 2 layers: one
+  forward each at 8x224 against the plain versions, and one train step of
+  joint attention at 16 frames (3137 tokens: the unfused branch, flash
+  attention B5/B6) against the same step through the plain versions;
 - mim: three MaskFeat pretraining steps on MViT-B (16x224, 16 blocks, two
   q-pool stages, masks from the cube mask generator, HOG targets computed on
   the card from the raw clip) on 8 clips with cuDNN's deterministic
@@ -35,13 +44,17 @@ measured phase under "phases". For the TimeSformer kernels the times are
 those of their calls in one TimeSformer block; for the flash attention
 kernels, of their 16 calls in one mim step, each shape's line also giving
 its TFLOP/s, its share of the bound and the host time to issue a call (the
-wrapper's and scaled_dot_product_attention's). The last line is
-{"ok": true, "device": {...}}. Its phases took 179-196 s on an H100 (the
-six builds included). B3's backward phases also time its whole call (with
-the projection products) beside its bound. Before the serving path it
-prints B1's, B2's, B3's and B4's stages (device ms a call) beside
-torch.matmul at each product's shape, and B2's fc1 with and without its
-GELU epilogue.
+wrapper's and scaled_dot_product_attention's). B1 and B3 are also held and
+timed at ViViT-B's joint shape (8, 1569, 768), their long variant, and B5
+and B6 at the 16-frame joint shape (96, 3137, 3137), head dim 64: those
+rows are under "phases" and outside the totals. The last line is
+{"ok": true, "device": {...}}. Its phases took 171 s on an H100 (the six
+builds included; the command 197 s). B3's backward phases also time its
+whole call (with the projection products) beside its bound. Before the
+serving path it prints B1's, B2's, B3's and B4's stages (device ms a
+call) beside torch.matmul at each product's shape (and
+scaled_dot_product_attention beside the long attention stage), and B2's
+fc1 with and without its GELU epilogue.
 """
 
 import gc
@@ -64,19 +77,19 @@ from videotransformer_tpu_torch.kernels import (
 from videotransformer_tpu_torch.models import convert, mvit
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import (
-    get_vit_base_patch16_224)
+    TimeSformer, get_vit_base_patch16_224)
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, make_predict_fn)
 from videotransformer_tpu_torch.serving.server import InferenceServer
 from videotransformer_tpu_torch.tools.flash_bench import (
-    FLASH_SHAPES, HD as MVIT_HD, bound, flash_bounds, issue_us, sdpa_times,
-    timed_ms)
+    FLASH_SHAPES, HD as MVIT_HD, JOINT_HD, JOINT_SHAPE, bound, flash_bounds,
+    issue_us, sdpa_times, timed_ms)
 from videotransformer_tpu_torch.tools.fused_bench import (
     FFN_FWD_PRODUCTS, FFN_PRODUCTS, MHSA_BWD_PRODUCTS, MHSA_PRODUCTS,
     fc1_epilogue_ms, ffn_fwd_case, ffn_fwd_products,
     ffn_products, format_stages, matmul_ms, mhsa_bwd_bound, mhsa_bwd_case,
-    mhsa_bwd_products, mhsa_products, stage_times)
+    mhsa_bwd_products, mhsa_products, sdpa_long_ms, stage_times)
 from videotransformer_tpu_torch.training import trainer as trainer_mod
 
 SEED = 0
@@ -118,6 +131,16 @@ MVIT_FFN_PHASES = tuple(
 MIM_LOSS_REL_TOL = 1e-3
 MIM_NORM_REL_TOL = 1e-3
 MIM_FEATURE_REL_TOL = 3e-2
+# ViViT-B/16 at 16x224 (tube 2: 8 effective frames), 8 clips a step: joint
+# space-time attention over 1 + 8·196 = 1569 tokens, B1's and B3's long
+# variant; the kernel phases' long rows are at its shape
+VIVIT_FRAMES = 16
+LONG_SHAPE = (TRAIN_CLIPS, 1 + VIVIT_FRAMES // 2 * (IMG // 16) ** 2, D)
+LONG_LABEL = f"long joint space-time {LONG_SHAPE}"
+# TimeSformer-B's joint and space-only types at reduced depth: one forward
+# each at 8 frames, one train step of joint attention at 16 frames (1 +
+# 16·196 = 3137 tokens: the flash attention branch)
+TYPES_DEPTH, TYPES_CLIPS = 2, 2
 
 
 def log(*a):
@@ -150,6 +173,14 @@ def worst_error(got, want):
 
 # ------------------------------------------------------------ kernel phases
 
+def with_variants(counts, call):
+    """(``call()``, the attention variants it launched by ``counts``, B1's
+    or B3's per-variant launches; "" for a kernel without variants)."""
+    before = dict(counts)
+    out = call()
+    return out, "/".join(v for v, n in counts.items() if n > before[v])
+
+
 def ffn_weights(rng, d):
     """LayerNorm weight and bias, fc1 weight and bias, fc2 weight and bias
     of a width-d FFN (hidden 4·d), bf16 on the card."""
@@ -159,14 +190,33 @@ def ffn_weights(rng, d):
             bf16_on_card(rng, (d, h4), 0.02), bf16_on_card(rng, (d,), 0.02)]
 
 
-def kernel_phases(rng):
-    """Each forward kernel at a main-path shape against its plain version
-    run in fp32 from the same bf16 inputs; times in turns (plain, kernel,
-    kernel, plain) from CUDA events."""
+# (kernel, phase, shape, block_diag, LayerNorm eps, on the TimeSformer path
+# once per block, calls a mim step) of the long rows: B1 and B3 at ViViT-B's
+# joint space-time shape, drawn from a generator of their own
+LONG_FWD_PHASES = [("fused_prenorm_mhsa", LONG_LABEL, LONG_SHAPE, 0, 1e-5,
+                    False, 1)]
+LONG_BWD_PHASES = [("fused_prenorm_mhsa_bwd", LONG_LABEL, LONG_SHAPE, 0,
+                    1e-5, False, 1)]
+# the fact_encoder path's temporal stack (its only shape that no other phase
+# has): the cls row and the 8 pooled frames of 8 clips, B1's dense variant
+# at L <= 64 and B3's CUDA-core kernel, drawn from a generator of their own
+FACT_SHAPE = (TRAIN_CLIPS, 1 + VIVIT_FRAMES // 2, D)
+FACT_LABEL = f"fact_encoder temporal {FACT_SHAPE}"
+FACT_FWD_PHASES = [("fused_prenorm_mhsa", FACT_LABEL, FACT_SHAPE, 0, 1e-5,
+                    False, 1)]
+FACT_BWD_PHASES = [("fused_prenorm_mhsa_bwd", FACT_LABEL, FACT_SHAPE, 0,
+                    1e-5, False, 1)]
+
+
+def kernel_phases(rng, phases=None):
+    """Each forward kernel at a main-path shape (``phases``, by default the
+    TimeSformer and MViT ones) against its plain version run in fp32 from
+    the same bf16 inputs; times in turns (plain, kernel, kernel, plain) from
+    CUDA events."""
     # (kernel, phase, shape, block_diag, LayerNorm eps, on the TimeSformer
     # path once per block, calls a mim step); the packed layout is the JAX
     # package's
-    phases = [
+    phases = phases or [
         ("fused_prenorm_mhsa", "dense spatial (192, 197, 768)",
          (192, 197, D), 0, 1e-5, True, 1),
         ("fused_prenorm_mhsa", "block-diagonal temporal (4704, 8, 768)",
@@ -189,13 +239,15 @@ def kernel_phases(rng):
             tail = (HEADS, (d // HEADS) ** -0.5, eps, False, block_diag)
             kernel = lambda: fused_mhsa.fused_prenorm_mhsa(x, *ln, *w, *tail)
             plain_fn = fused_mhsa.fused_prenorm_mhsa_reference
+            counts = fused_mhsa.ATTENTION_LAUNCHES
         else:
             wts = ffn_weights(rng, d)
             ln, w = wts[:2], wts[2:]
             tail = (eps,)
             kernel = lambda: fused_ffn.fused_prenorm_ffn(x, *ln, *w, *tail)
             plain_fn = fused_ffn.fused_prenorm_ffn_reference
-        got = kernel()
+            counts = {}
+        got, variant = with_variants(counts, kernel)
         torch.cuda.synchronize()
         abs_err, rel_err = worst_error(
             [got], [plain_fn(*[t.float() for t in (x, *ln, *w)], *tail)])
@@ -203,6 +255,7 @@ def kernel_phases(rng):
         # the plain version as the main path would call it: bf16 operands
         ms, plain_ms = in_turns(lambda: plain_fn(x, *ln, *w, *tail), kernel,
                                 plain_iters=20)
+        us = issue_us(kernel)
         rows = shape[0] * shape[1] if len(shape) == 3 else shape[0]
         if block_diag is not None:  # qkv, attention over L, proj
             L = block_diag or shape[1]
@@ -212,20 +265,23 @@ def kernel_phases(rng):
             flops = 16 * rows * d * d
             nbytes = 2 * (2 * rows * d + 8 * d * d + 7 * d)
         bound_ms, bound_by = bound(flops, nbytes)
-        log(f"kernel {name} [{label}]: max|kernel-plain|/max|plain| = "
+        log(f"kernel {name} [{label}]{variant and ' ' + variant}: "
+            f"max|kernel-plain|/max|plain| = "
             f"{rel_err:.3e} (tol {KERNEL_REL_TOL}), max abs {abs_err:.3e}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it); "
+            f"host time to issue a call {us:.1f} us")
         report.append({"name": name, "phase": label, "on_path": on_path,
-                       "count": count, "max_abs_err": abs_err,
+                       "variant": variant, "count": count,
+                       "max_abs_err": abs_err,
                        "rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": None, "bound_ms": bound_ms,
-                       "bound_by": bound_by})
+                       "bound_by": bound_by, "issue_us": us})
         del x, w, got
     return report
 
 
-def backward_phases(rng):
+def backward_phases(rng, phases=None):
     """Each backward kernel at a train-step shape (batch of 8 clips) against
     its plain backward run in fp32 from the same bf16 inputs: every output
     gradient within KERNEL_REL_TOL of max|plain| of that gradient, and the
@@ -234,8 +290,8 @@ def backward_phases(rng):
     backward, d_xn, the LayerNorm backward and the sums, as timed since B3's
     first port) and B3's whole call (``_launch_backward``, with dw_proj, do
     and dw_qkv, against ``fused_prenorm_mhsa_backward_reference``), each
-    beside its bound; B4 whole."""
-    phases = [
+    beside its bound; B4 whole. ``phases`` as in kernel_phases."""
+    phases = phases or [
         ("fused_prenorm_mhsa_bwd", "dense spatial (64, 197, 768)",
          (64, 197, D), 0, 1e-5, True, 1),
         ("fused_prenorm_mhsa_bwd", "block-diagonal temporal (1568, 8, 768)",
@@ -255,15 +311,18 @@ def backward_phases(rng):
                  bf16_on_card(rng, (3 * d,), 0.02),
                  bf16_on_card(rng, (d, d), 0.02), bf16_on_card(rng, (d,), 0.02)]
             cfg = (HEADS, (d // HEADS) ** -0.5, eps, False, block_diag)
-            _, qkv, attn = fused_mhsa._launch(x, *ln, *w, *cfg)
-            args = (g, x, qkv, attn, ln[0], ln[1], w[0], w[2])
+            _, qkv, attn, lse = fused_mhsa._launch(x, *ln, *w, *cfg)
+            args = (g, x, qkv, attn, lse, ln[0], ln[1], w[0], w[2])
             kernel_all = lambda: fused_mhsa._launch_backward(*args, *cfg)
             plain_all = fused_mhsa.fused_prenorm_mhsa_backward_reference
+            plain_args = args[:4] + args[5:]  # the plain one takes no lse
             do = (g.float().reshape(-1, d) @ w[2].float()).to(torch.bfloat16)
             core = (x, qkv, do, None, ln[0], w[0], *cfg[:3], block_diag)
-            kernel = lambda: fused_mhsa._attn_bwd_launch(*core)
+            kernel = lambda: fused_mhsa._attn_bwd_launch(*core, attn=attn,
+                                                         lse=lse)
             plain = lambda: fused_mhsa._attn_bwd_reference(*core)
             tail = cfg
+            counts = fused_mhsa.ATTENTION_BWD_LAUNCHES
         else:
             w = ffn_weights(rng, d)
             _, h_pre = fused_ffn._launch(x, *w, eps, True)
@@ -272,19 +331,24 @@ def backward_phases(rng):
             kernel_all = kernel = lambda: fused_ffn._launch_backward(*args,
                                                                    *tail)
             plain_all = fused_ffn.fused_prenorm_ffn_backward_reference
+            plain_args = args
             plain = lambda: plain_all(*args, *tail)
-        got = kernel_all()
+            counts = {}
+        got, variant = with_variants(counts, kernel_all)
         torch.cuda.synchronize()
         abs_err, rel_err = worst_error(
-            got, plain_all(*[a.float() for a in args], *tail))
+            got, plain_all(*[a.float() for a in plain_args], *tail))
         assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
         # no atomics: B3's and B4's split sums give the same bits twice
         assert all(torch.equal(a, b) for a, b in zip(got, kernel_all()))
         ms, plain_ms = in_turns(plain, kernel)
+        us = issue_us(kernel_all)
         rows = shape[0] * shape[1] if len(shape) == 3 else shape[0]
         entry = {"name": name, "phase": label, "on_path": on_path,
-                 "count": count, "max_abs_err": abs_err, "rel_err": rel_err,
-                 "ms": ms, "plain_ms": plain_ms, "library_ms": None}
+                 "variant": variant, "count": count, "max_abs_err": abs_err,
+                 "rel_err": rel_err,
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                 "issue_us": us}
         if block_diag is not None:
             L = block_diag or shape[1]
             core_got = kernel()
@@ -294,8 +358,8 @@ def backward_phases(rng):
             assert core_err[1] <= KERNEL_REL_TOL, (label, core_err)
             assert all(torch.equal(a, b) for a, b in zip(core_got, kernel()))
             bound_ms, bound_by = mhsa_bwd_bound(rows, L, d, whole=False)
-            whole_ms, whole_plain = in_turns(lambda: plain_all(*args, *tail),
-                                             kernel_all)
+            whole_ms, whole_plain = in_turns(
+                lambda: plain_all(*plain_args, *tail), kernel_all)
             whole_bound, whole_by = mhsa_bwd_bound(rows, L, d)
             entry.update(whole_ms=whole_ms, whole_plain_ms=whole_plain,
                          whole_bound_ms=whole_bound, whole_bound_by=whole_by)
@@ -309,11 +373,13 @@ def backward_phases(rng):
                 2 * (7 * rows * d + 8 * d * d) + 4 * 8 * d * d)
             whole = ""
         entry.update(bound_ms=bound_ms, bound_by=bound_by)
-        log(f"kernel {name} [{label}]: worst max|kernel-plain|/max|plain| "
+        log(f"kernel {name} [{label}]{variant and ' ' + variant}: worst "
+            f"max|kernel-plain|/max|plain| "
             f"over the gradients = {rel_err:.3e} (tol {KERNEL_REL_TOL}), "
             f"max abs {abs_err:.3e}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-            + whole)
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{bound_ms / ms:.1%} of it); host time to issue the whole call "
+            f"{us:.1f} us" + whole)
         report.append(entry)
         del x, g, w, got
     return report
@@ -331,6 +397,7 @@ def stage_phases(rng):
               (192, 197, D), 0),
              ("fused_prenorm_mhsa", "block-diagonal temporal (4704, 8, 768)",
               (4704, 8, D), 8),
+             ("fused_prenorm_mhsa", LONG_LABEL, LONG_SHAPE, 0),
              ("fused_prenorm_ffn", f"rows (37656, {D}), hidden {4 * D}",
               (37656, D), 1e-5),
              ("fused_prenorm_ffn", "MViT rows (12544, 384), hidden 1536",
@@ -339,6 +406,7 @@ def stage_phases(rng):
               (64, 197, D), 0),
              ("fused_prenorm_mhsa_bwd",
               "block-diagonal temporal (1568, 8, 768)", (1568, 8, D), 8),
+             ("fused_prenorm_mhsa_bwd", LONG_LABEL, LONG_SHAPE, 0),
              ("fused_prenorm_ffn_bwd", f"rows (12552, {D}), hidden {4 * D}",
               (12552, D), None)]
     for name, label, shape, extra in cases:
@@ -375,6 +443,8 @@ def stage_phases(rng):
                     w[2], w[4])
             fn = lambda: fused_ffn._launch_backward(*args, 1e-5)
             products, pairs = FFN_PRODUCTS, ffn_products(args, *shape)
+        if shape == LONG_SHAPE:
+            note = long_attention_yardstick(rng, name.endswith("_bwd"))
         yard = matmul_ms(pairs)
         log(f"stages {name} [{label}] (device ms a call): "
             f"{format_stages(stage_times(fn, products))}; torch.matmul at "
@@ -383,23 +453,38 @@ def stage_phases(rng):
         del args, pairs
 
 
-def flash_phases(rng):
-    """B5 and B6 at each (B·H, Nq, Nkv) of a batch-8 mim step, head dim 96:
-    each against its plain version run in fp32 from the same bf16 inputs
+def long_attention_yardstick(rng, backward):
+    """scaled_dot_product_attention's device ms (forward, or backward) on q,
+    k, v of the long stage's shape (1, 96, 1569, 64), the library yardstick
+    beside B1's and B3's long attention stage (fused_bench.sdpa_long_ms)."""
+    ms = sdpa_long_ms(rng, LONG_SHAPE)[int(backward)]
+    bh, L = LONG_SHAPE[0] * HEADS, LONG_SHAPE[1]
+    return (f"; scaled_dot_product_attention "
+            f"{'backward' if backward else 'forward'} on the attention "
+            f"stage's q, k, v (1, {bh}, {L}, {D // HEADS}): {ms:.4f} ms")
+
+
+def flash_phases(rng, cases=None):
+    """B5 and B6 at each (B·H, Nq, Nkv) of a batch-8 mim step, head dim 96,
+    and at TimeSformer-B's 16-frame joint attention on 8 clips (96, 3137,
+    3137), head dim 64 (not in the mim step's totals; ``cases``): each
+    against its plain version run in fp32 from the same bf16 inputs
     (B6 from the kernel's own o and lse, every gradient); times in turns
     (plain, kernel, kernel, plain), and scaled_dot_product_attention's as
     the library's (the backward's: its forward and backward less its
     forward); the host time to issue a call, the wrapper's and the
     library's."""
     report = []
-    scale = MVIT_HD ** -0.5
-    for bh, nq, nkv, count in FLASH_SHAPES:
-        label = f"(B·H, Nq, Nkv) = ({bh}, {nq}, {nkv}), hd {MVIT_HD}, " \
-            f"x{count} a step"
-        q = bf16_on_card(rng, (1, bh, nq, MVIT_HD), 1.0)
-        k = bf16_on_card(rng, (1, bh, nkv, MVIT_HD), 1.0)
-        v = bf16_on_card(rng, (1, bh, nkv, MVIT_HD), 1.0)
-        do = bf16_on_card(rng, (1, bh, nq, MVIT_HD), 1.0)
+    cases = cases or [(shape, MVIT_HD, "a mim step")
+                      for shape in FLASH_SHAPES]
+    for (bh, nq, nkv, count), hd, where in cases:
+        scale = hd ** -0.5
+        label = f"(B·H, Nq, Nkv) = ({bh}, {nq}, {nkv}), hd {hd}, " + (
+            f"x{count} {where}" if count else where)
+        q = bf16_on_card(rng, (1, bh, nq, hd), 1.0)
+        k = bf16_on_card(rng, (1, bh, nkv, hd), 1.0)
+        v = bf16_on_card(rng, (1, bh, nkv, hd), 1.0)
+        do = bf16_on_card(rng, (1, bh, nq, hd), 1.0)
         fa = flash_attention
         o, lse = fa._launch(q, k, v, scale)
         got_b = fa._launch_backward(q, k, v, o, lse, do, scale)
@@ -432,7 +517,7 @@ def flash_phases(rng):
         issued = (issue_us(lambda: fa._launch(q, k, v, scale)),
                   issue_us(lambda: fa._launch_backward(q, k, v, o, lse, do,
                                                        scale)))
-        fwd_bound, bwd_bound, flops = flash_bounds(bh, nq, nkv, MVIT_HD)
+        fwd_bound, bwd_bound, flops = flash_bounds(bh, nq, nkv, hd)
         for name, err, t, t_plain, t_lib, (bms, by), f, us, lib_us in (
                 ("flash_attention", fwd_err, ms, plain_ms, lib_ms, fwd_bound,
                  flops, issued[0], lib_issued[0]),
@@ -622,7 +707,8 @@ def reset_counts():
 # B1's (and in a train step B3's) attention kernels on a TimeSformer
 # forward: the dense one for the 12 spatial calls, the packed block-diagonal
 # one for the 12 temporal calls, never the CUDA-core one
-TIMESFORMER_ATTENTION = {"packed": DEPTH, "dense": DEPTH, "general": 0}
+TIMESFORMER_ATTENTION = {"packed": DEPTH, "dense": DEPTH, "long": 0,
+                         "general": 0}
 
 
 def read_counts():
@@ -647,13 +733,14 @@ def train_configs():
         seed=SEED, mixup=False, use_fp16=True, drop_path_rate=0.1)
 
 
-def run_train_steps(tree, batch):
-    """TRAIN_STEPS steps of a fresh trainer from ``tree``: per step the
-    stats, the kernel launches and the CUDA-event ms."""
-    tr = trainer_mod.VideoTransformerTrainer(train_configs(), "cuda",
-                                             params=tree)
+def run_train_steps(tree, batch, configs=None, n=TRAIN_STEPS):
+    """``n`` steps of a fresh trainer of ``configs`` (train_configs() by
+    default) from ``tree``: per step the stats, the kernel launches and the
+    CUDA-event ms."""
+    tr = trainer_mod.VideoTransformerTrainer(configs or train_configs(),
+                                             "cuda", params=tree)
     steps = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n):
         reset_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -675,8 +762,11 @@ def plain_versions():
     the same autograd.Functions."""
     return [mock.patch.object(fused_mhsa, "_launch",
                               fused_mhsa._forward_reference),
-            mock.patch.object(fused_mhsa, "_launch_backward",
-                              fused_mhsa.fused_prenorm_mhsa_backward_reference),
+            mock.patch.object(
+                fused_mhsa, "_launch_backward",
+                lambda g, x, qkv, attn, lse, *rest:
+                fused_mhsa.fused_prenorm_mhsa_backward_reference(
+                    g, x, qkv, attn, *rest)),
             mock.patch.object(fused_ffn, "_launch",
                               lambda *a: fused_ffn._forward_reference(*a[:-1])),
             mock.patch.object(fused_ffn, "_launch_backward",
@@ -686,6 +776,30 @@ def plain_versions():
             mock.patch.object(
                 flash_attention, "_launch_backward",
                 flash_attention.flash_attention_backward_reference)]
+
+
+def check_steps(what, steps, plain, want, attention, attention_bwd):
+    """Each step through the kernels against the same step through the
+    plain versions (loss within LOSS_REL_TOL, grad norm within
+    NORM_REL_TOL), its launches ``want`` and B1's and B3's attention
+    variants; the plain steps launched nothing."""
+    for i, (k, p) in enumerate(zip(steps, plain)):
+        dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        dn = abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
+        log(f"{what} step {i}: loss {k['loss']:.6f} (plain {p['loss']:.6f}, "
+            f"rel {dl:.2e}, tol {LOSS_REL_TOL}), grad_norm "
+            f"{k['grad_norm']:.6f} (plain {p['grad_norm']:.6f}, rel "
+            f"{dn:.2e}, tol {NORM_REL_TOL}); {k['ms']:.2f} ms (plain "
+            f"{p['ms']:.2f} ms); launches {k['launches']}, attention "
+            f"{k['attention']}, backward {k['attention_bwd']}")
+        assert np.isfinite([k["loss"], k["grad_norm"], p["loss"],
+                            p["grad_norm"]]).all(), (k, p)
+        assert dl <= LOSS_REL_TOL and dn <= NORM_REL_TOL, (what, i, dl, dn)
+        assert k["launches"] == want, (what, i, k["launches"])
+        assert k["attention"] == attention, (what, i, k["attention"])
+        assert k["attention_bwd"] == attention_bwd, \
+            (what, i, k["attention_bwd"])
+        assert not any(p["launches"].values()), p["launches"]
 
 
 def train_slice(rng, card):
@@ -705,22 +819,8 @@ def train_slice(rng, card):
             "fused_prenorm_mhsa_bwd": 2 * DEPTH,
             "fused_prenorm_ffn_bwd": DEPTH, "flash_attention": 0,
             "flash_attention_bwd": 0}
-    for i, (k, p) in enumerate(zip(steps, plain)):
-        dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
-        dn = abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
-        log(f"train step {i}: loss {k['loss']:.6f} (plain {p['loss']:.6f}, "
-            f"rel {dl:.2e}, tol {LOSS_REL_TOL}), grad_norm "
-            f"{k['grad_norm']:.6f} (plain {p['grad_norm']:.6f}, rel "
-            f"{dn:.2e}, tol {NORM_REL_TOL}); {k['ms']:.2f} ms (plain "
-            f"{p['ms']:.2f} ms); launches {k['launches']}")
-        assert np.isfinite([k["loss"], k["grad_norm"], p["loss"],
-                            p["grad_norm"]]).all(), (k, p)
-        assert dl <= LOSS_REL_TOL and dn <= NORM_REL_TOL, (i, dl, dn)
-        assert k["launches"] == want, (i, k["launches"])
-        assert k["attention"] == TIMESFORMER_ATTENTION, (i, k["attention"])
-        assert k["attention_bwd"] == TIMESFORMER_ATTENTION, \
-            (i, k["attention_bwd"])
-        assert not any(p["launches"].values()), p["launches"]
+    check_steps("train", steps, plain, want, TIMESFORMER_ATTENTION,
+                TIMESFORMER_ATTENTION)
     steady = [st["ms"] for st in steps[1:]]
     ms = sum(steady) / len(steady)
     log(f"train slice: {TRAIN_CLIPS} clips a step, {ms:.2f} ms per step "
@@ -731,6 +831,133 @@ def train_slice(rng, card):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_forward(lambda: tr.train_step(batch, TRAIN_LR, TRAIN_WD), ms,
                     n=2, what="train step")
+    return launches
+
+
+# ---------------------------------------------------------------- ViViT
+
+def variants(**counts):
+    """B1's or B3's launches by attention variant, the others 0."""
+    return {v: counts.get(v, 0) for v in ("packed", "dense", "long",
+                                          "general")}
+
+
+# per step: the kernels' launches, B1's and B3's attention variants. Joint:
+# 12 calls over 1569 tokens, B1 and B3 long. fact_encoder: 12 spatial
+# calls over 197 tokens (dense) and 4 temporal ones over the 9 rows of cls
+# and pooled frames (B1 dense; B3 the CUDA-core kernel, as at L = 9)
+VIVIT_WANT = {
+    "joint_space_time": (
+        {"fused_prenorm_mhsa": DEPTH, "fused_prenorm_ffn": DEPTH,
+         "fused_prenorm_mhsa_bwd": DEPTH, "fused_prenorm_ffn_bwd": DEPTH,
+         "flash_attention": 0, "flash_attention_bwd": 0},
+        variants(long=DEPTH), variants(long=DEPTH)),
+    "fact_encoder": (
+        {"fused_prenorm_mhsa": DEPTH + 4, "fused_prenorm_ffn": DEPTH + 4,
+         "fused_prenorm_mhsa_bwd": DEPTH + 4,
+         "fused_prenorm_ffn_bwd": DEPTH + 4, "flash_attention": 0,
+         "flash_attention_bwd": 0},
+        variants(dense=DEPTH + 4), variants(dense=DEPTH, general=4))}
+
+
+def vivit_configs(kind):
+    """The JAX trainer's ViViT-B build for ``-arch vivit -num_frames 16``
+    (trainer.py:81-89): supervised, AdamW, per-parameter clip 1.0, fp32
+    parameters with bf16 compute, DropPath 0.1."""
+    return SimpleNamespace(
+        objective="supervised", arch="vivit", attention_type=kind,
+        num_class=CLASSES, num_frames=VIVIT_FRAMES, img_size=IMG,
+        optim_type="adamw", clip_grad=1.0, seed=SEED, mixup=False,
+        use_fp16=True, drop_path_rate=0.1)
+
+
+def vivit_slice(rng, card, kind):
+    """The ViViT-B main path of one attention type: TRAIN_STEPS steps at
+    full width (8 clips of 16x224, random weights of the trainer's own
+    initialisation from SEED) through the kernels (counts from 0 per step),
+    the same steps from the same state through the plain versions,
+    compared, then a profile of two more. Returns the launches."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vivit_configs(kind)
+    tree = trainer_mod.VideoTransformerTrainer(cfg, "cpu").params_tree()
+    batch = {"video": torch.from_numpy(rng.standard_normal(
+        (TRAIN_CLIPS, VIVIT_FRAMES, 3, IMG, IMG), dtype=np.float32)).to(
+            "cuda"),
+        "label": torch.from_numpy(rng.integers(0, CLASSES, TRAIN_CLIPS)).to(
+            "cuda")}
+    tr, steps = run_train_steps(tree, batch, cfg)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, plain = with_plain_versions(run_train_steps, tree, batch, cfg)
+    check_steps(f"ViViT-B {kind}", steps, plain, *VIVIT_WANT[kind])
+    steady = [st["ms"] for st in steps[1:]]
+    ms = sum(steady) / len(steady)
+    log(f"ViViT-B {kind} slice: {TRAIN_CLIPS} clips of {VIVIT_FRAMES}x{IMG} "
+        f"a step, {ms:.2f} ms per step (mean of steps 2-{TRAIN_STEPS}; step "
+        f"1 {steps[0]['ms']:.2f} ms), {TRAIN_CLIPS / ms * 1e3:.2f} clips/s "
+        f"on {card}; plain versions "
+        f"{sum(p['ms'] for p in plain[1:]) / len(steady):.2f} ms per step; "
+        f"peak device memory {peak:.2f} GiB (kernel steps)")
+    gc.collect()
+    profile_forward(lambda: tr.train_step(batch, TRAIN_LR, TRAIN_WD), ms,
+                    n=2, what=f"ViViT-B {kind} train step")
+    return {n: sum(st["launches"][n] for st in steps) for n in KERNEL_NAMES}
+
+
+def timesformer_types(rng, card):
+    """TimeSformer-B's joint space-time and space-only types at
+    TYPES_DEPTH layers: one eval forward of each at 8 frames (TYPES_CLIPS
+    clips) through the kernels against the plain versions, and one train
+    step of joint attention at 16 frames (1 + 16·196 = 3137 tokens: the
+    unfused branch, flash attention B5/B6) through the kernels against the
+    same step through the plain versions. Returns the launches."""
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for kind, want in (("joint_space_time", variants(long=TYPES_DEPTH)),
+                       ("space_only", variants(dense=TYPES_DEPTH))):
+        model = TimeSformer(num_frames=FRAMES, attention_type=kind,
+                            num_transformer_layers=TYPES_DEPTH)
+        model.reset_parameters(torch.Generator().manual_seed(SEED))
+        model = model.to("cuda", torch.bfloat16).eval()
+        clips = bf16_on_card(rng, (TYPES_CLIPS, FRAMES, 3, IMG, IMG), 1.0)
+        with torch.inference_mode():
+            reset_counts()
+            got = model(clips)
+            torch.cuda.synchronize()
+            counts, attention = read_counts(), dict(
+                fused_mhsa.ATTENTION_LAUNCHES)
+            plain = with_patches(plain_forward(), model, clips)
+        rel = worst_error([got], [plain.float()])[1]
+        log(f"TimeSformer-B {kind} forward ({TYPES_DEPTH} layers, "
+            f"{TYPES_CLIPS} clips of {FRAMES}x{IMG}): max|kernel-plain|/"
+            f"max|plain| = {rel:.3e} (tol {SLICE_REL_TOL}); launches "
+            f"{counts}, attention {attention}")
+        assert got.shape == (TYPES_CLIPS, D), got.shape
+        assert rel <= SLICE_REL_TOL, (kind, rel)
+        assert attention == want, (kind, attention)
+        assert counts["fused_prenorm_mhsa"] == counts["fused_prenorm_ffn"] \
+            == TYPES_DEPTH, counts
+        for n in KERNEL_NAMES:
+            launches[n] += counts[n]
+        del model
+    cfg = SimpleNamespace(**{**vars(train_configs()), "num_frames": 16,
+                             "attention_type": "joint_space_time"})
+    build = lambda c: TimeSformer(num_frames=16, attention_type=c.attention_type,
+                                  num_transformer_layers=TYPES_DEPTH)
+    with mock.patch.object(trainer_mod, "build_model", build):
+        tree = trainer_mod.VideoTransformerTrainer(cfg, "cpu").params_tree()
+        batch = {"video": torch.from_numpy(rng.standard_normal(
+            (TRAIN_CLIPS, 16, 3, IMG, IMG), dtype=np.float32)).to("cuda"),
+            "label": torch.from_numpy(rng.integers(
+                0, CLASSES, TRAIN_CLIPS)).to("cuda")}
+        _, steps = run_train_steps(tree, batch, cfg, n=1)
+        _, plain = with_plain_versions(run_train_steps, tree, batch, cfg, 1)
+    want = {"fused_prenorm_mhsa": 0, "fused_prenorm_ffn": TYPES_DEPTH,
+            "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": TYPES_DEPTH,
+            "flash_attention": TYPES_DEPTH,
+            "flash_attention_bwd": TYPES_DEPTH}
+    check_steps(f"TimeSformer-B joint 16x{IMG} ({TYPES_DEPTH} layers)", steps,
+                plain, want, variants(), variants())
+    for n in KERNEL_NAMES:
+        launches[n] += steps[0]["launches"][n]
     return launches
 
 
@@ -1028,10 +1255,25 @@ def main():
         return time.perf_counter()
 
     rng = np.random.default_rng(SEED)
+    # the phases added with ViViT draw from a generator of their own: the
+    # earlier paths' weights and clips stay those of the runs before them
+    long_rng = np.random.default_rng(SEED + 2)
     t0 = time.perf_counter()
     report = flash_phases(rng)  # autograd on (the library's backward)
+    report += flash_phases(long_rng, [(JOINT_SHAPE, JOINT_HD,
+                                       "TimeSformer-B joint at 16 frames")])
     with torch.inference_mode():
         report += kernel_phases(rng) + backward_phases(rng)
+        report += kernel_phases(long_rng, LONG_FWD_PHASES)
+        report += backward_phases(long_rng, LONG_BWD_PHASES)
+        fact_rng = np.random.default_rng(SEED + 3)
+        report += kernel_phases(fact_rng, FACT_FWD_PHASES)
+        report += backward_phases(fact_rng, FACT_BWD_PHASES)
+        ran = {(e["name"], e["phase"]): e.get("variant") for e in report}
+        assert ran[("fused_prenorm_mhsa", LONG_LABEL)] == "long", ran
+        assert ran[("fused_prenorm_mhsa_bwd", LONG_LABEL)] == "long", ran
+        assert ran[("fused_prenorm_mhsa", FACT_LABEL)] == "dense", ran
+        assert ran[("fused_prenorm_mhsa_bwd", FACT_LABEL)] == "general", ran
         # its own generator: the main paths' weights and clips stay those
         # of the runs before the stage lines were added
         stage_phases(np.random.default_rng(SEED + 1))
@@ -1112,6 +1354,21 @@ def main():
     t0 = lap("train", t0)
     torch.cuda.empty_cache()
 
+    # ---- ViViT-B, joint space-time and fact_encoder: counts from 0 before
+    # each step (vivit_slice)
+    vivit_launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for kind in ("joint_space_time", "fact_encoder"):
+        for n, c in vivit_slice(long_rng, card, kind).items():
+            vivit_launches[n] += c
+        t0 = lap(f"vivit {kind}", t0)
+        torch.cuda.empty_cache()
+
+    # ---- TimeSformer-B's joint and space-only types: counts from 0 before
+    # each forward and the step (timesformer_types)
+    types_launches = timesformer_types(long_rng, card)
+    t0 = lap("timesformer joint and space_only", t0)
+    torch.cuda.empty_cache()
+
     # ---- the mim path: counts from 0 before each step (mim_slice), then
     # the supervised MViT step (counts from 0 before it)
     mim_launches, mim_trainer, mim_data = mim_slice(rng, card)
@@ -1140,8 +1397,7 @@ def main():
     kernels = []
     for name, (source, replaces) in sources.items():
         phases = [{k: v for k, v in e.items() if k not in (
-                       "name", "on_path", "tflops", "issue_us",
-                       "library_issue_us")}
+                       "name", "on_path", "tflops", "library_issue_us")}
                   for e in report if e["name"] == name]
         # the on-path phases, each weighted by its calls: one TimeSformer
         # block, or one mim step for the flash attention kernels
@@ -1150,7 +1406,9 @@ def main():
         library = [e["library_ms"] for e in on_path]
         by_path = {"serve": serve_launches[name],
                    "train": train_launches[name], "mim": mim_launches[name],
-                   "mvit": mvit_launches[name]}
+                   "mvit": mvit_launches[name],
+                   "vivit": vivit_launches[name],
+                   "timesformer_types": types_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,

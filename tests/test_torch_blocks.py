@@ -119,9 +119,24 @@ def test_sine_cosine_table_matches_jax(n, d):
         np.asarray(jblocks.get_sine_cosine_pos_emb(n, d)))
 
 
-def test_joint_attention_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="joint attention"):
-        tblocks.BasicTransformerBlock(D, H, T, 4 * D, ("self_attn", "ffn"))
+def test_self_attn_block_matches_jax():
+    """The joint-attention block ``(self_attn, ffn)`` over all 1 + P·T
+    tokens (the fused call's branch; tests/test_torch_joint.py holds each
+    of JointAttention's branches)."""
+    order = ("self_attn", "ffn")
+    _check(jblocks.BasicTransformerBlock(D, H, T, 4 * D, order),
+           tblocks.BasicTransformerBlock(D, H, T, 4 * D, order),
+           _tokens(13), seed=14)
+
+
+def test_tubelet_patch_embed_matches_jax():
+    """The Conv3d tubelet (tube 2): (b, t, c, h, w) -> (b·t/2, gh·gw, D),
+    with the conv weight (D, c, 2, 16, 16)."""
+    x = np.random.RandomState(15).randn(2, T, 3, 32, 48).astype(np.float32)
+    _check(jblocks.PatchEmbed(img_size=32, patch_size=16, embed_dims=D,
+                              tube_size=2, conv_type="Conv3d"),
+           tblocks.PatchEmbed(32, 16, 3, D, tube_size=2, conv_type="Conv3d"),
+           x, seed=16)
 
 
 # ------------------------------------------------------------ initializers

@@ -84,23 +84,28 @@ def _mhsa_case(rng, B, N, D, Da, H):
     (9, 8, 768, 384, 6, 8, "packed"),       # the same, temporal
     (2, 100, 128, 128, 2, 0, "dense"),      # one key product (L <= 128)
     (3, 250, 128, 128, 2, 0, "dense"),      # 256 keys
+    (2, 1569, 768, 768, 12, 0, "long"),     # joint space-time, 8 frames
+    (3, 300, 256, 128, 2, 0, "long"),       # ragged L, Da != D
+    (2, 1000, 128, 192, 3, 0, "long"),
 ])
 def test_mhsa_forward_variants_and_modes(cuda_device, B, N, D, Da, H,
                                          block_diag, variant):
     """B1 through each tensor-core attention kernel: out, and the saved qkv
-    and attn, against the plain forward; the same bits of out with a
-    gradient wanted (qkv and attn kept for the backward) and under
-    inference_mode."""
+    and attn (and lse, the long variant's), against the plain forward; the
+    same bits of out with a gradient wanted (qkv and attn kept for the
+    backward) and under inference_mode."""
     rng = np.random.default_rng(N + Da + B)
     args = _mhsa_case(rng, B, N, D, Da, H)
     tail = (H, (Da // H) ** -0.5, 1e-5, True, block_diag)
     assert fused_mhsa.attention_variant(block_diag or N, Da // H) == variant
     counts = dict(fused_mhsa.ATTENTION_LAUNCHES)
-    out, qkv, attn = fused_mhsa._launch(*args, *tail)
+    out, qkv, attn, lse = fused_mhsa._launch(*args, *tail)
     torch.cuda.synchronize()
     assert fused_mhsa.ATTENTION_LAUNCHES[variant] == counts[variant] + 1
     want = fused_mhsa._forward_reference(*[a.float() for a in args], *tail)
-    for name, a, b in zip(("out", "qkv", "attn"), (out, qkv, attn), want):
+    assert (lse is None) == (variant != "long")
+    got = (out, qkv, attn) if lse is None else (out, qkv, attn, lse)
+    for name, a, b in zip(("out", "qkv", "attn", "lse"), got, want):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
     x = args[0].detach().clone().requires_grad_()
@@ -173,10 +178,10 @@ def _mhsa_bwd_case(rng, B, N, D, H, block_diag, res):
          _bf16(rng, (3 * D, D), 0.03), _bf16(rng, (3 * D,), 0.03),
          _bf16(rng, (D, D), 0.03), _bf16(rng, (D,), 0.03)]
     cfg = (H, (D // H) ** -0.5, 1e-5, res, block_diag)
-    _, qkv, attn = fused_mhsa._forward_reference(x, *w, *cfg)
+    _, qkv, attn, lse = fused_mhsa._forward_reference(x, *w, *cfg)
     g = _bf16(rng, (B, N, D), 1.0)
     ln_w, ln_b, w_qkv, _, w_proj, _ = w
-    return (g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj), cfg
+    return (g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj), cfg
 
 
 @pytest.mark.cuda
@@ -198,13 +203,42 @@ def test_mhsa_backward_kernel_matches_plain(cuda_device, B, N, D, H,
     torch.cuda.synchronize()
     assert fused_mhsa.BWD_LAUNCHES == n0 + 1
     want = fused_mhsa.fused_prenorm_mhsa_backward_reference(
-        *[a.float() for a in args], *cfg)
+        *[a.float() for a in args[:4] + args[5:]], *cfg)  # no lse
     names = ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
     for name, a, b in zip(names, got, want):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
     again = fused_mhsa._launch_backward(*args, *cfg)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,H", [(300, 128, 2), (1569, 768, 12)])
+def test_long_rows_never_take_a_plain_version(cuda_device, monkeypatch, N, D,
+                                              H):
+    """A CUDA tensor at L > 256, head dim 64, goes through B1's and B3's
+    long variant, forward and backward, with every plain version (and
+    scaled_dot_product_attention) made to raise."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, name in ((fused_mhsa, "_forward_reference"),
+                      (fused_mhsa, "_attn_bwd_reference"),
+                      (fused_mhsa, "fused_prenorm_mhsa_reference"),
+                      (fused_mhsa, "fused_prenorm_mhsa_backward_reference"),
+                      (torch.nn.functional, "scaled_dot_product_attention")):
+        monkeypatch.setattr(mod, name, refuse)
+    rng = np.random.default_rng(N)
+    args = _mhsa_case(rng, 2, N, D, D, H)
+    x = args[0].detach().clone().requires_grad_()
+    fwd = dict(fused_mhsa.ATTENTION_LAUNCHES)
+    bwd = dict(fused_mhsa.ATTENTION_BWD_LAUNCHES)
+    out = fused_mhsa.fused_prenorm_mhsa(x, *args[1:], H, 64 ** -0.5)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad).all()
+    assert fused_mhsa.ATTENTION_LAUNCHES["long"] == fwd["long"] + 1
+    assert fused_mhsa.ATTENTION_BWD_LAUNCHES["long"] == bwd["long"] + 1
 
 
 @pytest.mark.cuda
@@ -251,6 +285,9 @@ MHSA_BWD_VARIANTS = [
     (37, 8, 768, 384, 6, 8, "packed"),     # temporal, 296 rows: ragged
     (5, 32, 128, 256, 4, 32, "packed"),    # two sequences a tile
     (7, 9, 128, 64, 1, 9, "general"),      # cls + 8: the CUDA-core kernel
+    (2, 1569, 768, 768, 12, 0, "long"),    # joint space-time, 8 frames
+    (3, 300, 256, 128, 2, 0, "long"),      # ragged L, Da != D
+    (2, 1000, 128, 192, 3, 0, "long"),     # and split dk/dv partials
 ]
 
 
@@ -270,16 +307,16 @@ def test_mhsa_backward_variants(cuda_device, B, N, D, Da, H, block_diag,
     cfg = (H, (Da // H) ** -0.5, 1e-5, res, block_diag)
     assert fused_mhsa.attention_bwd_variant(block_diag or N, Da // H) == \
         variant
-    _, qkv, attn = fused_mhsa._forward_reference(x, *w, *cfg)
+    _, qkv, attn, lse = fused_mhsa._forward_reference(x, *w, *cfg)
     g = _bf16(rng, (B, N, D), 1.0)
     ln_w, ln_b, w_qkv, _, w_proj, _ = w
-    args = (g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj)
+    args = (g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj)
     counts = dict(fused_mhsa.ATTENTION_BWD_LAUNCHES)
     got = fused_mhsa._launch_backward(*args, *cfg)
     torch.cuda.synchronize()
     assert fused_mhsa.ATTENTION_BWD_LAUNCHES[variant] == counts[variant] + 1
     want = fused_mhsa.fused_prenorm_mhsa_backward_reference(
-        *[a.float() for a in args], *cfg)
+        *[a.float() for a in args[:4] + args[5:]], *cfg)  # no lse
     names = ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
     for name, a, b in zip(names, got, want):
         assert a.shape == b.shape, name
@@ -289,13 +326,13 @@ def test_mhsa_backward_variants(cuda_device, B, N, D, Da, H, block_diag,
     do = (g.float().reshape(-1, D) @ w_proj.float()).to(torch.bfloat16)
     core = (x, qkv, do, g.reshape(-1, D) if res else None, ln_w, w_qkv, H,
             cfg[1], 1e-5, block_diag)
-    got = fused_mhsa._attn_bwd_launch(*core)
+    got = fused_mhsa._attn_bwd_launch(*core, attn=attn, lse=lse)
     want = fused_mhsa._attn_bwd_reference(
         *[a.float() if torch.is_tensor(a) else a for a in core])
     for name, a, b in zip(("dqkv", "dx", "dln_w", "dln_b", "dbqkv"), got,
                           want):
         assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
-    again = fused_mhsa._attn_bwd_launch(*core)
+    again = fused_mhsa._attn_bwd_launch(*core, attn=attn, lse=lse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -85,6 +85,9 @@ MHSA_CASES = [
     pytest.param(1, 197, 4, 0, False, id="dense-N197"),
     pytest.param(2, 64, 4, 8, False, id="blockdiag8-N64"),
     pytest.param(1, 128, 4, 8, True, id="blockdiag8-N128-res"),
+    # L > 256: the lengths the card's long attention variant takes
+    pytest.param(1, 264, 4, 0, True, id="long-N264-res"),
+    pytest.param(1, 320, 4, 0, False, id="long-N320"),
 ]
 
 

@@ -63,10 +63,13 @@ def test_split_k_at_mvit_widths():
     (16, 64, "packed"),
     (100, 64, "dense"),
     (256, 64, "dense"),
-    (257, 64, "general"),    # too long for the whole row in registers
+    (257, 64, "long"),       # too long for the whole row in registers
+    (1569, 64, "long"),      # joint space-time, 8 (effective) frames
+    (3137, 64, "long"),
     (9, 64, "dense"),        # cls + 8: does not divide the 64-row tile
     (197, 96, "general"),    # head dim off the tensor-core kernels
     (8, 16, "general"),
+    (300, 32, "general"),
 ])
 def test_attention_variant(L, hd, variant):
     assert fused_mhsa.attention_variant(L, hd) == variant
@@ -109,8 +112,10 @@ def test_mhsa_modes_give_the_same_output(B, N, block_diag):
     (32, 64, "packed"),
     (64, 64, "packed"),
     (9, 64, "general"),      # cls + 8: the CUDA-core kernel
-    (257, 64, "general"),
+    (257, 64, "long"),
+    (1569, 64, "long"),      # joint space-time, 8 (effective) frames
     (197, 16, "general"),
+    (300, 32, "general"),
     (8, 96, "general"),
 ])
 def test_attention_bwd_variant(L, hd, variant):
@@ -150,6 +155,32 @@ def test_backward_plan_at_the_train_shapes():
     assert dense.split_qkv[0] == temporal.split_qkv[0] == 3
 
 
+def test_backward_plan_at_the_joint_shape():
+    """ViViT-B joint space-time (8 clips of 1569 tokens): the long variant,
+    and the weight gradients split as at every width."""
+    rows = 8 * 1569
+    plan = fused_mhsa.backward_plan(rows, 768, 768, 768, 12, 1569)
+    assert plan.variant == "long"
+    assert fused_mhsa.attention_variant(1569, 64) == "long"
+    assert plan.split_proj == fused_ffn.split_k(768, 768, rows)
+    assert plan.split_qkv == fused_ffn.split_k(3 * 768, 768, rows)
+
+
+def test_long_variant_needs_the_forward_lse():
+    """The long backward reads the forward's fp32 row log-sum-exp (nseq, H,
+    L); without it, or at another shape, the wrapper raises before any
+    launch. The other variants do not read it."""
+    x = torch.zeros(2, 300, 64)
+    with pytest.raises(ValueError, match="needs the forward's fp32 lse"):
+        fused_mhsa._lse_arg("b", None, "long", 600, 300, 1, x)
+    with pytest.raises(ValueError, match="needs the forward's fp32 lse"):
+        fused_mhsa._lse_arg("b", torch.zeros(2, 1, 299), "long", 600, 300,
+                            1, x)
+    assert fused_mhsa._lse_arg("b", None, "dense", 600, 300, 1, x) is None
+    assert fused_mhsa._lse_arg("b", torch.zeros(2, 1, 300), "long", 600,
+                               300, 1, x) is not None
+
+
 @pytest.mark.parametrize("rows,D,Da,Do,H,L,match", [
     (100, 96, 64, 96, 5, 10, "multiple of heads"),
     (100, 64, 64, 64, 1, 8, "sequences of 8"),
@@ -172,8 +203,8 @@ def test_backward_launch_refuses_cpu_tensors():
     qkv = torch.zeros(rows, 3 * 64, dtype=torch.bfloat16)
     attn = torch.zeros(rows, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="expected cuda"):
-        fused_mhsa._launch_backward(x, x, qkv, attn, ln_w, ln_b, w_qkv,
-                                    w_proj, 1, 0.125, 1e-5, True, 8)
+        fused_mhsa._launch_backward(x, x, qkv, attn, None, ln_w, ln_b,
+                                    w_qkv, w_proj, 1, 0.125, 1e-5, True, 8)
     with pytest.raises(ValueError, match="expected cuda"):
         fused_mhsa._attn_bwd_launch(x, qkv, attn, None, ln_w, w_qkv, 1,
                                     0.125, 1e-5, 8)

@@ -8,10 +8,11 @@ Tolerances: fp32 logits within 1e-4 · max|ref| (summation order only); bf16
 within 5e-2 · max|ref| (bf16 rounds at slightly different points in flax's
 modules and the port, compounded over two blocks).
 
-Also: the converter against ``flax_to_torch_state_dict``, and the whole
-port (serving, a TimeSformer training step, a MaskFeat step with device HOG
-and a supervised MViT step) in a subprocess where jax, flax and the JAX
-package cannot be imported."""
+Also: the converter against ``flax_to_torch_state_dict``, the parameters
+of the space-only and joint space-time types, and the whole
+port (serving, a TimeSformer training step, a ViViT step of each attention
+type, a MaskFeat step with device HOG and a supervised MViT step) in a
+subprocess where jax, flax and the JAX package cannot be imported."""
 
 import ast
 import os
@@ -147,13 +148,24 @@ def test_vit_base_builder_has_the_reference_names():
         not in sd
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(attention_type="space_only"), "not ported"),
-    (dict(attention_type="joint_space_time"), "not ported"),
-])
-def test_unported_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TimeSformer(**{**CFG, **kwargs})
+@pytest.mark.parametrize("attention_type", ["space_only",
+                                            "joint_space_time"])
+def test_attention_types_build_the_jax_parameters(attention_type):
+    """The other two attention types build the JAX model's parameters: the
+    names and shapes of flax_to_torch_state_dict, loaded strictly (their
+    forward against the JAX model: tests/test_torch_joint.py)."""
+    jmodel = JTimeSformer(**CFG, attention_type=attention_type,
+                          drop_path_rate=0.0)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(3),
+                                  jnp.zeros((1, 4, 3, 128, 128)))["params"]
+    want = flax_to_torch_state_dict(jax.device_get(params),
+                                    attention_type=attention_type)
+    model = TimeSformer(**CFG, attention_type=attention_type)
+    got = model.state_dict()
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: v.shape for k, v in want.items()}
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in want.items()},
+                          strict=True)
 
 
 def test_other_resolution_raises():
@@ -239,6 +251,21 @@ def test_slice_runs_with_jax_and_flax_blocked():
         stats = tr.train_step(batch, 1e-3, 0.05)
         assert np.isfinite(float(stats["loss"])), stats
         assert int(tr.eval_step(batch, 1)["bs"]) == 4
+        # a tiny ViViT step of each attention type
+        from videotransformer_tpu_torch.models.vivit import ViViT
+        trainer.build_model = lambda c: ViViT(
+            num_frames=4, img_size=32, embed_dims=64, num_heads=4,
+            num_transformer_layers=2, num_time_transformer_layers=2,
+            attention_type=c.attention_type)
+        clips = {"video": np.random.RandomState(3).rand(
+            2, 4, 3, 32, 32).astype(np.float32), "label": np.arange(2)}
+        for kind in ("fact_encoder", "joint_space_time",
+                     "divided_space_time"):
+            vcfg = SimpleNamespace(**{**vars(cfg), "arch": "vivit",
+                                      "attention_type": kind,
+                                      "num_frames": 4})
+            vt = trainer.VideoTransformerTrainer(vcfg, "cpu")
+            assert np.isfinite(float(vt.train_step(clips, 1e-3, 0.05)["loss"]))
         # a tiny MaskFeat (mim) step with device HOG from the raw clip, and
         # a supervised MViT step, through every MViT module of the port
         from videotransformer_tpu_torch.data.mask_generator import (

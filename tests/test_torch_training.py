@@ -314,8 +314,65 @@ def test_fit_checkpoints_and_resume(monkeypatch, tmp_path):
         assert any("_top1_acc_" in n for n in os.listdir(tmp_path / "full"))
 
 
-def test_unported_objectives_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ptrainer.build_model(_configs(attention_type="joint_space_time"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ptrainer.build_model(_configs(arch="vivit"))
+def _flax_shapes(model, cfg):
+    """{flax path: shape} of the JAX model's parameters, traced, not made."""
+    clip = jax.ShapeDtypeStruct(
+        (1, cfg.num_frames, 3, cfg.img_size, cfg.img_size), jnp.float32)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), clip)
+    return {"/".join(str(getattr(k, "key", k)) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                shapes["params"])[0]}
+
+
+def _port_flax_shapes(model):
+    """{flax path: shape} of the port's parameters under the converter's
+    names and layouts (zero-stride arrays: nothing is allocated)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        prefix, leaf = convert._state_name_to_flax(name)
+        arr = np.lib.stride_tricks.as_strided(
+            np.zeros(1, np.float32), shape=tuple(t.shape),
+            strides=(0,) * t.dim())
+        leaf, arr = convert._leaf_to_flax(leaf, arr)
+        out[f"{prefix}/{leaf}" if prefix else leaf] = arr.shape
+    return out
+
+
+@pytest.mark.parametrize("arch,attention_type", [
+    ("vivit", "fact_encoder"), ("vivit", "joint_space_time"),
+    ("vivit", "divided_space_time"), ("timesformer", "joint_space_time"),
+    ("timesformer", "space_only")])
+def test_other_archs_build_the_jax_trainers_models(arch, attention_type):
+    """build_model gives, for every architecture and attention type, the
+    model the JAX trainer's build_model gives (ViViT-B or TimeSformer-B at
+    16 frames of 32²): the same parameters under the converter, name by
+    name and shape by shape, DropPath at the configured rate. Their steps
+    against the JAX trainer: tests/test_torch_vivit_training.py and, for
+    the TimeSformer types' forward, tests/test_torch_joint.py."""
+    cfg = _configs(arch=arch, attention_type=attention_type, num_frames=16,
+                   drop_path_rate=0.2)
+    with torch.device("meta"):
+        port = ptrainer.build_model(cfg)
+    assert _port_flax_shapes(port) == _flax_shapes(
+        jtrainer.build_model(cfg), cfg)
+    rates = {m.rate for m in port.modules() if hasattr(m, "rate")}
+    assert max(rates) == pytest.approx(0.2)
+
+
+@pytest.mark.parametrize("what", ["arch", "pretrain_pth", "resolution"])
+def test_unported_options_still_raise(what):
+    """What the port still refuses: an unknown arch (as the JAX trainer
+    does), the pretrained-weight import, and position tables at another
+    resolution than the native one."""
+    if what == "arch":
+        with pytest.raises(ValueError, match="swin"):
+            ptrainer.build_model(_configs(arch="swin"))
+    elif what == "pretrain_pth":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ptrainer.VideoTransformerTrainer(
+                _configs(pretrain_pth="vit.pth"), "cpu")
+    else:
+        model = TimeSformer(**TINY)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="native resolution"):
+            model(torch.zeros(1, 2, 3, 48, 48))

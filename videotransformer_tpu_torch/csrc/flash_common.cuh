@@ -85,16 +85,44 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile, int kk) {
                          P::kGroupBytes, P::kSwizzle);
 }
 
-// TMA loads of the ROWS x HD tile at rows row0.. of slice bh, one box a
-// panel, counted on `bar` (ROWS * HD * 2 bytes, zero-filled rows included).
+// TMA loads of the ROWS x HD tile at rows row0.. and columns col0.. of
+// batch entry z of a map, one box a panel, counted on `bar` (ROWS * HD * 2
+// bytes, zero-filled rows included).
 template <int HD, int ROWS>
 __device__ __forceinline__ void tma_tile(bf16* tile, const CUtensorMap* map,
-                                         uint64_t* bar, int row0, int bh) {
+                                         uint64_t* bar, int col0, int row0,
+                                         int z) {
   using P = Panels<HD>;
 #pragma unroll
   for (int p = 0; p < P::kCount; ++p)
-    sm90::tma_load_3d(tile + p * ROWS * P::kPW, map, bar, p * P::kPW, row0, bh);
+    sm90::tma_load_3d(tile + p * ROWS * P::kPW, map, bar, col0 + p * P::kPW,
+                      row0, z);
 }
+
+// Where the (b·h) slice bh of each operand of the flash kernels lies.
+// B5 and B6 take (B·H, N, HD) tensors: slice bh is batch entry bh of the
+// maps, columns from 0, output rows HD elements apart (`heads` 1:
+// plain_layout). B1's and B3's long attention read q, k and v in place from
+// qkv (rows, 3·Da), do and o from (rows, Da), and write attn (rows, Da) or
+// dqkv (rows, 3·Da) in place: slice bh is head bh % heads of sequence
+// bh / heads (the maps' batch entry), whose columns start head·HD past the
+// operand's own first column (q 0, k Da, v 2Da within qkv; do and o 0).
+struct HeadLayout {
+  int heads;
+  int q_col, k_col, v_col;  // first columns of q, k, v in their maps
+  int q_ld, kv_ld;          // row strides of the outputs o / dq and dk / dv
+  __device__ __forceinline__ int seq(int bh) const { return bh / heads; }
+  __device__ __forceinline__ int head_col(int bh, int hd) const {
+    return (bh % heads) * hd;
+  }
+  // offset of row `row` of slice bh in an output of N rows a sequence
+  __device__ __forceinline__ size_t out_row(int bh, int N, int row, int ld,
+                                            int hd) const {
+    return ((size_t)seq(bh) * N + row) * ld + head_col(bh, hd);
+  }
+};
+
+inline HeadLayout plain_layout(int hd) { return {1, 0, 0, 0, hd, hd}; }
 
 // The 1024-byte aligned start of dynamic shared memory (swizzled panels
 // repeat every 8 rows, up to 1024 bytes); launches ask for 1024 bytes more.

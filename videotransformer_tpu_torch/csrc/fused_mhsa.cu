@@ -15,7 +15,9 @@
 //
 // Bound: at the TimeSformer shapes the two projections carry ~97% of the
 // FLOPs (8·rows·D·Da of 8·rows·D·Da + 4·rows·L·Da), so the tensor-core rate
-// bounds the call. Design (four launches on the caller's stream):
+// bounds the call; at the joint space-time length L = 1569 attention
+// carries half (60.5 of 119.7 GFLOP at (8, 1569, 768)), still on the tensor
+// cores. Design (four launches on the caller's stream):
 //
 // 1. LayerNorm statistics: (mean, rstd) of each row, 8 bytes a row.
 // 2. qkv = LN(x) · Wqkvᵀ + b on the wgmma/TMA core (sm90_gemm.cuh) with the
@@ -33,14 +35,24 @@
 //      a row's own sequence p = 0 exactly (the TPU kernel's _score_chunk
 //      packing); the ×64/L masked products are free at the tensor cores'
 //      rate, so the stage is bound by reading qkv;
+//    - long (L > 256, head dim 64; joint space-time attention, L = 1569):
+//      B5's one-pass flash kernel (flash_fwd.cuh) reading each head's q, k
+//      and v in place from qkv through 3-D maps over (sequence, L, 3Da),
+//      the head's columns a coordinate of the box, and writing its output
+//      rows into attn (row stride Da) and the fp32 row log-sum-exp into
+//      lse (sequence, head, L), which the backward's long variant reads;
 //    - any other head dim or length: a CUDA-core kernel, one warp a query
 //      row (off the main paths).
-//    The rounding points are the TPU kernel's: fp32 scores × scale, the max
+//    The rounding points of dense, packed and the CUDA-core kernel are the
+//    TPU kernel's: fp32 scores × scale, the max
 //    over the row's own keys, p = exp(s - max) in fp32, the row sum taken
 //    before p is rounded to bf16 for P̃·V, O / sum rounded once. The exp is
 //    the special function unit's (__expf: a few fp32 ulps, far inside the
 //    bf16 rounding of p that follows): inlined 104 times a thread, expf's
 //    longer sequence took the dense stage from 0.23 to 0.33 ms on an H100.
+//    The long variant walks the keys in 80-key tiles with an online softmax
+//    and so rounds the unnormalised p̃ = exp(s - m_running) before P̃·V
+//    (B5's order, kernels/flash_attention.py).
 // 4. out = attn · Wprojᵀ + b (+ x in the epilogue) on the same core.
 //
 // What stays in device memory: qkv (rows x 3Da bf16, written and read once)
@@ -48,6 +60,7 @@
 // step keeps them for the backward (the TPU kernel's save_qkv/save_attn).
 
 #include "flash_common.cuh"
+#include "flash_fwd.cuh"
 #include "layernorm.cuh"  // warp_sum, warp_max (the CUDA-core kernel)
 #include "sm90_gemm.cuh"
 
@@ -151,7 +164,7 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
 constexpr int kHd = 64;
 constexpr uint32_t kTileBytes = 64 * kHd * 2;  // one 64-row tile of a head
 
-enum Variant { kGeneral = 0, kPacked = 1, kDense = 2 };
+enum Variant { kGeneral = 0, kPacked = 1, kDense = 2, kLong = 3 };
 
 // O (64 x 64) / sum, rounded to bf16, into rows row0.. (of `limit`) of
 // `out` (row stride Da) at column col, 16 bytes a lane (quad_transpose).
@@ -391,6 +404,7 @@ __global__ void __launch_bounds__(256)
 inline bool variant_fits(int variant, int L, int hd) {
   if (variant == kPacked) return hd == kHd && L >= 1 && 64 % L == 0;
   if (variant == kDense) return hd == kHd && L >= 1 && L <= 256;
+  if (variant == kLong) return hd == kHd && L > 256;
   return variant == kGeneral && L >= 1 && hd >= 2 && hd % 2 == 0;
 }
 
@@ -419,11 +433,27 @@ cudaError_t launch_dense(const bf16* qkv, bf16* attn, int nseq, int L, int Da,
   return cudaGetLastError();
 }
 
+// Long: slice bh = (sequence, head) of B5's kernel, in place in qkv and attn.
+cudaError_t launch_long(const bf16* qkv, bf16* attn, float* lse, int nseq,
+                        int L, int Da, int heads, float scale,
+                        cudaStream_t st) {
+  CUtensorMap qm, kvm;
+  if (lse == nullptr ||
+      !make_tensor_map_3d(&qm, qkv, nseq, L, 3 * Da, kFlashBM, kHd) ||
+      !make_tensor_map_3d(&kvm, qkv, nseq, L, 3 * Da, kFlashBN, kHd))
+    return cudaErrorInvalidValue;
+  const HeadLayout lay{heads, 0, Da, 2 * Da, Da, Da};
+  return launch_flash_fwd<kHd>(qm, kvm, kvm, attn, lse, nseq * heads, L, L,
+                               scale, lay, st);
+}
+
 cudaError_t launch_attention(int variant, const bf16* qkv, bf16* attn,
-                             int rows, int L, int Da, int heads, float scale,
-                             cudaStream_t st) {
+                             float* lse, int rows, int L, int Da, int heads,
+                             float scale, cudaStream_t st) {
   const int hd = Da / heads;
   const int nseq = rows / L;
+  if (variant == kLong)
+    return launch_long(qkv, attn, lse, nseq, L, Da, heads, scale, st);
   if (variant == kDense) {
     if (L <= 64)
       return launch_dense<64, 0>(qkv, attn, nseq, L, Da, heads, scale, st);
@@ -461,25 +491,33 @@ cudaError_t launch_attention(int variant, const bf16* qkv, bf16* attn,
 
 extern "C" {
 
+// The version of this library's C entry points, for a tool that calls
+// another checkout's build: 2 since the long attention variant added the lse
+// pointer. A library without this entry point is version 1.
+int vt_mhsa_abi_version() { return 2; }
+
 // Dynamic shared memory the attention stage's `variant` (0 the CUDA-core
-// kernel, 1 packed, 2 dense; the wrapper chooses) needs at (L, hd), or -1
+// kernel, 1 packed, 2 dense, 3 long; the wrapper chooses) needs at (L, hd), or -1
 // when the variant does not take the shape. The wrapper refuses shapes
 // above the card's 227 KB per block.
 int vt_mhsa_attention_smem_bytes(int seq_len, int head_dim, int variant) {
   if (!vt::variant_fits(variant, seq_len, head_dim)) return -1;
   if (variant == vt::kPacked) return (int)vt::kPackedSmem;
   if (variant == vt::kDense) return (int)vt::dense_smem(seq_len);
+  if (variant == vt::kLong) return (int)vt::FwdCfg<vt::kHd>::kSmem;
   return (int)vt::attention_smem_bytes(seq_len, head_dim);
 }
 
 // x (rows, D) with rows = nseq * seq_len; weights in (out, in) layout:
-// w_qkv (3Da, D), w_proj (Do, Da). stats (rows float2), qkv (rows, 3Da) and
-// attn (rows, Da) are caller-allocated; qkv and attn hold the saved
-// residuals when the call returns.
+// w_qkv (3Da, D), w_proj (Do, Da). stats (rows float2), qkv (rows, 3Da),
+// attn (rows, Da) and, for the long variant, lse (nseq, heads, seq_len)
+// fp32 (else unused, may be null) are caller-allocated; qkv, attn and lse
+// hold the saved residuals when the call returns.
 int vt_fused_prenorm_mhsa(const void* x, const void* ln_w, const void* ln_b,
                           const void* w_qkv, const void* b_qkv,
                           const void* w_proj, const void* b_proj, void* stats,
-                          void* qkv, void* attn, void* out, int rows, int D,
+                          void* qkv, void* attn, void* lse, void* out,
+                          int rows, int D,
                           int Da, int Do, int num_heads, int seq_len,
                           int variant, float scale, float ln_eps,
                           int add_residual, void* stream) {
@@ -507,7 +545,8 @@ int vt_fused_prenorm_mhsa(const void* x, const void* ln_w, const void* ln_b,
       xb, static_cast<const bf16*>(w_qkv), p, 1, st);
   if (err != cudaSuccess) return err;
   err = vt::launch_attention(variant, static_cast<const bf16*>(qkv),
-                             static_cast<bf16*>(attn), rows, seq_len, Da,
+                             static_cast<bf16*>(attn),
+                             static_cast<float*>(lse), rows, seq_len, Da,
                              num_heads, scale, st);
   if (err != cudaSuccess) return err;
   p = wg::Params{};

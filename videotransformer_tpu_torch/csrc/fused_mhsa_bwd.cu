@@ -46,6 +46,16 @@
 //   - packed (64 % L == 0; the temporal L = 8): 64 / L sequences share a
 //     64-row tile, and keys of another sequence get p = 0 exactly (B1's
 //     packed forward run backward).
+//   - long (L > 256; joint space-time attention, L = 1569): B6's two
+//     passes (flash_bwd.cuh) on each (sequence, head) in place: q, k, v
+//     read from qkv and do, o (the forward's attn) through 3-D maps over
+//     (sequence, L, columns), dq, dk and dv written into dqkv (row stride
+//     3Da). p = exp(s·scale - lse) from the forward's fp32 row log-sum-exp
+//     and delta = rowsum(do · attn) in place of the deferred normalisation
+//     above, so its rounding points are B6's: bf16(p)ᵀ·do, bf16(ds)·k,
+//     bf16(ds)ᵀ·q with ds = p · (dp - delta) · scale; dk and dv sum in fp32
+//     registers over the query tiles (split and summed in order only when
+//     the grid is short of two blocks a SM), no atomics.
 //   Other shapes (head dim != 64, or L <= 32 not dividing 64) take a
 //   CUDA-core kernel, one warp per (sequence, head); off the main paths.
 //   The wrapper chooses the variant (kernels/fused_mhsa.py).
@@ -56,6 +66,7 @@
 // TPU kernel kept its intermediates in VMEM.
 
 #include "bwd_common.cuh"
+#include "flash_bwd.cuh"
 #include "flash_common.cuh"
 #include "layernorm.cuh"
 #include "sm90_gemm.cuh"
@@ -168,7 +179,8 @@ constexpr int kBHd = 64;
 constexpr uint32_t kBTile = 64 * kBHd * 2;  // one 64-row tile of a head
 constexpr int kBTileElems = 64 * kBHd;
 
-enum BwdVariant { kBwdGeneral = 0, kBwdPacked = 1, kBwdDense = 2 };
+enum BwdVariant { kBwdGeneral = 0, kBwdPacked = 1, kBwdDense = 2,
+                  kBwdLong = 3 };
 
 // bf16(src · f) of this thread's two rows (warp·16 + lane/4 + 8h) of a
 // 64-row tile, into dst: lane t of a quad takes the row's 16-byte chunks
@@ -556,6 +568,7 @@ __global__ void __launch_bounds__(256)
 inline bool bwd_variant_fits(int variant, int L, int hd) {
   if (variant == kBwdPacked) return hd == kBHd && L >= 1 && 64 % L == 0;
   if (variant == kBwdDense) return hd == kBHd && L > 32 && L <= 256;
+  if (variant == kBwdLong) return hd == kBHd && L > 256;
   return variant == kBwdGeneral && L >= 1 && hd >= 1;
 }
 
@@ -584,13 +597,53 @@ cudaError_t launch_dense_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv,
   return cudaGetLastError();
 }
 
-// dqkv from qkv and do through the attention backward `variant`.
+// fp32 floats the long variant's two passes need (the row arrays, and the
+// dk/dv partials where the query range is split); 0 for the others.
+inline size_t long_bwd_floats(int rows, int L, int heads, int variant) {
+  if (variant != kBwdLong) return 0;
+  const int bh = rows / L * heads;
+  return flash_bwd_row_floats(bh, L) + flash_bwd_scratch_floats(bh, L, L, kBHd);
+}
+
+// Long: B6's passes on slice bh = (sequence, head), in place in qkv, do,
+// attn and dqkv; `work` holds long_bwd_floats.
+cudaError_t launch_long_bwd(const bf16* qkv, const bf16* dout,
+                            const bf16* attn, const float* lse, bf16* dqkv,
+                            float* work, int nseq, int L, int Da, int heads,
+                            float scale, cudaStream_t st) {
+  FlashBwdMaps m;
+  const int W = 3 * Da;
+  if (attn == nullptr || lse == nullptr ||
+      !make_tensor_map_3d(&m.q128, qkv, nseq, L, W, kFlashBM, kBHd) ||
+      !make_tensor_map_3d(&m.do128, dout, nseq, L, Da, kFlashBM, kBHd) ||
+      !make_tensor_map_3d(&m.o128, attn, nseq, L, Da, kFlashBM, kBHd) ||
+      !make_tensor_map_3d(&m.k80, qkv, nseq, L, W, kFlashBN, kBHd) ||
+      !make_tensor_map_3d(&m.q64, qkv, nseq, L, W, kFlashBQ, kBHd) ||
+      !make_tensor_map_3d(&m.do64, dout, nseq, L, Da, kFlashBQ, kBHd) ||
+      !make_tensor_map_3d(&m.k64, qkv, nseq, L, W, 64, kBHd))
+    return cudaErrorInvalidValue;
+  m.v80 = m.k80;  // q, k and v share qkv's maps: their columns differ
+  m.v64 = m.k64;
+  const int bh = nseq * heads;
+  const HeadLayout lay{heads, 0, Da, 2 * Da, W, W};
+  return launch_flash_bwd<kBHd>(m, lse, work,
+                                work + flash_bwd_row_floats(bh, L), dqkv,
+                                dqkv + Da, dqkv + 2 * Da, bh, L, L, scale,
+                                lay, st);
+}
+
+// dqkv from qkv and do through the attention backward `variant` (the long
+// one also reads the forward's attn and lse, and `work`).
 cudaError_t launch_attention_bwd(int variant, const bf16* qkv,
-                                 const bf16* dout, bf16* dqkv, int rows,
-                                 int L, int Da, int heads, float scale,
-                                 cudaStream_t st) {
+                                 const bf16* dout, const bf16* attn,
+                                 const float* lse, float* work, bf16* dqkv,
+                                 int rows, int L, int Da, int heads,
+                                 float scale, cudaStream_t st) {
   const int hd = Da / heads;
   const int nseq = rows / L;
+  if (variant == kBwdLong)
+    return launch_long_bwd(qkv, dout, attn, lse, dqkv, work, nseq, L, Da,
+                           heads, scale, st);
   if (variant == kBwdDense) {
     if (L <= 64)
       return launch_dense_bwd<64, 0>(qkv, dout, dqkv, nseq, L, Da, heads,
@@ -631,22 +684,28 @@ cudaError_t launch_attention_bwd(int variant, const bf16* qkv,
 }
 
 // fp32 scratch, in order: d_xn, the LayerNorm partials, the weight
-// gradients' slices (when split), then the chunk sums of the column sums.
+// gradients' slices (when split), the long attention's work, then the chunk
+// sums of the column sums.
 struct MhsaBwdScratch {
-  size_t d_xn, ln_w, ln_b, proj_slices, qkv_slices, chunks;
+  size_t d_xn, ln_w, ln_b, proj_slices, qkv_slices, attn_work, chunks;
   size_t total() const {
-    return d_xn + ln_w + ln_b + proj_slices + qkv_slices + chunks;
+    return d_xn + ln_w + ln_b + proj_slices + qkv_slices + attn_work + chunks;
+  }
+  float* attn_work_at(float* base) const {
+    return base + d_xn + ln_w + ln_b + proj_slices + qkv_slices;
   }
 };
 
 inline MhsaBwdScratch mhsa_bwd_scratch(int rows, int D, int Da, int Do,
-                                       int slices_proj, int slices_qkv) {
+                                       int slices_proj, int slices_qkv,
+                                       int heads, int L, int variant) {
   const int ln_rows = bwd::ln_bwd_part_rows(rows);
   MhsaBwdScratch s;
   s.d_xn = (size_t)rows * D;
   s.ln_w = s.ln_b = (size_t)ln_rows * D;
   s.proj_slices = slices_proj > 1 ? (size_t)slices_proj * Do * Da : 0;
   s.qkv_slices = slices_qkv > 1 ? (size_t)slices_qkv * 3 * Da * D : 0;
+  s.attn_work = long_bwd_floats(rows, L, heads, variant);
   s.chunks = bwd::chunk_floats(rows, Do) + bwd::chunk_floats(rows, 3 * Da) +
              2 * bwd::chunk_floats(ln_rows, D);
   return s;
@@ -665,6 +724,7 @@ inline bool shapes_fit(int rows, int D, int Da, int heads, int L,
 // the LayerNorm backward (+ g_res) into dx and its partial rows; the sums of
 // dbqkv, dln_w and dln_b join `sums`.
 cudaError_t attention_core(const bf16* x, const bf16* qkv, const bf16* dout,
+                           const bf16* attn, const float* lse,
                            const bf16* g_res, const bf16* ln_w,
                            const bf16* w_qkv, bf16* dqkv, float* scratch,
                            bf16* dx, float* dln_w, float* dln_b, float* dbqkv,
@@ -675,8 +735,9 @@ cudaError_t attention_core(const bf16* x, const bf16* qkv, const bf16* dout,
   float* d_xn = scratch;
   float* part_w = d_xn + sz.d_xn;
   float* part_b = part_w + sz.ln_w;
-  cudaError_t err = launch_attention_bwd(variant, qkv, dout, dqkv, rows, L,
-                                         Da, heads, scale, st);
+  cudaError_t err = launch_attention_bwd(variant, qkv, dout, attn, lse,
+                                         sz.attn_work_at(scratch), dqkv, rows,
+                                         L, Da, heads, scale, st);
   if (err != cudaSuccess) return err;
   // d_xn = dqkv · Wqkv: (rows, D), K = 3Da, the weight read N-major
   wg::Params p{};
@@ -700,34 +761,52 @@ cudaError_t attention_core(const bf16* x, const bf16* qkv, const bf16* dout,
 
 extern "C" {
 
+// The version of this library's C entry points, for a tool that calls
+// another checkout's build: 2 since the long attention variant added the lse
+// pointer, B3 alone's attn and the heads, length and variant of the scratch
+// size. A library without this entry point is version 1.
+int vt_mhsa_abi_version() { return 2; }
+
 // Dynamic shared memory the attention backward's `variant` (0 the CUDA-core
-// kernel, 1 packed, 2 dense; the wrapper chooses) needs at (L, hd), or -1
-// when the variant does not take the shape. The wrapper refuses shapes
-// above the card's 227 KB per block.
+// kernel, 1 packed, 2 dense, 3 long; the wrapper chooses) needs at (L, hd),
+// or -1 when the variant does not take the shape. The wrapper refuses
+// shapes above the card's 227 KB per block.
 int vt_mhsa_bwd_smem_bytes(int seq_len, int head_dim, int variant) {
   if (!vt::bwd_variant_fits(variant, seq_len, head_dim)) return -1;
   if (variant == vt::kBwdPacked) return (int)vt::kPackedBwdSmem;
   if (variant == vt::kBwdDense) return (int)vt::dense_bwd_smem(seq_len);
+  if (variant == vt::kBwdLong) {
+    constexpr size_t dq = vt::DqCfg<vt::kBHd>::kSmem;
+    constexpr size_t dkv = vt::DkvCfg<vt::kBHd>::kSmem;
+    return (int)(dq > dkv ? dq : dkv);
+  }
   return (int)vt::small_bwd_smem_bytes(seq_len, head_dim);
 }
 
 // fp32 floats of scratch both entry points below need, with dw_proj and
-// dw_qkv split into slices_proj and slices_qkv row slices (1: not split);
-// -1 above 2^31.
+// dw_qkv split into slices_proj and slices_qkv row slices (1: not split),
+// for `heads` heads, sequences of seq_len and the attention `variant`; -1
+// above 2^31.
 int vt_mhsa_bwd_scratch_floats(int rows, int D, int Da, int Do,
-                               int slices_proj, int slices_qkv) {
-  const size_t n =
-      vt::mhsa_bwd_scratch(rows, D, Da, Do, slices_proj, slices_qkv).total();
+                               int slices_proj, int slices_qkv, int num_heads,
+                               int seq_len, int variant) {
+  if (num_heads < 1 || seq_len < 1) return -1;
+  const size_t n = vt::mhsa_bwd_scratch(rows, D, Da, Do, slices_proj,
+                                        slices_qkv, num_heads, seq_len,
+                                        variant).total();
   return n > 0x7fffffffu ? -1 : (int)n;
 }
 
-// B3 alone, from do: x (rows, D), qkv (rows, 3Da), dout (rows, Da), g_res
-// (rows, D) or null (no residual); ln_w (D), w_qkv (3Da, D) in (out, in)
-// layout. dqkv (rows, 3Da) bf16 and `scratch` (vt_mhsa_bwd_scratch_floats)
+// B3 alone, from do: x (rows, D), qkv (rows, 3Da), dout (rows, Da), the
+// forward's attn (rows, Da) and lse (nseq, heads, seq_len) fp32 (read by the
+// long variant only; else may be null), g_res (rows, D) or null (no
+// residual); ln_w (D), w_qkv (3Da, D) in (out, in) layout. dqkv (rows, 3Da)
+// bf16 and `scratch` (vt_mhsa_bwd_scratch_floats with Do 8 and one slice)
 // are caller-allocated. Outputs: dx (rows, D) bf16; dln_w, dln_b (D) and
 // dbqkv (3Da) fp32.
 int vt_mhsa_attn_bwd(const void* x, const void* qkv, const void* dout,
-                     const void* g_res, const void* ln_w, const void* w_qkv,
+                     const void* attn, const void* lse, const void* g_res,
+                     const void* ln_w, const void* w_qkv,
                      void* dqkv, void* scratch, void* dx, void* dln_w,
                      void* dln_b, void* dbqkv, int rows, int D, int Da,
                      int num_heads, int seq_len, int variant, float scale,
@@ -736,12 +815,14 @@ int vt_mhsa_attn_bwd(const void* x, const void* qkv, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!vt::shapes_fit(rows, D, Da, num_heads, seq_len, variant))
     return cudaErrorInvalidValue;
-  const vt::MhsaBwdScratch sz = vt::mhsa_bwd_scratch(rows, D, Da, 8, 1, 1);
+  const vt::MhsaBwdScratch sz = vt::mhsa_bwd_scratch(
+      rows, D, Da, 8, 1, 1, num_heads, seq_len, variant);
   float* fs = static_cast<float*>(scratch);
   vt::bwd::SumPlan sums(fs + sz.total() - sz.chunks);
   const cudaError_t err = vt::attention_core(
       static_cast<const bf16*>(x), static_cast<const bf16*>(qkv),
-      static_cast<const bf16*>(dout), static_cast<const bf16*>(g_res),
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(attn),
+      static_cast<const float*>(lse), static_cast<const bf16*>(g_res),
       static_cast<const bf16*>(ln_w), static_cast<const bf16*>(w_qkv),
       static_cast<bf16*>(dqkv), fs, static_cast<bf16*>(dx),
       static_cast<float*>(dln_w), static_cast<float*>(dln_b),
@@ -752,8 +833,10 @@ int vt_mhsa_attn_bwd(const void* x, const void* qkv, const void* dout,
 }
 
 // The whole backward of the fused prenorm MHSA from the output gradient g
-// (rows, Do): x (rows, D), the forward's qkv (rows, 3Da) and attn (rows,
-// Da), ln_w, ln_b (D), w_qkv (3Da, D), w_proj (Do, Da) in (out, in) layout.
+// (rows, Do): x (rows, D), the forward's qkv (rows, 3Da), attn (rows, Da)
+// and lse (nseq, heads, seq_len fp32; the long variant's, else may be
+// null), ln_w, ln_b (D), w_qkv (3Da, D), w_proj (Do, Da) in (out, in)
+// layout.
 // bf_scratch (rows · (D + 4Da) bf16: xn, do, dqkv) and `scratch`
 // (vt_mhsa_bwd_scratch_floats) are caller-allocated; dw_proj and dw_qkv are
 // split into slices_proj / slices_qkv slices of per_proj / per_qkv 64-row k
@@ -761,7 +844,8 @@ int vt_mhsa_attn_bwd(const void* x, const void* qkv, const void* dout,
 // dbqkv (3Da), dw_proj (Do, Da), db_proj (Do).
 int vt_fused_prenorm_mhsa_bwd(
     const void* g, const void* x, const void* qkv, const void* attn,
-    const void* ln_w, const void* ln_b, const void* w_qkv, const void* w_proj,
+    const void* lse, const void* ln_w, const void* ln_b, const void* w_qkv,
+    const void* w_proj,
     void* bf_scratch, void* scratch, void* dx, void* dln_w, void* dln_b,
     void* dw_qkv, void* dbqkv, void* dw_proj, void* db_proj, int rows, int D,
     int Da, int Do, int num_heads, int seq_len, int variant, int slices_proj,
@@ -781,11 +865,12 @@ int vt_fused_prenorm_mhsa_bwd(
   bf16* dout = xn + (size_t)rows * D;
   bf16* dqkv = dout + (size_t)rows * Da;
   const vt::MhsaBwdScratch sz =
-      vt::mhsa_bwd_scratch(rows, D, Da, Do, slices_proj, slices_qkv);
+      vt::mhsa_bwd_scratch(rows, D, Da, Do, slices_proj, slices_qkv,
+                           num_heads, seq_len, variant);
   float* fs = static_cast<float*>(scratch);
   float* proj_slices = fs + sz.d_xn + sz.ln_w + sz.ln_b;
   float* qkv_slices = proj_slices + sz.proj_slices;
-  bwd::SumPlan sums(qkv_slices + sz.qkv_slices);
+  bwd::SumPlan sums(fs + sz.total() - sz.chunks);
 
   // dw_proj = gᵀ · attn: (Do, Da), K = rows, in slices_proj row slices
   wg::Params p{};
@@ -808,7 +893,9 @@ int vt_fused_prenorm_mhsa_bwd(
   if (err != cudaSuccess) return err;
   const bf16* xb = static_cast<const bf16*>(x);
   err = vt::attention_core(
-      xb, static_cast<const bf16*>(qkv), dout, add_residual ? gb : nullptr,
+      xb, static_cast<const bf16*>(qkv), dout,
+      static_cast<const bf16*>(attn), static_cast<const float*>(lse),
+      add_residual ? gb : nullptr,
       static_cast<const bf16*>(ln_w), static_cast<const bf16*>(w_qkv), dqkv,
       fs, static_cast<bf16*>(dx), static_cast<float*>(dln_w),
       static_cast<float*>(dln_b), static_cast<float*>(dbqkv), rows, D, Da,

@@ -26,6 +26,22 @@ precision feeds to the MXU in bf16 passes); in fp32 the rounding does
 nothing. Weight and bias gradients come back in the weight's dtype, as
 ``_vjp_bwd`` returns them.
 
+The long attention variant (head dim 64, L > 256: joint space-time
+attention, L = 1569) runs B5's one-pass kernel (``kernels/flash_attention``)
+on each head in place in qkv and attn. It rounds where B5 does, not where
+the TPU kernel does: the unnormalised p̃ = exp(s - m_running) (m_running the
+row max over the key tiles read so far) is rounded to the working type
+before the PV product and the fp32 row sum divides after it, and the
+forward also writes the fp32 row log-sum-exp lse (nseq, H, L), a residual
+the TPU kernel did not keep. Its backward is B6's two passes: p =
+exp(s·scale - lse), delta = rowsum(do · attn) from the saved attn, and the
+products bf16(p)ᵀ·do, bf16(ds)·k, bf16(ds)ᵀ·q with ds = p·(dp - delta)·
+scale, where the plain backward keeps the TPU kernel's deferred
+normalisation. The plain versions are the TPU kernel's order at every L
+and stay the yardstick: the same function, other rounding points. The
+plain forward returns lse too (exactly, in fp32), so that either forward
+feeds either backward.
+
 Layouts: x is (B, N, D) as in the JAX package; weights are in nn.Linear's
 (out, in) layout: w_qkv (3·Da, D), w_proj (Do, Da). ``block_diag=T`` (N
 divisible by T) makes each length-T block of a sequence its own sequence,
@@ -47,23 +63,23 @@ from videotransformer_tpu_torch.kernels.fused_ffn import split_k
 # took (``attention_variant``, ``attention_bwd_variant``).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-ATTENTION_LAUNCHES = {"packed": 0, "dense": 0, "general": 0}
-ATTENTION_BWD_LAUNCHES = {"packed": 0, "dense": 0, "general": 0}
-_VARIANT_CODES = {"general": 0, "packed": 1, "dense": 2}
+ATTENTION_LAUNCHES = {"packed": 0, "dense": 0, "long": 0, "general": 0}
+ATTENTION_BWD_LAUNCHES = {"packed": 0, "dense": 0, "long": 0, "general": 0}
+_VARIANT_CODES = {"general": 0, "packed": 1, "dense": 2, "long": 3}
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _SIGNATURES = {
-    "vt_fused_prenorm_mhsa": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    "vt_fused_prenorm_mhsa": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "vt_mhsa_attention_smem_bytes": [ctypes.c_int] * 3,
 }
 _BWD_SIGNATURES = {
-    "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
+    "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 12
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-    "vt_mhsa_attn_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    "vt_mhsa_attn_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
     "vt_mhsa_bwd_smem_bytes": [ctypes.c_int] * 3,
-    "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 6,
+    "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 9,
 }
 
 
@@ -78,11 +94,15 @@ def attention_variant(L, hd):
     tokens at head dim hd: "packed" (64 / L sequences a 64-row tensor-core
     tile, block-diagonal mask; the divided temporal L = 8), "dense" (one
     (sequence, head) a block on the tensor cores, L <= 256; the divided
-    spatial L = 197), else "general" (the CUDA-core kernel)."""
+    spatial L = 197), "long" (B5's one-pass kernel on each (sequence,
+    head), L > 256; joint space-time L = 1569), else "general" (the
+    CUDA-core kernel)."""
     if hd == 64 and 64 % L == 0:
         return "packed"
     if hd == 64 and L <= 256:
         return "dense"
+    if hd == 64:
+        return "long"
     return "general"
 
 
@@ -91,12 +111,15 @@ def attention_bwd_variant(L, hd):
     tokens at head dim hd: "packed" (64 / L sequences a 64-row tensor-core
     tile, keys of other sequences masked; the divided temporal L = 8),
     "dense" (one (sequence, head) a block on the tensor cores, 32 < L <=
-    256; the divided spatial L = 197), else "general" (the CUDA-core
-    kernel, one warp a (sequence, head))."""
+    256; the divided spatial L = 197), "long" (B6's two passes on each
+    (sequence, head), L > 256; joint space-time L = 1569), else "general"
+    (the CUDA-core kernel, one warp a (sequence, head))."""
     if hd == 64 and 64 % L == 0:
         return "packed"
     if hd == 64 and 32 < L <= 256:
         return "dense"
+    if hd == 64 and L > 256:
+        return "long"
     return "general"
 
 
@@ -144,7 +167,8 @@ def _forward_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     scale, max-subtract, exp, p rounded to the working type before the PV
     product, PV in fp32 divided by the fp32 row sum -> working type; fp32
     projection + bias (+ x) -> working type. Returns (out, qkv, attn), each
-    (rows, ·)."""
+    (rows, ·), and the fp32 row log-sum-exp of the scaled scores, lse
+    (rows / L, H, L)."""
     B, N, D = x.shape
     dt = x.dtype
     L = _seq_len(N, block_diag)
@@ -152,20 +176,22 @@ def _forward_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     qkv = linear_fp32(layer_norm(x2, ln_w, ln_b, ln_eps), w_qkv, b_qkv).to(dt)
     q, k, v = _split_heads(qkv, L, num_heads, 3)
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    o = torch.matmul(p.to(dt).float(), v) / p.sum(-1, keepdim=True)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(dt).float(), v) / l
     attn = _merge_heads(o.to(dt))
     out = linear_fp32(attn, w_proj, b_proj)
     if add_residual:
         out = out + x2.float()
-    return out.to(dt), qkv, attn
+    return out.to(dt), qkv, attn, (m + torch.log(l)).squeeze(-1)
 
 
 def fused_prenorm_mhsa_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                                  num_heads, scale, ln_eps=1e-5,
                                  add_residual=True, block_diag=0):
     """The plain forward alone (no autograd of its own rounding order)."""
-    out, _, _ = _forward_reference(
+    out, *_ = _forward_reference(
         x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
         ln_eps, add_residual, block_diag)
     return out.reshape(*x.shape[:2], w_proj.shape[0])
@@ -227,7 +253,8 @@ def fused_prenorm_mhsa_backward_reference(g, x, qkv, attn, ln_w, ln_b, w_qkv,
                                           block_diag=0):
     """Plain backward: the gradients of (x, ln_w, ln_b, w_qkv, b_qkv,
     w_proj, b_proj) from the output gradient g and the saved qkv and attn
-    (rows, ·), in the kernels' rounding order."""
+    (rows, ·), in the TPU kernel's rounding order (it recomputes the row
+    statistics, so it takes no lse)."""
     return _backward(_attn_bwd_reference, g, x, qkv, attn, ln_w, ln_b, w_qkv,
                      w_proj, num_heads, scale, ln_eps, add_residual,
                      block_diag)
@@ -241,22 +268,24 @@ class _FusedPrenormMHSA(torch.autograd.Function):
         args = (x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
                 ln_eps, add_residual, block_diag)
         if x.device.type == "cpu":
-            out, qkv, attn = _forward_reference(*args)
+            out, qkv, attn, lse = _forward_reference(*args)
         else:
-            out, qkv, attn = _launch(*args)
+            out, qkv, attn, lse = _launch(*args)
         if any(ctx.needs_input_grad):
-            ctx.save_for_backward(x, qkv, attn, ln_w, ln_b, w_qkv, w_proj)
+            ctx.save_for_backward(x, qkv, attn, lse, ln_w, ln_b, w_qkv,
+                                  w_proj)
             ctx.config = (num_heads, scale, ln_eps, add_residual, block_diag)
         return out.reshape(*x.shape[:2], w_proj.shape[0])
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
+        x, qkv, attn, lse, *rest = ctx.saved_tensors
         if g.device.type == "cpu":
-            grads = fused_prenorm_mhsa_backward_reference(g, *saved,
-                                                          *ctx.config)
+            grads = fused_prenorm_mhsa_backward_reference(
+                g, x, qkv, attn, *rest, *ctx.config)
         else:
-            grads = _launch_backward(g.contiguous(), *saved, *ctx.config)
+            grads = _launch_backward(g.contiguous(), x, qkv, attn, lse, *rest,
+                                     *ctx.config)
         return (*grads, None, None, None, None, None)
 
 
@@ -271,8 +300,10 @@ def fused_prenorm_mhsa(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
 
 def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
             ln_eps, add_residual, block_diag, lib=None):
-    """(out, qkv, attn) from the forward kernel; ``lib`` is another build of
-    it (``_build.load``), to compare designs."""
+    """(out, qkv, attn, lse) from the forward kernel, lse (rows / L, H, L)
+    fp32 for the long variant and None for the others (their backward
+    does not read it); ``lib`` is another build of it (``_build.load``), to
+    compare designs."""
     global LAUNCHES
     name = "fused_prenorm_mhsa"
     _build.check_operands(name, x=x, ln_w=ln_w, ln_b=ln_b, w_qkv=w_qkv,
@@ -307,16 +338,21 @@ def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
     qkv = torch.empty((rows, Da3), dtype=x.dtype, device=x.device)
     attn = torch.empty((rows, Da), dtype=x.dtype, device=x.device)
     out = torch.empty((rows, Do), dtype=x.dtype, device=x.device)
+    lse = None
+    if variant == "long":
+        lse = torch.empty((rows // L, num_heads, L), dtype=torch.float32,
+                          device=x.device)
     P = _build.ptr
     status = lib.vt_fused_prenorm_mhsa(
         P(x), P(ln_w), P(ln_b), P(w_qkv), P(b_qkv), P(w_proj), P(b_proj),
-        P(stats), P(qkv), P(attn), P(out), rows, D, Da, Do, num_heads, L,
+        P(stats), P(qkv), P(attn), P(lse) if lse is not None else None,
+        P(out), rows, D, Da, Do, num_heads, L,
         code, float(scale), float(ln_eps), int(bool(add_residual)),
         _build.stream_handle())
     _build.check_status(name, status)
     LAUNCHES += 1
     ATTENTION_LAUNCHES[variant] += 1
-    return out, qkv, attn
+    return out, qkv, attn, lse
 
 
 def _bwd_prepare(name, x, qkv, w_qkv, Do, num_heads, block_diag, lib):
@@ -341,18 +377,34 @@ def _bwd_prepare(name, x, qkv, w_qkv, Do, num_heads, block_diag, lib):
     return rows, D, Da, L, plan, lib
 
 
+def _lse_arg(name, lse, variant, rows, L, num_heads, x):
+    """The long variant's pointer to the forward's row log-sum-exp, after
+    its checks; None for the others, which do not read it."""
+    if variant != "long":
+        return None
+    if (lse is None or lse.shape != (rows // L, num_heads, L)
+            or lse.dtype != torch.float32 or lse.device != x.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"{name}: the long variant needs the forward's "
+                         f"fp32 lse ({rows // L}, {num_heads}, {L}), got "
+                         f"{None if lse is None else tuple(lse.shape)}")
+    return _build.ptr(lse)
+
+
 def _count_bwd(variant):
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     ATTENTION_BWD_LAUNCHES[variant] += 1
 
 
-def _launch_backward(g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj, num_heads,
-                     scale, ln_eps, add_residual, block_diag, lib=None):
+def _launch_backward(g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj,
+                     num_heads, scale, ln_eps, add_residual, block_diag,
+                     lib=None):
     """The whole backward (csrc/fused_mhsa_bwd.cu, one call): the gradients
     of (x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj), as
-    ``fused_prenorm_mhsa_backward_reference`` returns them; ``lib`` is
-    another build of the library (``_build.load``), to compare designs."""
+    ``fused_prenorm_mhsa_backward_reference`` returns them (lse is read by
+    the long variant only); ``lib`` is another build of the library
+    (``_build.load``), to compare designs."""
     name = "fused_prenorm_mhsa backward"
     _build.check_operands(name, g=g, x=x, qkv=qkv, attn=attn, ln_w=ln_w,
                           ln_b=ln_b, w_qkv=w_qkv, w_proj=w_proj)
@@ -367,9 +419,12 @@ def _launch_backward(g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj, num_heads,
                          f"{tuple(x.shape)}")
     if add_residual and Do != D:
         raise ValueError(f"{name}: residual needs Do == D ({Do} != {D})")
+    lse_p = _lse_arg(name, lse, plan.variant, rows, L, num_heads, x)
+    code = _VARIANT_CODES[plan.variant]
     n_scratch = lib.vt_mhsa_bwd_scratch_floats(rows, D, Da, Do,
                                                plan.split_proj[0],
-                                               plan.split_qkv[0])
+                                               plan.split_qkv[0], num_heads,
+                                               L, code)
     if n_scratch < 0:
         raise ValueError(f"{name}: scratch for {rows} rows is too large")
     dev = x.device
@@ -382,10 +437,10 @@ def _launch_backward(g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj, num_heads,
     dln_w, dln_b, dw_qkv, dbqkv, dw_proj, db_proj = outs.split(sizes)
     P = _build.ptr
     status = lib.vt_fused_prenorm_mhsa_bwd(
-        P(g), P(x), P(qkv), P(attn), P(ln_w), P(ln_b), P(w_qkv), P(w_proj),
-        P(bf_scratch), P(scratch), P(dx), P(dln_w), P(dln_b), P(dw_qkv),
-        P(dbqkv), P(dw_proj), P(db_proj), rows, D, Da, Do, num_heads, L,
-        _VARIANT_CODES[plan.variant], *plan.split_proj, *plan.split_qkv,
+        P(g), P(x), P(qkv), P(attn), lse_p, P(ln_w), P(ln_b), P(w_qkv),
+        P(w_proj), P(bf_scratch), P(scratch), P(dx), P(dln_w), P(dln_b),
+        P(dw_qkv), P(dbqkv), P(dw_proj), P(db_proj), rows, D, Da, Do,
+        num_heads, L, code, *plan.split_proj, *plan.split_qkv,
         int(bool(add_residual)), float(scale), float(ln_eps),
         _build.stream_handle())
     _build.check_status(name, status)
@@ -397,12 +452,13 @@ def _launch_backward(g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj, num_heads,
 
 
 def _attn_bwd_launch(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
-                     ln_eps, block_diag, lib=None):
+                     ln_eps, block_diag, attn=None, lse=None, lib=None):
     """B3 alone from do (csrc/fused_mhsa_bwd.cu's ``vt_mhsa_attn_bwd``: the
     attention backward, d_xn, the LayerNorm backward and the sums); the
-    same contract as ``_attn_bwd_reference``. The backward of the autograd
-    Function calls ``_launch_backward``; this entry times and tests B3's
-    own part."""
+    same contract as ``_attn_bwd_reference``, whose row statistics the long
+    variant reads from the forward's attn and lse instead. The backward of
+    the autograd Function calls ``_launch_backward``; this entry times and
+    tests B3's own part."""
     name = "fused_prenorm_mhsa backward"
     tensors = dict(x=x, qkv=qkv, do=do, ln_w=ln_w, w_qkv=w_qkv)
     if g_res is not None:
@@ -414,18 +470,27 @@ def _attn_bwd_launch(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
     if do.shape != (rows, Da):
         raise ValueError(f"{name}: do {tuple(do.shape)} does not fit x "
                          f"{tuple(x.shape)}")
+    lse_p = _lse_arg(name, lse, plan.variant, rows, L, num_heads, x)
+    if lse_p is not None:
+        _build.check_operands(name, attn=attn)
+        if attn.shape != (rows, Da):
+            raise ValueError(f"{name}: attn {tuple(attn.shape)} does not fit "
+                             f"x {tuple(x.shape)}")
     dev = x.device
+    code = _VARIANT_CODES[plan.variant]
     dqkv = torch.empty((rows, 3 * Da), dtype=torch.bfloat16, device=dev)
     dx = torch.empty((rows, D), dtype=torch.bfloat16, device=dev)
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    scratch = f32(lib.vt_mhsa_bwd_scratch_floats(rows, D, Da, D, 1, 1))
+    scratch = f32(lib.vt_mhsa_bwd_scratch_floats(rows, D, Da, D, 1, 1,
+                                                 num_heads, L, code))
     dln_w, dln_b, dbqkv = f32(D), f32(D), f32(3 * Da)
     P = _build.ptr
     status = lib.vt_mhsa_attn_bwd(
-        P(x), P(qkv), P(do), P(g_res) if g_res is not None else None,
-        P(ln_w), P(w_qkv), P(dqkv), P(scratch), P(dx), P(dln_w), P(dln_b),
-        P(dbqkv), rows, D, Da, num_heads, L, _VARIANT_CODES[plan.variant],
-        float(scale), float(ln_eps), _build.stream_handle())
+        P(x), P(qkv), P(do), P(attn) if lse_p is not None else None, lse_p,
+        P(g_res) if g_res is not None else None, P(ln_w), P(w_qkv), P(dqkv),
+        P(scratch), P(dx), P(dln_w), P(dln_b), P(dbqkv), rows, D, Da,
+        num_heads, L, code, float(scale), float(ln_eps),
+        _build.stream_handle())
     _build.check_status(name, status)
     _count_bwd(plan.variant)
     return dqkv, dx, dln_w, dln_b, dbqkv

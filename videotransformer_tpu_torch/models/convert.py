@@ -10,7 +10,10 @@ prefixes, or the JAX trainer's nested parameter tree
 in both directions. The output names are those of
 ``videotransformer_tpu.models.convert.flax_to_torch_state_dict`` (the
 original PyTorch repo's), which the port's modules use, so
-``load_state_dict(strict=True)`` takes them. A MaskFeat/MViT tree (its
+``load_state_dict(strict=True)`` takes them. A ViViT fact_encoder's two
+stacks, ``spatial_transformer`` and ``temporal_transformer`` in the JAX
+package, are ``transformer_layers.0`` and ``.1`` there (convert.py:486-495
+and :296-303). A MaskFeat/MViT tree (its
 model has an ``mvit`` subtree) takes pytorchvideo's names on top, those of
 ``maskfeat_flax_to_torch_state_dict`` (``patch_embed.patch_model.*``,
 ``mlp.fc1``, ``attn.pool_q.weight``), so a MaskFeat checkpoint of the
@@ -25,11 +28,16 @@ import re
 import numpy as np
 
 _INDEXED = re.compile(r"(layers|attentions|ffns|blocks)_(\d+)")
+# a ViViT fact_encoder's stacks: flax name <-> torch name
+_FACT_STACKS = {"spatial_transformer": "transformer_layers.0",
+                "temporal_transformer": "transformer_layers.1"}
+_FACT_NAME = re.compile(r"^transformer_layers\.([01])\.")
 
 
 def _leaf(name, value):
     """flax leaf -> torch (name, array): Linear kernels (in, out) -> (out, in),
-    Conv2d kernels (kh, kw, in, out) -> (out, in, kh, kw), LayerNorm scale ->
+    Conv2d kernels (kh, kw, in, out) -> (out, in, kh, kw), Conv3d kernels
+    (kt, kh, kw, in, out) -> (out, in, kt, kh, kw), LayerNorm scale ->
     weight."""
     if name == "kernel":
         if value.ndim == 2:
@@ -47,7 +55,8 @@ def _leaf(name, value):
 def jax_flat_to_state_dict(flat):
     """{"a/b/c": array} (one module's params, no prefix) -> {"a.b.c": fp32
     array} with the original repo's names. Inside an FFN every linear but the
-    last sits in a ``Sequential``: ``layers_i -> layers.i.0``."""
+    last sits in a ``Sequential``: ``layers_i -> layers.i.0``; a ViViT
+    fact_encoder's stacks are ``transformer_layers.0`` and ``.1``."""
     # number of linear layers of each FFN, keyed by the FFN's path prefix
     ffn_layers = {}
     for key in flat:
@@ -64,7 +73,7 @@ def jax_flat_to_state_dict(flat):
         for i, part in enumerate(parts[:-1]):
             m = _INDEXED.fullmatch(part)
             if not m:
-                names.append(part)
+                names.append(_FACT_STACKS.get(part, part) if i == 0 else part)
                 continue
             kind, idx = m.group(1), int(m.group(2))
             names.append(f"{kind}.{idx}")
@@ -90,6 +99,11 @@ def split_artifact_params(npz_flat):
 def _state_name_to_flax(name):
     """"a.layers.0.ffns.0.layers.0.0.weight" -> ("a/layers_0/ffns_0/layers_0",
     "weight"): the inverse of ``jax_flat_to_state_dict``'s naming."""
+    fact = _FACT_NAME.match(name)
+    if fact:
+        stack = ("spatial_transformer", "temporal_transformer")[
+            int(fact.group(1))]
+        name = f"{stack}.{name[fact.end():]}"
     parts = name.split(".")
     out, i = [], 0
     while i < len(parts) - 1:

@@ -1,11 +1,17 @@
-"""TimeSformer with divided space-time attention.
+"""TimeSformer: divided space-time, joint space-time and space-only
+attention.
 
 Port of ``videotransformer_tpu/models/timesformer.py``: patch embed -> +cls
 -> +pos_embed -> fold to ``(b p) t d`` -> +time_embed -> flat patch-major
 ``b (p t) d`` sequence -> blocks -> final LayerNorm (eps 1e-6) -> cls
 readout, with learnable position tables (TimeSformer-B's setting). The cls
 token takes the spatial ``pos_embed`` and skips ``time_embed``
-(timesformer.py:118-124, 177-184).
+(timesformer.py:118-124, 177-184). The blocks are ``(time_attn,
+space_attn, ffn)`` for ``divided_space_time`` and ``(self_attn, ffn)``
+otherwise. ``joint_space_time`` attends over the whole ``1 + p·t``
+sequence; ``space_only`` has no ``time_embed``, runs the blocks on each
+frame's ``1 + p`` tokens and averages the frames after them
+(timesformer.py:196-199).
 
 ``model.train()`` is the JAX package's ``deterministic=False``: DropPath
 (``drop_path_rate``, 0.1 by default, timesformer.py:79) and the
@@ -14,9 +20,8 @@ DropPath drawing from the ``generator`` given to ``forward``; the dropouts
 use torch's default generator, and at p = 0 draw nothing. The working type
 is the clip's dtype: fp32 parameters are cast to it at each use.
 
-Not ported yet (they raise): the ``space_only`` and ``joint_space_time``
-attention types, and ``interpolate_pos_encoding`` at any size other than the
-native one.
+Not ported yet (it raises): ``interpolate_pos_encoding`` at any size other
+than the native one.
 """
 
 import torch
@@ -28,6 +33,7 @@ from videotransformer_tpu_torch.ops.blocks import (
     PatchEmbed, TransformerContainer)
 
 FINAL_LN_EPS = 1e-6
+ATTENTION_TYPES = ("divided_space_time", "space_only", "joint_space_time")
 
 
 def interpolate_pos_encoding(pos_embed, npatch, w, h, patch_size):
@@ -45,9 +51,9 @@ class TimeSformer(nn.Module):
                  attention_type="divided_space_time", drop_path_rate=0.1,
                  dropout_p=0.0):
         super().__init__()
-        if attention_type != "divided_space_time":
-            raise NotImplementedError(
-                f"attention type {attention_type!r} is not ported yet")
+        if attention_type not in ATTENTION_TYPES:
+            raise ValueError(f"Unsupported Attention Type {attention_type}!")
+        self.attention_type = attention_type
         self.num_frames = num_frames
         self.patch_size = patch_size
         self.patch_embed = PatchEmbed(img_size, patch_size, in_channels,
@@ -56,15 +62,19 @@ class TimeSformer(nn.Module):
         self.transformer_layers = TransformerContainer(
             num_transformer_layers, embed_dims, num_heads, num_frames,
             hidden_channels=4 * embed_dims,
-            operator_order=("time_attn", "space_attn", "ffn"),
+            operator_order=(("time_attn", "space_attn", "ffn")
+                            if attention_type == "divided_space_time"
+                            else ("self_attn", "ffn")),
             drop_path_rate=drop_path_rate)
         self.norm = nn.LayerNorm(embed_dims, eps=FINAL_LN_EPS)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dims))
-        # operator_order[-2] is 'space_attn': the cls slot is in the spatial
-        # table only (timesformer.py:118-124)
+        # operator_order[-2] is 'space_attn' or 'self_attn': the cls slot is
+        # in the spatial table only (timesformer.py:118-124)
         self.pos_embed = nn.Parameter(
             torch.empty(1, num_patches + 1, embed_dims))
-        self.time_embed = nn.Parameter(torch.empty(1, num_frames, embed_dims))
+        if attention_type != "space_only":
+            self.time_embed = nn.Parameter(
+                torch.empty(1, num_frames, embed_dims))
         self.pos_drop = nn.Dropout(dropout_p)
         self.time_drop = nn.Dropout(dropout_p)
 
@@ -74,11 +84,14 @@ class TimeSformer(nn.Module):
         self.transformer_layers.reset_parameters(generator)
         init.ones_(self.norm.weight)
         init.zeros_(self.norm.bias)
-        for p in (self.cls_token, self.pos_embed, self.time_embed):
-            init.trunc_normal_(p, generator, std=0.02)
+        for p in (self.cls_token, self.pos_embed,
+                  getattr(self, "time_embed", None)):
+            if p is not None:
+                init.trunc_normal_(p, generator, std=0.02)
 
     def prepare_tokens(self, x):
-        """(b, t, c, h, w) -> (b, 1 + p·t, d) (timesformer.py:142-187)."""
+        """(b, t, c, h, w) -> (b, 1 + p·t, d), or (b·t, 1 + p, d) for
+        space_only (timesformer.py:142-187)."""
         b, t, c, h, w = x.shape
         dt = x.dtype
         x = self.patch_embed(x)  # (b t, p, d)
@@ -88,6 +101,8 @@ class TimeSformer(nn.Module):
         x = x + interpolate_pos_encoding(self.pos_embed.to(dt), p, w, h,
                                          self.patch_size)
         x = self.pos_drop(x)
+        if self.attention_type == "space_only":
+            return x
         cls_tokens = x[:b, :1]  # every cls row is the same here
         patches = x[:, 1:].reshape(b, t, p, d).transpose(1, 2)
         patches = patches.reshape(b * p, t, d) + self.time_embed.to(dt)
@@ -97,7 +112,10 @@ class TimeSformer(nn.Module):
     def forward(self, x, generator=None):
         """(b, t, c, h, w) clip in the working type -> (b, d) features;
         ``generator`` feeds DropPath in training mode."""
+        b = x.shape[0]
         x = self.transformer_layers(self.prepare_tokens(x), generator)
+        if self.attention_type == "space_only":  # the mean over frames
+            x = x.reshape(b, -1, *x.shape[1:]).mean(dim=1)
         # final LayerNorm outside the kernels: fp32 statistics, working type
         x = F.layer_norm(x.float(), x.shape[-1:], self.norm.weight.float(),
                          self.norm.bias.float(), FINAL_LN_EPS).to(x.dtype)

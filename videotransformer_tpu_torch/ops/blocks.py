@@ -1,4 +1,5 @@
-"""Transformer building blocks of divided space-time TimeSformer.
+"""Transformer building blocks of TimeSformer and ViViT: divided and joint
+space-time attention, the FFN, the per-frame and tubelet patch embeddings.
 
 Port of ``videotransformer_tpu/ops/blocks.py``. Module and parameter names
 are the original PyTorch repo's, i.e. what
@@ -8,7 +9,9 @@ converted state dict loads with ``strict=True``.
 The prenorm attentions and the FFN call the two fused kernels
 (``kernels.fused_mhsa``, ``kernels.fused_ffn``), forward and backward: on a
 CUDA tensor these launch the hand-written kernels, on a CPU tensor they run
-the kernels' plain versions.
+the kernels' plain versions. Joint attention over more than 2048 tokens
+takes the unfused form the JAX package takes there, its core the flash
+attention kernel (``kernels.flash_attention``).
 
 The working type is the activations' dtype. Every parameter is cast to it
 at its use, as the JAX package casts its fp32 parameters
@@ -27,10 +30,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from videotransformer_tpu_torch.kernels import fused_ffn, fused_mhsa
+from videotransformer_tpu_torch.kernels import (
+    flash_attention, fused_ffn, fused_mhsa)
+from videotransformer_tpu_torch.kernels._plain import layer_norm
 from videotransformer_tpu_torch.ops import initializers as init
 
 LN_EPS = 1e-5  # LayerNorm eps inside the blocks (torch's default)
+# the longest sequence the JAX package gives its fused prenorm-MHSA kernel
+# (blocks.py:210-224); joint attention over more tokens goes unfused
+FUSED_MHSA_MAX_N = 2048
 
 
 def get_sine_cosine_pos_emb(n_position, d_hid):
@@ -111,6 +119,37 @@ class _PrenormMHSA(nn.Module):
             a.proj.bias.to(dt), a.num_heads, head_dim ** -0.5, LN_EPS, False,
             block_diag)
         return self.layer_drop(out, generator)
+
+
+class JointAttention(_PrenormMHSA):
+    """Prenorm joint space-time MHSA with the residual (blocks.py:453-522):
+    every token of the clip attends to every other, DropPath per sample.
+
+    Up to FUSED_MHSA_MAX_N tokens it is one fused prenorm-MHSA call (B1
+    forward, B3 backward), as in the JAX package from N = 64; the port
+    sends N < 64 there too (the fact_encoder's temporal stack, N = 9),
+    where the JAX package takes a VPU path that is not ported. Above it,
+    the JAX package's unfused ``Attention``: LayerNorm (fp32 statistics),
+    the qkv product, flash attention (B5 forward, B6 backward) on (B, H,
+    N, hd), the projection."""
+
+    def forward(self, query, generator=None):
+        if query.shape[1] <= FUSED_MHSA_MAX_N:
+            return query + self._prenorm_mhsa(query, generator)
+        return query + self.layer_drop(self._unfused(query), generator)
+
+    def _unfused(self, x):
+        a = self.attn
+        dt = x.dtype
+        B, N, D = x.shape
+        hd = D // a.num_heads
+        xn = layer_norm(x, self.norm.weight, self.norm.bias, LN_EPS)
+        qkv = F.linear(xn, a.qkv.weight.to(dt), a.qkv.bias.to(dt))
+        q, k, v = qkv.reshape(B, N, 3, a.num_heads, hd).permute(
+            2, 0, 3, 1, 4).contiguous().unbind(0)
+        o = flash_attention.flash_attention(q, k, v, hd ** -0.5)
+        o = o.transpose(1, 2).reshape(B, N, D)
+        return F.linear(o, a.proj.weight.to(dt), a.proj.bias.to(dt))
 
 
 class DividedTemporalAttention(_PrenormMHSA):
@@ -223,9 +262,10 @@ class FFN(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """One block assembled from ``operator_order`` (blocks.py:606-691), with
-    ``use_cls_token = (i == len(operator_order) - 2)``: only the attention
-    just before the FFN carries the cls token."""
+    """One block assembled from ``operator_order`` (blocks.py:606-691):
+    ``self_attn`` (joint), ``time_attn`` and ``space_attn`` (divided),
+    ``ffn``, with ``use_cls_token = (i == len(operator_order) - 2)``: only
+    the divided attention just before the FFN carries the cls token."""
 
     def __init__(self, embed_dims, num_heads, num_frames, hidden_channels,
                  operator_order, drop_path_rate=0.0):
@@ -240,11 +280,11 @@ class BasicTransformerBlock(nn.Module):
                     embed_dims, num_heads, num_frames,
                     use_cls_token=(i == len(order) - 2),
                     drop_path_rate=drop_path_rate))
+            elif op == "self_attn":
+                attentions.append(JointAttention(embed_dims, num_heads,
+                                                 drop_path_rate))
             elif op == "ffn":
                 ffns.append(FFN(embed_dims, hidden_channels, drop_path_rate))
-            elif op == "self_attn":
-                raise NotImplementedError(
-                    "joint attention ('self_attn') is not ported yet")
             else:
                 raise TypeError(f"Unsupported operator type {op}")
         self.attentions = nn.ModuleList(attentions)
@@ -288,13 +328,14 @@ class TransformerContainer(nn.Module):
 
 
 class _PatchProjection(nn.Module):
-    """Conv2d-shaped weight (out, in, kh, kw) applied as one matmul: with
-    kernel == stride the convolution is a reshape and a product."""
+    """Conv-shaped weight, (out, in, kh, kw) or (out, in, kt, kh, kw),
+    applied as one matmul: with kernel == stride the convolution is a
+    reshape and a product."""
 
-    def __init__(self, in_channels, embed_dims, patch_size):
+    def __init__(self, in_channels, embed_dims, kernel):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            embed_dims, in_channels, patch_size, patch_size))
+            embed_dims, in_channels, *kernel))
         self.bias = nn.Parameter(torch.empty(embed_dims))
 
     def reset_parameters(self, generator):
@@ -308,15 +349,22 @@ class _PatchProjection(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Per-frame 16x16 patch embedding (blocks.py:769-804, Conv2d case):
-    (b, t, c, h, w) -> (b·t, gh·gw, embed_dims)."""
+    """Patch embedding (blocks.py:769-815): ``Conv2d``, per-frame ps x ps
+    patches, (b, t, c, h, w) -> (b·t, gh·gw, embed_dims); ``Conv3d``,
+    tube_size x ps x ps tubelets, -> (b·t/tube_size, gh·gw, embed_dims)."""
 
-    def __init__(self, img_size, patch_size, in_channels=3, embed_dims=768):
+    def __init__(self, img_size, patch_size, in_channels=3, embed_dims=768,
+                 tube_size=2, conv_type="Conv2d"):
         super().__init__()
+        if conv_type not in ("Conv2d", "Conv3d"):
+            raise TypeError(f"Unsupported conv layer type {conv_type}")
         self.img_size = img_size
         self.patch_size = patch_size
-        self.projection = _PatchProjection(in_channels, embed_dims,
-                                           patch_size)
+        self.tube_size = tube_size if conv_type == "Conv3d" else 1
+        kernel = (patch_size, patch_size)
+        if conv_type == "Conv3d":
+            kernel = (tube_size,) + kernel
+        self.projection = _PatchProjection(in_channels, embed_dims, kernel)
 
     @property
     def num_patches(self):
@@ -327,12 +375,13 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x):
         b, t, c, h, w = x.shape
-        ps = self.patch_size
-        gh, gw = h // ps, w // ps
-        # (b t, c, gh, ps, gw, ps) -> (b t, gh gw, c·ps·ps), the flattening
-        # order of the conv weight's (in, kh, kw)
-        x = x.reshape(b * t, c, gh, ps, gw, ps).permute(0, 2, 4, 1, 3, 5)
-        return self.projection(x.reshape(b * t, gh * gw, c * ps * ps))
+        ps, tt = self.patch_size, self.tube_size
+        gh, gw, gt = h // ps, w // ps, t // tt
+        # (b gt, tt, c, gh, ps, gw, ps) -> (b gt, gh gw, c·tt·ps·ps), the
+        # flattening order of the conv weight's (in, [kt,] kh, kw)
+        x = x.reshape(b * gt, tt, c, gh, ps, gw, ps).permute(
+            0, 3, 5, 2, 1, 4, 6)
+        return self.projection(x.reshape(b * gt, gh * gw, c * tt * ps * ps))
 
 
 class ClassificationHead(nn.Module):

@@ -31,10 +31,10 @@ HD = 96
 # (B·H, Nq, Nkv, calls) of the flash attention calls of one batch-8 mim step
 FLASH_SHAPES = ((8, 25088, 393, 1), (16, 6272, 1569, 1), (16, 6272, 393, 1),
                 (32, 1568, 1569, 1), (32, 1568, 393, 10), (64, 1568, 393, 2))
-# joint space-time attention of TimeSformer-B at 16 frames (one clip, 12
+# joint space-time attention of TimeSformer-B at 16 frames (8 clips, 12
 # heads, 1 + 16·196 tokens, head dim 64): the JAX package's flash path at
 # N > 2048, timed beside the step (calls 0: not in its totals)
-JOINT_SHAPE = (12, 3137, 3137, 0)
+JOINT_SHAPE = (96, 3137, 3137, 0)
 JOINT_HD = 64
 # where the wrapper's host time is broken into its parts: the shape with the
 # most calls a step

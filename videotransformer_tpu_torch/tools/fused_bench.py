@@ -4,22 +4,26 @@ shape, and beside the kernels of another checkout when one is given: both
 are built from their own ``csrc/`` and timed in turns (baseline, kernel,
 kernel, baseline) on one card. The kernels: B1 (the MHSA forward), B2 (the
 FFN forward), B3 (the MHSA backward, alone from do and as the whole call
-with its projection products) and B4 (the FFN backward).
+with its projection products) and B4 (the FFN backward). B1 and B3 are
+also timed at ViViT-B's joint space-time shape (8, 1569, 768), their long
+attention variant, with ``scaled_dot_product_attention`` beside the long
+attention stage.
 
     python3 -m videotransformer_tpu_torch.tools.fused_bench [--baseline DIR]
 
-DIR is the root of another checkout of the wgmma design or later (its
-``videotransformer_tpu_torch/csrc/`` has ``sm90_gemm.cuh``); its libraries
-are built into ``DIR/build/fused_bench``. Both builds are called through the
-wrappers (``_launch``, ``_launch_backward``, ``_attn_bwd_launch``, each with
-``lib``); a checkout whose B3 has no one-call backward gets a shim: its B3
-call with the projection products around it as fp32 ``torch.matmul``, as
-its wrapper ran them. Prints for each shape: device ms of each build, its
-share of the bound, the host µs to issue a call, then each build's stages
-(device ms per call from ``torch.profiler``) with ``torch.matmul``'s device
-ms beside each product (a yardstick the port never calls), B2's fc1 with
-and without its GELU epilogue, and the card's name and power limit. Needs a
-CUDA card and nvcc.
+DIR is the root of another checkout with B3's one-call backward or later;
+its libraries are built into ``DIR/build/fused_bench``. Both builds are
+called through the wrappers (``_launch``, ``_launch_backward``,
+``_attn_bwd_launch``, each with ``lib``). A checkout whose libraries
+report entry points of version 1 (``vt_mhsa_abi_version`` missing: before
+the long variant) gets an adapter that drops the arguments the long variant
+added (``_PreLongLib``), and cannot run the long shape. Prints for each
+shape: device ms of each build, its share of the bound, the host µs to
+issue a call, then each build's
+stages (device ms per call from ``torch.profiler``) with ``torch.matmul``'s
+device ms beside each product (a yardstick the port never calls), B2's fc1
+with and without its GELU epilogue, and the card's name and power limit.
+Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -32,14 +36,17 @@ import torch
 from videotransformer_tpu_torch.kernels import _build, fused_ffn, fused_mhsa
 from videotransformer_tpu_torch.kernels._plain import layer_norm
 from videotransformer_tpu_torch.tools.flash_bench import (
-    bound, card_name, issue_us, timed_ms)
+    bound, card_name, issue_us, sdpa_times, timed_ms)
 
 D, HEADS = 768, 12
 # (label, (B, N, D), block_diag, calls a serving forward or a train step)
+# the last: joint space-time attention at ViViT-B's 8 effective frames
+# (1569 tokens, 8 clips), B1's and B3's long variant
 MHSA_SHAPES = (("serve dense", (192, 197, D), 0, 12),
                ("serve temporal", (4704, 8, D), 8, 12),
                ("train dense", (64, 197, D), 0, 12),
-               ("train temporal", (1568, 8, D), 8, 12))
+               ("train temporal", (1568, 8, D), 8, 12),
+               ("ViViT joint long", (8, 1569, D), 0, 12))
 MHSA_BWD_SHAPES = MHSA_SHAPES[2:]
 # (label, (rows, D), LayerNorm eps, calls a forward or a step)
 FFN_FWD_SHAPES = (("serve", (37656, D), 1e-5, 12),
@@ -100,64 +107,65 @@ class MhsaBwd:
         return fused_mhsa._launch_backward(*args, lib=self.lib)
 
 
-class _OldMhsaBwd:
-    """A B3 library from before the one-call backward: B3 alone from do (its
-    kernel chose the attention variant), with dw_proj, do and dw_qkv as fp32
-    ``torch.matmul`` around it (``fused_mhsa._backward``, whose xn is now
-    rounded to bf16 before the same fp32 product)."""
+class _PreLongLib:
+    """A B1 or B3 library from before the long attention variant: its C
+    entry points lack the arguments the long variant added (the lse
+    pointer; B3 alone's attn; the heads, length and variant of B3's
+    scratch size), which this adapter drops from each call."""
 
-    SIGNATURES = {
-        "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 13
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float,
-                                ctypes.c_void_p],
-        "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 3}
+    DROPPED = {"vt_fused_prenorm_mhsa": (10,),
+               "vt_fused_prenorm_mhsa_bwd": (4,),
+               "vt_mhsa_attn_bwd": (3, 4),
+               "vt_mhsa_bwd_scratch_floats": (6, 7, 8)}
 
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, name, signatures, csrc, build_dir):
+        old = {fn: [t for i, t in enumerate(args)
+                    if i not in self.DROPPED.get(fn, ())]
+               for fn, args in signatures.items()}
+        self.lib = _build.load(name, old, csrc, build_dir)
 
-    def alone(self, x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
-              ln_eps, block_diag):
-        B, N, d = x.shape
-        rows, Da = B * N, w_qkv.shape[0] // 3
-        bf = lambda *s: torch.empty(s, dtype=torch.bfloat16, device=x.device)
-        f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=x.device)
-        dqkv, dx, d_xn = bf(rows, 3 * Da), bf(rows, d), f32(rows, d)
-        scratch = f32(self.lib.vt_mhsa_bwd_scratch_floats(rows, d, Da))
-        dln_w, dln_b, dbqkv = f32(d), f32(d), f32(3 * Da)
-        P = _build.ptr
-        _build.check_status("baseline B3", self.lib.vt_fused_prenorm_mhsa_bwd(
-            P(x), P(qkv), P(do), P(g_res) if g_res is not None else None,
-            P(ln_w), P(w_qkv), P(dqkv), P(d_xn), P(scratch), P(dx),
-            P(dln_w), P(dln_b), P(dbqkv), rows, d, Da, num_heads,
-            block_diag or N, float(scale), float(ln_eps),
-            _build.stream_handle()))
-        return dqkv, dx, dln_w, dln_b, dbqkv
+    def __getattr__(self, fn):
+        entry = getattr(self.lib, fn)
+        drop = self.DROPPED.get(fn, ())
+        return lambda *a: entry(*[x for i, x in enumerate(a) if i not in drop])
 
-    def whole(self, *args):
-        return fused_mhsa._backward(self.alone, *args)
+
+def _abi_version(name, csrc, build_dir):
+    """The version of a checkout's B1 or B3 entry points
+    (``vt_mhsa_abi_version``; 1 for a library without it) and the library,
+    loaded without signatures."""
+    lib = ctypes.CDLL(_build.build(name, build_dir, csrc))
+    entry = getattr(lib, "vt_mhsa_abi_version", None)
+    return (entry() if entry else 1), lib
 
 
 def checkout_libs(root):
     """{B1, B2, B3, B4} of the checkout at ``root`` (built into
-    ``root/build/fused_bench``), for the wrappers' ``lib``."""
+    ``root/build/fused_bench``), for the wrappers' ``lib``, and whether
+    they have the long attention variant (entry points of version 2)."""
     csrc = os.path.join(root, "videotransformer_tpu_torch", "csrc")
     build_dir = os.path.join(root, "build", "fused_bench")
     if not os.path.exists(os.path.join(csrc, "sm90_gemm.cuh")):
         raise ValueError(f"{root}: not a checkout of the wgmma design")
+    abi, bwd = _abi_version("fused_mhsa_bwd", csrc, build_dir)
+    if not hasattr(bwd, "vt_mhsa_attn_bwd"):
+        raise ValueError(f"{root}: its B3 has no one-call backward")
     load = lambda name, sigs: _build.load(name, sigs, csrc, build_dir)
-    with open(os.path.join(csrc, "fused_mhsa_bwd.cu")) as f:
-        one_call = "vt_mhsa_attn_bwd" in f.read()
+    if abi < 2:  # before the long variant
+        load = lambda name, sigs: _PreLongLib(name, sigs, csrc, build_dir)
     ffn_sigs = {"vt_fused_prenorm_ffn":
                 fused_ffn._SIGNATURES["vt_fused_prenorm_ffn"]}
-    return {"B1": load("fused_mhsa", fused_mhsa._SIGNATURES),
-            "B2": load("fused_ffn", ffn_sigs),
-            "B3": MhsaBwd(load("fused_mhsa_bwd", fused_mhsa._BWD_SIGNATURES))
-            if one_call else _OldMhsaBwd(load("fused_mhsa_bwd",
-                                              _OldMhsaBwd.SIGNATURES)),
-            "B4": load("fused_ffn_bwd", fused_ffn._BWD_SIGNATURES)}
+    return {"long": abi >= 2,
+            "B1": load("fused_mhsa", fused_mhsa._SIGNATURES),
+            "B2": _build.load("fused_ffn", ffn_sigs, csrc, build_dir),
+            "B3": MhsaBwd(load("fused_mhsa_bwd", fused_mhsa._BWD_SIGNATURES)),
+            "B4": _build.load("fused_ffn_bwd", fused_ffn._BWD_SIGNATURES,
+                              csrc, build_dir)}
 
 
 def _stage_name(name, products, counter):
+    if "flash" in name:
+        return _flash_stage(name)
     if "ln_stats" in name:
         return "LN statistics"
     if "layernorm_bwd" in name or "ln_bwd" in name:
@@ -174,6 +182,17 @@ def _stage_name(name, products, counter):
         counter[0] += 1
         return products[counter[0] - 1] if counter[0] <= len(products) \
             else "product"
+    return name[:40]
+
+
+def _flash_stage(name):
+    """B1's and B3's long attention stage: B5's and B6's kernels."""
+    for key, stage in (("flash_fwd", "attention (long)"),
+                       ("flash_dq", "attention (long, dq pass)"),
+                       ("flash_dkdv", "attention (long, dk/dv pass)"),
+                       ("flash_sum", "attention (long, dk/dv sums)")):
+        if key in name:
+            return stage
     return name[:40]
 
 
@@ -248,15 +267,30 @@ def ffn_case(rng, shape, eps):
 
 def mhsa_bwd_case(rng, shape, block_diag):
     """The arguments of B3's whole call, ``_launch_backward`` (the forward
-    kernel's own qkv and attn), its config, and B3 alone's (do from g)."""
+    kernel's own qkv, attn and lse), its config, and B3 alone's (do from
+    g; attn and lse last, which its long variant reads)."""
     a, cfg = mhsa_case(rng, shape, block_diag)
     x, ln_w, ln_b, w_qkv, _, w_proj, _ = a
-    _, qkv, attn = fused_mhsa._launch(*a, *cfg)
+    _, qkv, attn, lse = fused_mhsa._launch(*a, *cfg)
     g = _maker(rng)(shape, 1.0)
     d = shape[-1]
     do = (g.float().reshape(-1, d) @ w_proj.float()).to(torch.bfloat16)
-    core = (x, qkv, do, g.reshape(-1, d), ln_w, w_qkv, *cfg[:3], block_diag)
-    return (g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj), cfg, core
+    core = (x, qkv, do, g.reshape(-1, d), ln_w, w_qkv, *cfg[:3], block_diag,
+            attn, lse)
+    return (g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj), cfg, core
+
+
+def sdpa_long_ms(rng, shape):
+    """scaled_dot_product_attention's device ms (forward, backward) on q, k,
+    v of the long attention stage at x's ``shape`` (B, L, D): (1, B·H, L,
+    D/H), the yardstick beside that stage (the port never calls it). Its
+    backward runs through autograd, so inference mode is off here."""
+    B, L, d = shape
+    with torch.inference_mode(False):
+        q, k, v, do = (_maker(rng)((1, B * HEADS, L, d // HEADS), 1.0)
+                       for _ in range(4))
+        fwd, bwd, *_ = sdpa_times(q, k, v, do, (d // HEADS) ** -0.5)
+    return fwd, bwd
 
 
 def matmul_ms(pairs):
@@ -283,7 +317,7 @@ def ffn_products(args, rows, d):
 def mhsa_bwd_products(args, rows, d):
     """dw_proj = gᵀ·attn, do = g·Wproj, d_xn = dqkv·Wqkv, dw_qkv =
     dqkvᵀ·xn (qkv and x stand in for dqkv and xn: the same shapes)."""
-    g, x, qkv, attn, _, _, w_qkv, w_proj = args
+    g, x, qkv, attn, _, _, _, w_qkv, w_proj = args
     g2, x2 = g.reshape(rows, -1), x.reshape(rows, d)
     return [(g2.t(), attn), (g2, w_proj), (qkv, w_qkv), (qkv.t(), x2)]
 
@@ -331,6 +365,13 @@ def compare(kind, label, calls, bound_ms, products, pairs, totals, count):
               f"{format_stages(stage_times(fn, products))}", flush=True)
 
 
+def _libs_at(libs, L):
+    """The builds that take sequences of L tokens: one from before the long
+    attention variant takes none above 256."""
+    return {n: lib for n, lib in libs.items()
+            if L <= 256 or lib.get("long", True)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="root of another checkout")
@@ -351,10 +392,15 @@ def main():
             rows = shape[0] * shape[1]
             calls = {n: (lambda m=lib["B1"]: fused_mhsa._launch(*a, *tail,
                                                                  lib=m))
-                     for n, lib in libs.items()}
+                     for n, lib in _libs_at(libs, block_diag or shape[1])
+                     .items()}
             compare("B1", f"{label} {shape}", calls,
                     mhsa_bound(rows, block_diag or shape[1], D),
                     MHSA_PRODUCTS, mhsa_products(a, rows, D), totals, count)
+            if shape[1] > 256:
+                print(f"  scaled_dot_product_attention forward on the long "
+                      f"stage's q, k, v: {sdpa_long_ms(rng, shape)[0]:.4f} "
+                      f"ms", flush=True)
             del a
         for label, shape, eps, count in FFN_FWD_SHAPES:
             a = ffn_fwd_case(rng, shape)
@@ -372,15 +418,19 @@ def main():
             rows = shape[0] * shape[1]
             L = block_diag or shape[1]
             calls = {n: (lambda b=lib["B3"]: b.alone(*core))
-                     for n, lib in libs.items()}
+                     for n, lib in _libs_at(libs, L).items()}
             compare("B3 alone", f"{label} {shape}", calls,
                     mhsa_bwd_bound(rows, L, D, whole=False), ("d_xn",),
                     mhsa_bwd_products(a, rows, D)[2:3], totals, count)
             calls = {n: (lambda b=lib["B3"]: b.whole(*a, *cfg))
-                     for n, lib in libs.items()}
+                     for n, lib in _libs_at(libs, L).items()}
             compare("B3 whole call", f"{label} {shape}", calls,
                     mhsa_bwd_bound(rows, L, D), MHSA_BWD_PRODUCTS,
                     mhsa_bwd_products(a, rows, D), totals, count)
+            if L > 256:
+                print(f"  scaled_dot_product_attention backward on the long "
+                      f"stage's q, k, v: {sdpa_long_ms(rng, shape)[1]:.4f} "
+                      f"ms", flush=True)
             del a, core
         for label, shape, eps, count in FFN_SHAPES:
             a, tail = ffn_case(rng, shape, eps)

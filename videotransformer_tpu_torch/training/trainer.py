@@ -1,9 +1,11 @@
 """Train / val / test harness of the port on one device.
 
 Port of ``videotransformer_tpu/training/trainer.py::VideoTransformerTrainer``
-(the reference's model_trainer.py:39-310) for three runs:
+(the reference's model_trainer.py:39-310) for these runs:
 
-- ``objective='supervised'``, ``arch='timesformer'``;
+- ``objective='supervised'``, ``arch='timesformer'`` (divided space-time,
+  joint space-time or space-only attention) or ``arch='vivit'``
+  (fact_encoder, joint space-time or divided space-time attention);
 - ``objective='mim'``: MaskFeat pretraining on the MViT-B trunk
   (trainer.py:65-74, 327-378), masked HOG-feature regression with no head.
   A batch is ``{"video", "mask", "cube_marker", "cube_count"}`` with either
@@ -16,7 +18,7 @@ Port of ``videotransformer_tpu/training/trainer.py::VideoTransformerTrainer``
   left out of the optimizer, and layer-wise LR decay applies when
   ``layer_decay != 1`` (trainer.py:218-222, 289-316; optimizer.py:414-416).
 
-Shared by all three:
+Shared by all:
 
 - losses: cross entropy, soft-target cross entropy under mixup
   (trainer.py:43-51); ``linear_prob`` trains only the head on frozen
@@ -41,8 +43,8 @@ another one on its own; DropPath and mixup draw from one
 the global step (as the JAX trainer folds the step into its key,
 trainer.py:520), so a resumed run draws what an uninterrupted one would
 have drawn. There is no mesh. Not ported yet (they raise): data
-parallelism, ``raw_video`` batches (device augmentation), the pretrained
-weight import, and ViViT; a mim run keeps no periodic checkpoint.
+parallelism, ``raw_video`` batches (device augmentation) and the
+pretrained weight import; a mim run keeps no periodic checkpoint.
 """
 
 import os
@@ -57,6 +59,7 @@ from videotransformer_tpu_torch.models.convert import (
     state_dicts_to_trainer_tree, trainer_tree_to_state_dicts)
 from videotransformer_tpu_torch.models.maskfeat import MaskFeat
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
+from videotransformer_tpu_torch.models.vivit import ViViT
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.training import schedules
@@ -85,21 +88,22 @@ def model_dtype(configs):
 
 def build_model(configs):
     """trainer.py:60-99: MaskFeat (two q-pool stages, 216 HOG features) for
-    ``objective='mim'`` or ``arch='mvit'``, else TimeSformer."""
+    ``objective='mim'`` or ``arch='mvit'``, else the ViViT or TimeSformer
+    of ``arch`` with ``attention_type``, DropPath at ``drop_path_rate``
+    where the configs set one."""
     if configs.objective == "mim" or configs.arch == "mvit":
         return MaskFeat(num_frames=configs.num_frames,
                         img_size=configs.img_size,
                         pool_q_stride_size=((1, 1, 2, 2), (3, 1, 2, 2)),
                         feature_dim=2 * 2 * 2 * 3 * 9)
-    if configs.objective != "supervised" or configs.arch != "timesformer":
-        raise NotImplementedError(
-            f"objective {configs.objective!r} with arch {configs.arch!r} is "
-            "not ported yet (supervised timesformer and mvit, and mim, are)")
+    models = {"vivit": ViViT, "timesformer": TimeSformer}
+    if configs.arch not in models:
+        raise ValueError(configs.arch)
     dpr = getattr(configs, "drop_path_rate", None)
-    return TimeSformer(num_frames=configs.num_frames,
-                       img_size=configs.img_size,
-                       attention_type=configs.attention_type,
-                       **({} if dpr is None else {"drop_path_rate": dpr}))
+    return models[configs.arch](
+        num_frames=configs.num_frames, img_size=configs.img_size,
+        attention_type=configs.attention_type,
+        **({} if dpr is None else {"drop_path_rate": dpr}))
 
 
 def _as_tensor(a, device, dtype=None):

@@ -27,7 +27,20 @@ weights from a seed:
   versions, compared, and profiled; further steps with cuDNN's default
   algorithms, timed and profiled; then one supervised arch=mvit step (layer decay 0.75,
   decoder_pred frozen) and an eval-mode forward on 2 clips against the plain
-  versions.
+  versions;
+- data (its own generator, SEED + 4): the device augment of 8 canonical
+  uint8 clips (8x256x342) on the card against the CPU on the same draws
+  (the supervised recipe, RandAugment with draws covering all 14 ops, the
+  mim recipe with its raw pixels, the Center- and ThreeCrop eval recipe),
+  each timed; then trainer.fit on TimeSformer-B from uint8 clips: a Loader
+  over seeded clips, collate_raw, the pinned prefetch, the augment on the
+  card, 4 steps of 8 clips, a val (CenterCrop) and a test (ThreeCrop)
+  batch, the first step held against the same step fed the augment's
+  output as a video batch, a profile of one step, the host-to-device times
+  of the uint8 and the float32 batch; raw-uint8 serving through the
+  predictor and the server against the clips-mode predictor; and, where
+  this machine has OpenCV, the CLI (model_pretrain.single_run) over the
+  bundled demo clips (decided before the phase, and printed either way).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and must have gone through its kernels.
@@ -48,18 +61,20 @@ wrapper's and scaled_dot_product_attention's). B1 and B3 are also held and
 timed at ViViT-B's joint shape (8, 1569, 768), their long variant, and B5
 and B6 at the 16-frame joint shape (96, 3137, 3137), head dim 64: those
 rows are under "phases" and outside the totals. The last line is
-{"ok": true, "device": {...}}. Its phases took 171 s on an H100 (the six
-builds included; the command 197 s). B3's backward phases also time its
-whole call (with the projection products) beside its bound. Before the
-serving path it prints B1's, B2's, B3's and B4's stages (device ms a
-call) beside torch.matmul at each product's shape (and
+{"ok": true, "device": {...}}. Its phases took 178-221 s on an H100 (the
+six builds included; the data phase 22-28 s). B3's backward phases also
+time its whole call (with the projection products) beside its bound.
+Before the serving path it prints B1's, B2's, B3's and B4's stages
+(device ms a call) beside torch.matmul at each product's shape (and
 scaled_dot_product_attention beside the long attention stage), and B2's
 fc1 with and without its GELU epilogue.
 """
 
 import gc
+import importlib.util
 import json
 import subprocess
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -69,6 +84,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from videotransformer_tpu_torch import model_pretrain
+from videotransformer_tpu_torch.data import device_augment, pipeline
 from videotransformer_tpu_torch.data.mask_generator import (
     CubeMaskGenerator, pad_cube_marker)
 from videotransformer_tpu_torch.data.transforms import eval_transform_clip
@@ -1227,6 +1244,358 @@ def check_server_answers(answers, direct, stats):
     assert (own < nearest_other).all(), (own, nearest_other)
 
 
+# ---------------------------------------------------------------- data path
+
+# the uint8 data path: canonical (T, 256, 342, 3) clips, the decoder's
+# short-edge-256 output cropped or padded (data/dataset.py), 8 a batch
+RAW_HW = (256, 342)
+DATA_CLIPS, DATA_STEPS = 8, 4
+# the augment on the card against the CPU, on the same draws, in pixel
+# units (0-255). The card's elementwise kernels fuse multiply-adds, so a
+# crop's source coordinate differs by about an ulp (3e-5 px at 256); on
+# random-noise clips, whose neighbours differ by up to 255, that moves the
+# bicubic value by up to a few hundredths (measured worst 1.93e-2 px)
+AUG_PIXEL_TOL = 5e-2
+# RandAugment's discontinuous ops (the nearest warps, Posterize, Solarize,
+# Equalize) move a pixel by a whole step where the two devices round a
+# source coordinate or a value at a step differently: the share of elements
+# apart by more than AUG_PIXEL_TOL, in clips that drew such an op
+AUG_STEP_SHARE_TOL = 1e-3
+# the first uint8 step against the same step fed the augment's output as a
+# video batch: the same kernels on the same inputs
+WIRING_REL_TOL = 1e-6
+DISCONTINUOUS_OPS = (1, 2, 3, 4, 5, 10, 11, 13)
+
+
+def data_configs():
+    """train_configs() with the fields fit() reads and the device augment;
+    DropPath 0, so that the first uint8 step can be taken again from a
+    video batch (the augment's draws come first from the same generator)."""
+    return SimpleNamespace(**{
+        **vars(train_configs()), "drop_path_rate": 0.0, "lr": TRAIN_LR,
+        "lr_schedule": "cosine", "warmup_epochs": 1, "min_lr": 1e-6,
+        "weight_decay": TRAIN_WD, "weight_decay_end": TRAIN_WD,
+        "log_interval": 1, "data_statics": "kinetics",
+        "device_augment": True})
+
+
+def event_ms(fn, iters=5):
+    """Mean CUDA-event time of ``fn`` over ``iters`` calls after one, as
+    the host issues them."""
+    return timed_ms(fn, iters=iters, warmup=1, queued=False)
+
+
+def kernel_ms(fn, n=2):
+    """The device's time for one call of ``fn`` and its kernel count: its
+    kernels' durations summed under ``torch.profiler``, over ``n`` calls
+    after one. (Timing
+    calls queued behind a device-side sleep fails for a call of a few
+    hundred launches: the launch queue fills and the host waits.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # with the CPU activity on, the launch calls are CPU events and only the
+    # kernels are device events (with CUDA alone they are counted too)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.end - e.time_range.start for e in kernels)
+            / 1e3 / n, len(kernels) // n)
+
+
+def augment_check(rng, card):
+    """Each recipe's augment of 8 canonical uint8 clips on the card against
+    the CPU on the same draws (made on the card), and its time per batch."""
+    raw = torch.from_numpy(rng.integers(
+        0, 256, (DATA_CLIPS, FRAMES) + RAW_HW + (3,), dtype=np.uint8))
+    raw_card = raw.to("cuda")
+    recipes = {
+        "supervised (jitter 0.4)": {},
+        "auto_augment": {"auto_augment": True},
+        "mim with_raw": {"scale": (0.5, 1.0), "color": (0, 0, 0, 0),
+                         "with_raw": True}}
+    out = {}
+    for name, recipe in recipes.items():
+        kw = dict(recipe)
+        with_raw = kw.pop("with_raw", False)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        draws = device_augment.draw_augment(g, raw.shape, device="cuda", **kw)
+        if kw.get("auto_augment"):  # the 16 draws cover all 14 ops
+            draws["ra_ops"] = torch.arange(2 * DATA_CLIPS, device="cuda"
+                                           ).view(DATA_CLIPS, 2) % 14
+        run = lambda src, d: device_augment.augment_batch(
+            src, out_size=IMG, with_raw=with_raw, draws=d, **kw)
+        got = run(raw_card, draws)
+        want = run(raw, {k: v.cpu() for k, v in draws.items()})
+        pairs = list(zip(got, want)) if with_raw else [(got, want)]
+        errs = [(a.cpu() - b).abs() * s
+                for (a, b), s in zip(pairs, (255 * 0.225, 1.0))]
+        err = torch.cat([e.flatten(1) for e in errs], 1)  # per clip
+        differ = int((err > 0).sum())
+        if kw.get("auto_augment"):
+            steps = torch.isin(draws["ra_ops"].cpu(),
+                               torch.tensor(DISCONTINUOUS_OPS)).any(1)
+            smooth = err[~steps].max().item() if (~steps).any() else 0.0
+            share = (err[steps] > AUG_PIXEL_TOL).float().mean().item()
+            log(f"augment {name}: card vs CPU on the same draws, clips of "
+                f"continuous ops only max {smooth:.3e} px (tol "
+                f"{AUG_PIXEL_TOL}); clips with a discontinuous op: "
+                f"{share:.3e} of elements apart by more (tol "
+                f"{AUG_STEP_SHARE_TOL}), max {err[steps].max().item():.3e} "
+                f"px; {differ} of {err.numel()} elements differ at all")
+            assert smooth <= AUG_PIXEL_TOL and share <= AUG_STEP_SHARE_TOL
+        else:
+            log(f"augment {name}: card vs CPU on the same draws, max "
+                f"{err.max().item():.3e} px (tol {AUG_PIXEL_TOL}); {differ} "
+                f"of {err.numel()} elements differ at all")
+            assert err.max().item() <= AUG_PIXEL_TOL, (name, err.max())
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        call = lambda: device_augment.augment_batch(
+            raw_card, out_size=IMG, with_raw=with_raw, generator=g, **kw)
+        device_ms, kernels = kernel_ms(call)
+        out[name] = {"ms": event_ms(call), "device_ms": device_ms,
+                     "kernels": kernels}
+    for three_crop in (False, True):
+        name = "eval three-crop" if three_crop else "eval center-crop"
+        run = lambda src: device_augment.eval_preprocess_batch(
+            src, img_size=IMG, three_crop=three_crop)
+        got, want = run(raw_card), run(raw)
+        err = ((got.cpu() - want).abs() * 255 * 0.225).max().item()
+        log(f"augment {name}: card vs CPU max {err:.3e} px (tol "
+            f"{AUG_PIXEL_TOL}), output {tuple(got.shape)}")
+        assert err <= AUG_PIXEL_TOL, (name, err)
+        device_ms, kernels = kernel_ms(lambda: run(raw_card))
+        out[name] = {"ms": event_ms(lambda: run(raw_card)),
+                     "device_ms": device_ms, "kernels": kernels}
+    log(f"augment per batch of {DATA_CLIPS} clips ({FRAMES}x{RAW_HW[0]}x"
+        f"{RAW_HW[1]} uint8 -> {IMG}) on {card}, ms by CUDA events as "
+        f"issued (device kernel ms under the profiler; kernels a call): "
+        + ", ".join(f"{k} {v['ms']:.3f} ({v['device_ms']:.3f}; "
+                    f"{v['kernels']})" for k, v in out.items()))
+    return out
+
+
+class SeededClips:
+    """Canonical uint8 clips (T, 256, 342, 3) with labels, made in bulk from
+    a numpy generator: what Kinetics(raw_clips=True) returns after the
+    decode."""
+
+    def __init__(self, rng, n, pool=16):
+        self.clips = rng.integers(0, 256, (pool, FRAMES) + RAW_HW + (3,),
+                                  dtype=np.uint8)
+        self.labels = rng.integers(0, CLASSES, n)
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.clips[i % len(self.clips)], int(self.labels[i])
+
+
+class SeededData:
+    """The data module of the uint8 run: 4 train batches of 8, one val and
+    one test batch, through Loader and collate_raw."""
+
+    def __init__(self, rng):
+        self.train = SeededClips(rng, DATA_STEPS * DATA_CLIPS)
+        self.eval = SeededClips(rng, DATA_CLIPS)
+
+    def _loader(self, data, shuffle):
+        return pipeline.Loader(data, DATA_CLIPS, shuffle=shuffle,
+                               drop_last=shuffle, num_workers=4,
+                               collate_fn=pipeline.collate_raw, seed=SEED,
+                               worker_timeout=120.0)
+
+    def train_loader(self):
+        return self._loader(self.train, True)
+
+    def val_loader(self):
+        return self._loader(self.eval, False)
+
+    def test_loader(self):
+        return self._loader(self.eval, False)
+
+
+def h2d_ms(shape, dtype):
+    """CUDA-event ms of one pinned host-to-device copy of ``shape``."""
+    host = torch.zeros(shape, dtype=dtype).pin_memory()
+    return event_ms(lambda: host.to("cuda", non_blocking=True), iters=10)
+
+
+def uint8_train(rng, card):
+    """trainer.fit over a Loader of uint8 clips (collate_raw, the pinned
+    prefetch, the device augment), TimeSformer-B at full width and depth,
+    8 clips a step, 4 steps, a val (CenterCrop) and a test (ThreeCrop)
+    batch; counts from 0 before fit. Then the first step again from a
+    video batch, a profile of one step, and the copies' times."""
+    tree = trainer_tree(jax_style_params(rng))
+    data = SeededData(rng)
+    tr = trainer_mod.VideoTransformerTrainer(
+        data_configs(), "cuda", params=tree, do_eval=True, do_test=True)
+    steps, first = [], {}
+    step = tr.train_step
+    last_end = [None]
+
+    def timed_step(batch, lr, wd):
+        t0 = time.perf_counter()
+        before = read_counts()
+        stats = step(batch, lr, wd)
+        loss = float(stats["loss"])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        first.setdefault("batch", batch)
+        steps.append({"ms": (end - t0) * 1e3, "loss": loss,
+                      "data_ms": None if last_end[0] is None
+                      else (t0 - last_end[0]) * 1e3,
+                      "launches": {n: c - before[n]
+                                   for n, c in read_counts().items()}})
+        last_end[0] = end
+        return stats
+
+    gc.collect()
+    reset_counts()
+    with mock.patch.object(tr, "train_step", timed_step):
+        tr.fit(data, max_epochs=1)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {"fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
+            "fused_prenorm_mhsa_bwd": 2 * DEPTH,
+            "fused_prenorm_ffn_bwd": DEPTH, "flash_attention": 0,
+            "flash_attention_bwd": 0}
+    assert len(steps) == DATA_STEPS, len(steps)
+    for i, st in enumerate(steps):
+        log(f"uint8 train step {i}: loss {st['loss']:.6f}, {st['ms']:.2f} "
+            f"ms, data wait {st['data_ms']} ms, launches {st['launches']}")
+        assert np.isfinite(st["loss"]) and st["launches"] == want, (i, st)
+    assert tr.val_meter.total == tr.test_meter.total == DATA_CLIPS
+
+    # the wiring: the first step again, from the same state and the same
+    # draws, with the augment's output fed as a video batch
+    ref = trainer_mod.VideoTransformerTrainer(data_configs(), "cuda",
+                                              params=tree)
+    raw = first["batch"]["raw_video"]
+    ref.generator.manual_seed(ref.seed + 7919)  # as train_step seeds step 0
+    with torch.no_grad():
+        video = ref._augment(raw)
+    ref_loss = float(ref.train_step({"video": video,
+                                     "label": first["batch"]["label"]},
+                                    TRAIN_LR, TRAIN_WD)["loss"])
+    rel = abs(steps[0]["loss"] - ref_loss) / abs(ref_loss)
+    log(f"uint8 step 0 loss {steps[0]['loss']:.8f} against the same step "
+        f"fed the augment's output as a video batch {ref_loss:.8f} (rel "
+        f"{rel:.3e}, tol {WIRING_REL_TOL}; bit-equal: "
+        f"{steps[0]['loss'] == ref_loss})")
+    assert rel <= WIRING_REL_TOL, (steps[0]["loss"], ref_loss)
+    del ref, video
+
+    steady = [st["ms"] for st in steps[1:]]
+    data_wait = [st["data_ms"] for st in steps[1:]]
+    ms = sum(steady) / len(steady)
+    u8 = (DATA_CLIPS, FRAMES) + RAW_HW + (3,)
+    f32 = (DATA_CLIPS, FRAMES, 3, IMG, IMG)
+    u8_ms, f32_ms = h2d_ms(u8, torch.uint8), h2d_ms(f32, torch.float32)
+    log(f"uint8 train slice: {DATA_CLIPS} clips a step, steps 2-"
+        f"{DATA_STEPS} {', '.join(f'{v:.2f}' for v in steady)} ms on the "
+        f"clock (mean {ms:.2f} ms, {DATA_CLIPS / ms * 1e3:.2f} clips/s; step "
+        f"1 {steps[0]['ms']:.2f} ms); data wait before steps 2-{DATA_STEPS} "
+        f"{', '.join(f'{v:.2f}' for v in data_wait)} ms; host-to-device "
+        f"from pinned memory: uint8 batch {np.prod(u8) / 1e6:.1f} MB "
+        f"{u8_ms:.3f} ms, float32 batch {4 * np.prod(f32) / 1e6:.1f} MB "
+        f"{f32_ms:.3f} ms; on {card} (the float-batch step is the train "
+        f"phase's line above)")
+    batch = {"raw_video": raw, "label": first["batch"]["label"]}
+    profile_forward(lambda: tr.train_step(batch, TRAIN_LR, TRAIN_WD), ms,
+                    n=2, what="uint8 train step")
+    return launches, {"step_ms": ms, "data_ms": data_wait,
+                      "h2d_ms": {"uint8": u8_ms, "float32": f32_ms}}
+
+
+def raw_serving(rng, predictor, card):
+    """A raw-mode predictor on the serving slice's weights, 8 uint8
+    requests through the server (counts from 0 before), held against the
+    clips-mode predictor fed eval_preprocess_batch's output."""
+    manifest = {**predictor.manifest, "input_mode": "raw",
+                "input_shape": [FRAMES, *RAW_HW, 3], "input_dtype": "uint8"}
+    raw_pred = TorchPredictor(predictor.model, predictor.head, manifest,
+                              "cuda", predictor.dtype)
+    requests = rng.integers(0, 256, (CLIPS, FRAMES) + RAW_HW + (3,),
+                            dtype=np.uint8)
+    raw_pred.warmup()
+    reset_counts()
+    answers, stats = serve_requests(raw_pred, list(requests))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    with torch.inference_mode():
+        clips = device_augment.eval_preprocess_batch(
+            torch.from_numpy(requests).to("cuda"), img_size=IMG,
+            three_crop=True).reshape(CLIPS, CROPS, FRAMES, 3, IMG, IMG)
+        want = predictor(clips.cpu().numpy())
+    got = np.stack(answers)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    hist = {int(k): v for k, v in stats["batch_histogram"].items()}
+    t0 = time.perf_counter()
+    raw_pred(requests)
+    ms = (time.perf_counter() - t0) * 1e3
+    raw_bytes = int(np.prod(raw_pred.input_shape))
+    clip_bytes = 4 * int(np.prod(predictor.input_shape))
+    log(f"raw serving: {CLIPS} uint8 requests answered, batches {hist}; "
+        f"logits against the clips-mode predictor on eval_preprocess_batch's "
+        f"output: rel {err:.3e} (tol {SLICE_REL_TOL}); {ms:.2f} ms per batch "
+        f"of {CLIPS} on the host clock (uint8 in, logits out); bytes per "
+        f"request raw {raw_bytes} ({raw_bytes / 1e6:.2f} MB), clips "
+        f"{clip_bytes} ({clip_bytes / 1e6:.2f} MB) on {card}")
+    assert got.shape == (CLIPS, CLASSES) and np.isfinite(got).all()
+    assert err <= SLICE_REL_TOL, err
+    return launches
+
+
+def cli_over_demo_clips(card):
+    """The port's CLI on the bundled demo clips, where this machine can
+    decode mp4 (OpenCV): TimeSformer-B at full width, 1 epoch of batch 4
+    with -device_augment True. Decided before the phase starts."""
+    if importlib.util.find_spec("cv2") is None:
+        log("CLI over the demo clips: did not run; this machine has no "
+            "OpenCV (importlib.util.find_spec('cv2') is None), and the port "
+            "decodes mp4 only through it")
+        return None
+    log("CLI over the demo clips: OpenCV found, running single_run")
+    demo = "videotransformer_tpu/data/assets/demo"
+    with tempfile.TemporaryDirectory() as root:
+        trainer = model_pretrain.single_run([
+            "-epoch", "1", "-batch_size", "4", "-num_workers", "4",
+            "-num_class", "4", "-num_frames", str(FRAMES),
+            "-frame_interval", "4", "-objective", "supervised",
+            "-arch", "timesformer", "-lr", "0.005", "-warmup_epochs", "1",
+            "-root_dir", root, "-train_data_path",
+            f"{demo}/demo_train_list.txt", "-classmap_path",
+            f"{demo}/demo_classmap.json", "-device", "cuda",
+            "-device_augment", "True", "-log_interval", "1"])
+    log(f"CLI over the demo clips: {trainer.global_step} steps on {card}")
+    assert trainer.global_step == 3, trainer.global_step
+    return trainer.global_step
+
+
+def data_phase(predictor, card):
+    """The data path: the augment on the card against the CPU, training
+    from uint8 clips, raw-uint8 serving, the CLI over the demo clips. Its
+    own generator: the earlier phases' weights and clips stay as they
+    were. Returns the launches of the main-path runs (the uint8 fit and
+    the raw serving) and the numbers."""
+    rng = np.random.default_rng(SEED + 4)
+    aug = augment_check(rng, card)
+    fit_launches, train = uint8_train(rng, card)
+    torch.cuda.empty_cache()
+    serve_launches = raw_serving(rng, predictor, card)
+    cli_over_demo_clips(card)
+    launches = {n: fit_launches[n] + serve_launches[n] for n in KERNEL_NAMES}
+    return launches, {"augment_ms": aug, **train}
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is visible")
@@ -1346,7 +1715,6 @@ def main():
 
         direct = np.stack([predictor(c[None])[0] for c in requests])
     check_server_answers(np.stack(answers), direct, stats)
-    del predictor
     t0 = lap("serve", t0)
 
     # ---- the training path: counts from 0 before each step (train_slice)
@@ -1378,6 +1746,13 @@ def main():
     torch.cuda.empty_cache()
     mvit_launches = mvit_supervised_step(rng)
     t0 = lap("mvit supervised step and mim forward check", t0)
+    torch.cuda.empty_cache()
+
+    # ---- the data path: counts from 0 before the uint8 fit and before the
+    # raw serving run (data_phase)
+    data_launches, data_numbers = data_phase(predictor, card)
+    del predictor
+    t0 = lap("data", t0)
 
     src, jax_src = "videotransformer_tpu_torch/csrc/", \
         "videotransformer_tpu/kernels/"
@@ -1408,7 +1783,8 @@ def main():
                    "train": train_launches[name], "mim": mim_launches[name],
                    "mvit": mvit_launches[name],
                    "vivit": vivit_launches[name],
-                   "timesformer_types": types_launches[name]}
+                   "timesformer_types": types_launches[name],
+                   "data": data_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1424,6 +1800,7 @@ def main():
             "bound_by": max(on_path, key=lambda e: e["count"] * e["bound_ms"]
                             )["bound_by"],
             "phases": phases})
+    log(f"data path numbers: {json.dumps(data_numbers)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from videotransformer_tpu_torch.data import device_augment, pipeline
 from videotransformer_tpu_torch.kernels import fused_ffn, fused_mhsa
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
 from videotransformer_tpu_torch.training import trainer as trainer_mod
@@ -601,3 +602,132 @@ def test_tiny_mim_step_on_card_matches_cpu(cuda_device, monkeypatch):
     counts = (fa.LAUNCHES, fa.BWD_LAUNCHES, fused_ffn.LAUNCHES,
               fused_ffn.BWD_LAUNCHES)
     assert tuple(x - y for x, y in zip(counts, counts0)) == (8, 8, 4, 4)
+
+
+# ------------------------------------------------------------ the data path
+
+AUG_RECIPES = {
+    "supervised": {},
+    "jitter_with_hue": {"color": (0.4, 0.4, 0.4, 0.1)},
+    "auto_augment": {"auto_augment": True},
+    "mim_with_raw": {"scale": (0.5, 1.0), "color": (0, 0, 0, 0),
+                     "with_raw": True},
+}
+
+
+def _uint8_clips(seed, shape=(4, 3, 64, 86, 3)):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, shape, dtype=np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", sorted(AUG_RECIPES))
+def test_augment_on_card_matches_cpu(cuda_device, recipe):
+    """The same draws (made on the card, copied to the CPU) on both
+    devices: within 5e-2 of a 0-255 pixel (the card fuses multiply-adds, so
+    a crop's source coordinate moves by an ulp, ~3e-5 px, and a noise
+    clip's value by up to its gradient times that: chip_smoke.py measured
+    1.93e-2), but RandAugment's discontinuous ops, which may land a pixel
+    on the other side of a step: at most 0.1% of the elements apart."""
+    kw = dict(AUG_RECIPES[recipe])
+    with_raw = kw.pop("with_raw", False)
+    raw = _uint8_clips(1)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    draws = device_augment.draw_augment(g, raw.shape, device=cuda_device,
+                                        **kw)
+    got = device_augment.augment_batch(raw.to(cuda_device), out_size=56,
+                                       with_raw=with_raw, draws=draws, **kw)
+    want = device_augment.augment_batch(
+        raw, out_size=56, with_raw=with_raw,
+        draws={k: v.cpu() for k, v in draws.items()}, **kw)
+    pairs = zip(got, want) if with_raw else [(got, want)]
+    for (a, b), scale in zip(pairs, (255 * 0.225, 1.0)):
+        err = (a.cpu() - b).abs() * scale
+        if kw.get("auto_augment"):
+            assert (err > 5e-2).float().mean() <= 1e-3, err.max()
+        else:
+            assert err.max() <= 5e-2, err.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("three_crop", [False, True])
+def test_eval_preprocess_on_card_matches_cpu(cuda_device, three_crop):
+    raw = _uint8_clips(2, (2, 3, 256, 342, 3))
+    got = device_augment.eval_preprocess_batch(raw.to(cuda_device),
+                                               three_crop=three_crop)
+    want = device_augment.eval_preprocess_batch(raw, three_crop=three_crop)
+    assert got.shape == want.shape == (6 if three_crop else 2, 3, 3, 224, 224)
+    assert ((got.cpu() - want).abs() * 255 * 0.225).max() <= 5e-2
+
+
+@pytest.mark.cuda
+def test_augment_never_syncs_with_the_host(cuda_device):
+    """Every recipe's draws and apply, and both eval recipes, under
+    ``set_sync_debug_mode("error")``: a synchronising call raises."""
+    raw = _uint8_clips(3).to(cuda_device)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kw in AUG_RECIPES.values():
+            device_augment.augment_batch(raw, out_size=56, generator=g, **kw)
+        for three_crop in (False, True):
+            device_augment.eval_preprocess_batch(raw, img_size=56,
+                                                 three_crop=three_crop)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_prefetch_ring_survives_a_copy_still_in_flight(cuda_device):
+    """Eight 16 MB batches, each filled with its index. Before asking for
+    the next batch the consumer stalls the copy stream, so the copy of a
+    batch is still waiting when the ring comes back to its pinned buffer:
+    without the event wait the host would overwrite that buffer first, and
+    a later batch's values would arrive."""
+    n = 8
+    batches = ({"x": np.full((16, 1024, 1024), i, np.uint8),
+                "label": np.array([i], np.int32)} for i in range(n))
+    side = torch.cuda.Stream()
+    seen = []
+    for batch in pipeline.device_prefetch(batches, cuda_device, stream=side):
+        assert batch["x"].device.type == "cuda"
+        seen.append((batch["x"].float().mean(), batch["label"]))
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)  # the next copies wait behind it
+    torch.cuda.synchronize()
+    assert [float(m) for m, _ in seen] == list(map(float, range(n)))
+    assert [int(lab) for _, lab in seen] == list(range(n))
+
+
+@pytest.mark.cuda
+def test_tiny_raw_video_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """Two bf16 raw_video steps of the tiny TimeSformer on the card and on
+    the CPU with the same augment draws: losses within 2e-2 relative (as
+    the float step above), the kernels launched on the card."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(trainer_mod, "build_model", lambda c: TimeSformer(
+        num_frames=2, img_size=32, embed_dims=64, num_heads=4,
+        num_transformer_layers=2, drop_path_rate=0.0))
+    cfg = SimpleNamespace(
+        objective="supervised", arch="timesformer",
+        attention_type="divided_space_time", num_class=10, num_frames=2,
+        img_size=32, optim_type="adamw", clip_grad=1.0, seed=0, mixup=False,
+        use_fp16=True)
+    cpu = trainer_mod.VideoTransformerTrainer(cfg, "cpu")
+    card = trainer_mod.VideoTransformerTrainer(cfg, cuda_device,
+                                               params=cpu.params_tree())
+    raw = _uint8_clips(4, (4, 2, 40, 52, 3))
+    batch = {"raw_video": raw.numpy(), "label": np.arange(4)}
+    draws = device_augment.draw_augment(torch.Generator().manual_seed(2),
+                                        raw.shape)
+    monkeypatch.setattr(trainer_mod, "draw_augment", lambda *a, device=None,
+                        **k: {n: v.to(device) for n, v in draws.items()})
+    b0 = fused_mhsa.BWD_LAUNCHES
+    for _ in range(2):
+        la = float(cpu.train_step(batch, 1e-3, 0.05)["loss"])
+        lb = float(card.train_step(batch, 1e-3, 0.05)["loss"])
+        assert np.isfinite(lb) and abs(la - lb) <= 2e-2 * abs(la), (la, lb)
+    assert fused_mhsa.BWD_LAUNCHES - b0 == 8

@@ -98,7 +98,7 @@ def _flat(tree):
     return convert.flatten_tree(jax.device_get(tree))
 
 
-def _check_params(jt, pt, init):
+def _check_params(jt, pt, init, tensor_tol=1e-3):
     want, got = _flat(jt.params), _flat(pt.params_tree())
     assert sorted(want) == sorted(got) == sorted(init)
     for k in want:
@@ -111,7 +111,7 @@ def _check_params(jt, pt, init):
         if norm == 0:  # not updated (a frozen decoder, an unused token)
             np.testing.assert_array_equal(dg, dw, err_msg=k)
         else:
-            assert np.linalg.norm(dg - dw) <= 1e-3 * norm, k
+            assert np.linalg.norm(dg - dw) <= tensor_tol * norm, k
 
 
 @pytest.mark.parametrize("with_hog", [True, False])
@@ -132,13 +132,37 @@ def test_three_mim_steps_match_jax_trainer(monkeypatch, with_hog):
     _check_params(jt, pt, init)
 
 
-def test_raw_video_batches_are_not_ported(monkeypatch):
-    monkeypatch.setattr(ptrainer, "build_model", lambda c: MaskFeat(
-        img_size=c.img_size, num_frames=c.num_frames, **DEPTH4))
-    pt = ptrainer.VideoTransformerTrainer(_configs(), "cpu")
-    with pytest.raises(NotImplementedError, match="raw_video"):
-        pt.train_step({"raw_video": np.zeros((1, 4, 40, 40, 3), np.uint8)},
-                      LR, WD)
+def test_mim_raw_video_step_matches_jax_trainer(monkeypatch):
+    """A ``raw_video`` mim step: each trainer augments the uint8 clips with
+    the mim recipe (crop scale 0.5-1, flip; no jitter and no RandAugment
+    whatever the configs say, the reference's fault (a) at JAX
+    trainer.py:345, which the port keeps) and takes its HOG targets from
+    the augmented pixels. The port gets the JAX step's augment draws
+    (aug_key = split(split(key)[1])[0], trainer.py:325, 339). Tolerances as
+    the steps above, except each tensor's update, within 1e-2 of its norm:
+    the two augments' pixels agree to 5e-3, and AdamW's first step turns
+    the gradient differences of near-zero elements into whole lr steps
+    (measured 1.06e-3)."""
+    from test_torch_device_augment import jax_augment_draws
+
+    jt, pt, init = _pair(monkeypatch, auto_augment="rand-m9")
+    batch = _mim_batch(with_hog=False)
+    del batch["video"], batch["raw"]
+    batch["raw_video"] = np.random.RandomState(3).randint(
+        0, 256, (2, 4, 40, 52, 3)).astype(np.uint8)
+    key = jax.random.fold_in(jt.base_key, 0)
+    aug_key, _ = jax.random.split(jax.random.split(key)[1])
+    draws = jax_augment_draws(aug_key, 2, 40, 52, scale=(0.5, 1.0),
+                              color=(0, 0, 0, 0))
+    monkeypatch.setattr(ptrainer, "draw_augment", lambda *a, **k: draws)
+    jt.params, jt.opt_state, js = jt._train_step(
+        jt.params, jt.opt_state, shard_batch(jt.mesh, batch), key,
+        jnp.float32(LR), jnp.float32(WD))
+    ps = pt.train_step(batch, LR, WD)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(ps[k]), float(js[k]), rtol=1e-4,
+                                   err_msg=k)
+    _check_params(jt, pt, init, tensor_tol=1e-2)
 
 
 def test_hog_matches_jax_and_numpy():

@@ -23,7 +23,8 @@ from videotransformer_tpu.data.video_reader import VideoReader as JVideoReader
 from videotransformer_tpu.models.timesformer import TimeSformer as JTimeSformer
 from videotransformer_tpu.ops.blocks import ClassificationHead as JHead
 from videotransformer_tpu.serving.export import (
-    export_predictor, make_predict_fn as jax_make_predict_fn)
+    export_predictor, make_predict_fn as jax_make_predict_fn,
+    make_raw_predict_fn as jax_make_raw_predict_fn, unflatten_params)
 from videotransformer_tpu.tools import demo_inference as jdemo
 from videotransformer_tpu_torch.data.transforms import eval_transform_clip
 from videotransformer_tpu_torch.data.video_reader import VideoReader
@@ -81,13 +82,115 @@ def test_predictor_matches_jax_make_predict_fn(artifact):
                                atol=1e-6)
 
 
-def test_predictor_rejects_raw_mode(artifact):
+@pytest.fixture(scope="module")
+def raw_artifact(artifact, tmp_path_factory):
+    """A raw-mode artifact of the same model (requests (T, 48, 64, 3) uint8)
+    and the JAX ``make_raw_predict_fn``'s logits of 3 requests for 3 crops
+    and for 1 (CenterCrop)."""
+    model = JTimeSformer(num_frames=FRAMES, img_size=IMG, patch_size=16,
+                         embed_dims=64, num_heads=4, num_transformer_layers=2,
+                         drop_path_rate=0.0)
+    head = JHead(NUM_CLASS, 64)
     path, _, _ = artifact
-    manifest = json.load(open(f"{path}/manifest.json"))
-    manifest["input_mode"] = "raw"
-    with pytest.raises(NotImplementedError, match="raw"):
-        TorchPredictor(torch.nn.Identity(), torch.nn.Identity(), manifest,
-                       "cpu")
+    with np.load(f"{path}/params.npz") as flat:
+        flat = {k: flat[k] for k in flat.files}
+    params = unflatten_params({k[6:]: v for k, v in flat.items()
+                               if k.startswith("model/")})
+    hparams = unflatten_params({k[5:]: v for k, v in flat.items()
+                                if k.startswith("head/")})
+    raw = np.random.RandomState(8).randint(
+        0, 256, (3, FRAMES, 48, 64, 3)).astype(np.uint8)
+    vt_config.set_attention_backend("xla")
+    try:
+        out = str(tmp_path_factory.mktemp("raw_artifact"))
+        export_predictor(out, model, head, params, hparams,
+                         num_frames=FRAMES, num_class=NUM_CLASS, img_size=IMG,
+                         buckets=(1, 2), platforms=("cpu",),
+                         input_mode="raw", raw_hw=(48, 64))
+        want = {n: np.asarray(jax_make_raw_predict_fn(
+            model, head, NUM_CLASS, n, IMG)(params, hparams,
+                                            jnp.asarray(raw)))
+                for n in (1, 3)}
+    finally:
+        vt_config.set_attention_backend("auto")
+    return out, raw, want
+
+
+@pytest.mark.parametrize("n_crops", [3, 1])
+def test_raw_predictor_matches_jax_make_raw_predict_fn(raw_artifact,
+                                                       n_crops):
+    """uint8 requests pad to the bucket and go to the device as uint8; the
+    eval recipe (ThreeCrop, or CenterCrop for 1 crop) runs there."""
+    path, raw, want = raw_artifact
+    pred = load_predictor(path, "cpu", num_heads=4, dtype=torch.float32)
+    if n_crops == 1:
+        pred = TorchPredictor(pred.model, pred.head,
+                              {**pred.manifest, "n_crops": 1}, "cpu",
+                              dtype=torch.float32)
+    assert pred.input_mode == "raw" and pred.input_dtype == np.uint8
+    assert pred.input_shape == (FRAMES, 48, 64, 3)
+    seen = []
+    real = pred._predict
+    pred._predict = lambda x: seen.append(x.dtype) or real(x)
+    got = pred(raw)  # B=3 runs as a chunk of 2 and one of 1
+    assert seen == [torch.uint8, torch.uint8]
+    assert got.shape == (3, NUM_CLASS)
+    err = np.abs(got - want[n_crops]).max() / np.abs(want[n_crops]).max()
+    assert err <= 1e-4, err
+    pred.warmup()
+
+
+def _write_mp4(path, frames=40, hw=(160, 200), seed=6):
+    cv2 = pytest.importorskip("cv2")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                             hw[::-1])
+    assert writer.isOpened()
+    rng = np.random.RandomState(seed)
+    for _ in range(frames):
+        writer.write(rng.randint(0, 256, hw + (3,), dtype=np.uint8))
+    writer.release()
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_server_raw_preprocess_bytes_matches_jax(raw_artifact, tmp_path,
+                                                 monkeypatch):
+    """Raw mode: the host only decodes (short edge to 48 at decode, a
+    temporal window from the transforms' generator, cropped or padded to
+    48 x 64); the JAX server reads through its OpenCV backend. Then the
+    port's server answers the bytes as its predictor answers the clip."""
+    from types import SimpleNamespace
+
+    from videotransformer_tpu.data import video_reader as jvr
+    from videotransformer_tpu.serving.server import (
+        InferenceServer as JInferenceServer)
+    from videotransformer_tpu_torch.data import transforms as T
+
+    monkeypatch.setattr(jvr, "_load_native", lambda: None)
+    data = _write_mp4(str(tmp_path / "clip.mp4"))
+    path, _, _ = raw_artifact
+    pred = load_predictor(path, "cpu", num_heads=4, dtype=torch.float32)
+    stub = SimpleNamespace(input_mode="raw", input_shape=pred.input_shape,
+                           input_dtype=np.uint8)
+    jserver = JInferenceServer(stub, num_frames=FRAMES, frame_interval=8)
+    server = InferenceServer(pred, num_frames=FRAMES, frame_interval=8,
+                             img_size=IMG, max_batch=2)
+    try:
+        for seed in (0, 1):
+            jT.seed_transforms(seed)
+            T.seed_transforms(seed)
+            want = jserver.preprocess_bytes(data)
+            got = server.preprocess_bytes(data)
+            assert got.shape == (FRAMES, 48, 64, 3) and got.dtype == np.uint8
+            np.testing.assert_array_equal(got, want)
+        T.seed_transforms(0)
+        answer = server.predict_bytes(data)
+        T.seed_transforms(0)
+        logits = pred(server.preprocess_bytes(data)[None])[0]
+    finally:
+        server.stop()
+        jserver.stop()
+    assert answer["class_id"] == int(np.argmax(logits))
 
 
 def test_server_batches_concurrent_submits(artifact):

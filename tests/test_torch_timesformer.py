@@ -297,6 +297,37 @@ def test_slice_runs_with_jax_and_flax_blocked():
         assert np.isfinite(float(st.train_step(sup, 1e-3, 0.05)["loss"]))
         assert int(st.eval_step(sup, 1)["bs"]) == 2
         assert flash_attention.LAUNCHES == 0  # the CPU runs the plain versions
+        # the data path: the device augment, a raw_video step (supervised
+        # and mim), the raw eval step, raw serving and the CLI's parser
+        from videotransformer_tpu_torch import model_pretrain
+        from videotransformer_tpu_torch.data import (
+            dataset, device_augment, pipeline, rand_augment)
+        from videotransformer_tpu_torch.training import data_module
+        raw = torch.from_numpy(np.random.RandomState(4).randint(
+            0, 256, (2, 4, 40, 52, 3)).astype(np.uint8))
+        aug = device_augment.augment_batch(
+            raw, out_size=32, auto_augment=True,
+            generator=torch.Generator().manual_seed(0))
+        assert aug.shape == (2, 4, 3, 32, 32)
+        raw_mim = dict(mim, raw_video=raw.numpy())
+        del raw_mim["video"], raw_mim["raw"]
+        assert float(mt.train_step(raw_mim, 1e-3, 0.05)["loss"]) > 0
+        raw_sup = {"raw_video": raw.numpy(), "label": np.arange(2)}
+        assert np.isfinite(float(st.train_step(raw_sup, 1e-3, 0.05)["loss"]))
+        assert int(st.eval_step(raw_sup, 3)["bs"]) == 2
+        raw_pred = TorchPredictor(model, head, {
+            **manifest, "input_mode": "raw", "input_shape": [4, 160, 200, 3],
+            "input_dtype": "uint8"}, "cpu", dtype=torch.float32)
+        assert raw_pred(frames[None]).shape == (1, 10)
+        args = model_pretrain.parse_args([
+            "-epoch", "1", "-batch_size", "2", "-num_class", "4",
+            "-num_frames", "4", "-frame_interval", "4", "-lr", "0.1",
+            "-root_dir", "r", "-train_data_path", "t.txt"])
+        assert args.device == "cuda" and args.use_fp16 is True
+        batches = list(pipeline.device_prefetch(pipeline.Loader(
+            [(c, 0) for c in raw.numpy()], 2, collate_fn=pipeline.collate_raw,
+            worker_timeout=30.0), "cpu"))
+        assert batches[0]["raw_video"].dtype == torch.uint8
         blocked = ("jax", "flax", "videotransformer_tpu")
         assert all(sys.modules.get(m) is None for m in blocked)
         assert not [m for m in sys.modules

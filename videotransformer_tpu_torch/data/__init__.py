@@ -1,3 +1,4 @@
-"""Host-side clip loading and the eval transform (decode, resize, crop,
-normalise), in PyTorch and OpenCV; MaskFeat's HOG targets (on the device)
-and cube masks (on the host)."""
+"""The data path: decode (OpenCV), host transforms, the Kinetics dataset,
+the loader and the pinned-memory prefetch on the host; the train augment
+and the eval recipe of uint8 clips, and MaskFeat's HOG targets, on the
+device; cube masks and mixup."""

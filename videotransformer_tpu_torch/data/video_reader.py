@@ -2,18 +2,23 @@
 
 Port of the ``cv2`` backend of ``videotransformer_tpu/data/video_reader.py``
 (the FFmpeg reader built from ``videotransformer_tpu/native`` is not ported).
-The API mirrors decord's: ``len()`` and ``get_batch(indices)`` -> uint8
-(N, H, W, C) RGB. Random access reads forward with ``grab()`` for short
-skips and seeks for long ones.
+The API mirrors decord's: ``len()``, ``fps`` and ``get_batch(indices)`` ->
+uint8 (N, H, W, C) RGB. Random access reads forward with ``grab()`` for
+short skips and seeks for long ones. ``short_edge`` resizes each decoded
+frame so that its short edge has that size (the long edge truncated),
+with ``INTER_AREA``, as the JAX package's decode-time resize does
+(video_reader.py:72-81). ``cv2`` is imported when a reader opens a file.
 """
 
 import os
 
 import numpy as np
 
+from videotransformer_tpu_torch.data.interpolation import short_edge_size
+
 
 class VideoReader:
-    def __init__(self, path):
+    def __init__(self, path, short_edge=0):
         import cv2
 
         if not os.path.exists(path):
@@ -24,7 +29,9 @@ class VideoReader:
             raise IOError(f"cv2 could not open video {path}")
         self.path = path
         self.num_frames = int(self.cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        self.fps = float(self.cap.get(cv2.CAP_PROP_FPS)) or 25.0
         self._pos = 0
+        self._short_edge = int(short_edge or 0)
 
     def __len__(self):
         return self.num_frames
@@ -40,6 +47,12 @@ class VideoReader:
         self._pos += 1
         if not ok:
             raise IOError(f"decode failure at frame {idx} of {self.path}")
+        if self._short_edge:
+            h, w = frame.shape[:2]
+            nh, nw = short_edge_size(h, w, self._short_edge)
+            if (nh, nw) != (h, w):
+                frame = self._cv2.resize(frame, (nw, nh),
+                                         interpolation=self._cv2.INTER_AREA)
         return frame[:, :, ::-1]  # BGR -> RGB
 
     def get_batch(self, indices):
@@ -51,3 +64,18 @@ class VideoReader:
 
     def close(self):
         self.cap.release()
+
+
+class DecordInit:
+    """The reference's decoder factory (dataset.py:96-119):
+    ``DecordInit()(path)`` opens a ``VideoReader``."""
+
+    def __init__(self, num_threads=1, **kwargs):
+        self.num_threads = num_threads
+        self.kwargs = kwargs
+
+    def __call__(self, filename):
+        return VideoReader(filename)
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}(num_threads={self.num_threads})"

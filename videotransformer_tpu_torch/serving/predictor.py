@@ -8,8 +8,12 @@ the host to the next bucket, ``warmup``, ``n_crops``, ``manifest``.
 
 ``load_predictor`` reads the ``params.npz`` and ``manifest.json`` that
 ``videotransformer_tpu.serving.export.export_predictor`` writes and ignores
-its ``.shlo`` programs. Clips mode only: raw-uint8 mode needs the device
-preprocessing, which is not ported yet.
+its ``.shlo`` programs. The manifest's ``input_mode`` says what a request
+carries: "clips", preprocessed float32 (n_crops, T, C, S, S) crop stacks,
+or "raw", the decoder's canonical uint8 (T, raw_h, raw_w, 3) clip
+(``input_shape`` and ``input_dtype``, export.py:150-153), which goes to the
+device as uint8 and through the eval recipe there
+(``make_raw_predict_fn``; export.py:66-90).
 """
 
 import json
@@ -18,6 +22,8 @@ import os
 import numpy as np
 import torch
 
+from videotransformer_tpu_torch.data.device_augment import (
+    eval_preprocess_batch)
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
@@ -37,30 +43,56 @@ def make_predict_fn(model, head, num_class, n_crops):
     return predict
 
 
+def make_raw_predict_fn(model, head, num_class, n_crops, img_size,
+                        mean=(0.45,) * 3, std=(0.225,) * 3):
+    """raw (B, T, H, W, 3) uint8 -> (B, num_class) crop-averaged fp32
+    logits: the eval recipe on the device (``eval_preprocess_batch``:
+    ThreeCrop for 3 crops, else CenterCrop), then ``make_predict_fn``'s
+    forward."""
+    forward = make_predict_fn(model, head, num_class, n_crops)
+    dtype = next(model.parameters()).dtype
+
+    def predict(raw):
+        clips = eval_preprocess_batch(raw, img_size=img_size,
+                                      three_crop=n_crops == 3, mean=mean,
+                                      std=std)  # (B·n_crops, T, C, S, S)
+        return forward(clips.unflatten(0, (raw.shape[0], n_crops)).to(dtype))
+
+    return predict
+
+
 class TorchPredictor:
-    """Callable (B, n_crops, T, C, S, S) float32 numpy -> (B, num_class)
-    numpy logits. Pads the batch on the host to the next bucket, runs it on
-    ``device``, unpads; batches above the largest bucket run in chunks."""
+    """Callable over numpy requests of the manifest's ``input_shape`` and
+    ``input_dtype`` -> (B, num_class) numpy logits. Pads the batch on the
+    host to the next bucket, runs it on ``device``, unpads; batches above
+    the largest bucket run in chunks."""
 
     def __init__(self, model, head, manifest, device, dtype=torch.bfloat16):
-        if manifest.get("input_mode", "clips") != "clips":
-            raise NotImplementedError(
-                "raw-uint8 input mode needs the device preprocessing port")
         self.manifest = manifest
         self.buckets = sorted(int(b) for b in manifest["buckets"])
         self.num_class = manifest["num_class"]
         self.n_crops = manifest["n_crops"]
-        self.input_mode = "clips"
-        self.input_dtype = np.dtype(np.float32)
-        self.input_shape = (self.n_crops, manifest["num_frames"], 3,
-                            manifest["img_size"], manifest["img_size"])
+        self.input_mode = manifest.get("input_mode", "clips")
         self.device = torch.device(device)
         self.dtype = dtype
         # weights cast once here to the working type; the head stays fp32
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.head = head.to(device=self.device, dtype=torch.float32).eval()
-        self._predict = make_predict_fn(self.model, self.head,
-                                        self.num_class, self.n_crops)
+        if self.input_mode == "raw":
+            self.input_dtype = np.dtype(manifest.get("input_dtype", "uint8"))
+            self.input_shape = tuple(manifest["input_shape"])
+            self._predict = make_raw_predict_fn(
+                self.model, self.head, self.num_class, self.n_crops,
+                manifest["img_size"])
+        elif self.input_mode == "clips":
+            self.input_dtype = np.dtype(np.float32)
+            self.input_shape = (self.n_crops, manifest["num_frames"], 3,
+                                manifest["img_size"], manifest["img_size"])
+            self._predict = make_predict_fn(self.model, self.head,
+                                            self.num_class, self.n_crops)
+        else:
+            raise ValueError(f"input_mode {self.input_mode!r}: want 'clips' "
+                             "or 'raw'")
 
     @property
     def max_batch(self):
@@ -86,7 +118,9 @@ class TorchPredictor:
                 chunk = np.concatenate(
                     [chunk, np.zeros((b - take,) + chunk.shape[1:],
                                      chunk.dtype)], axis=0)
-            x = torch.from_numpy(chunk).to(self.device).to(self.dtype)
+            x = torch.from_numpy(chunk).to(self.device)
+            if self.input_mode == "clips":
+                x = x.to(self.dtype)
             logits = self._predict(x)
             out.append(logits[:take].float().cpu().numpy())
             i += take

@@ -8,8 +8,8 @@ first, so concurrent requests share one batched forward.
 
 The per-clip pipeline is the reference notebook's: decode -> linspace frame
 sample -> Resize(-1, 256) -> ThreeCrop(224) -> Normalize -> crop-mean logits
--> classmap lookup. Clips mode only (raw-uint8 requests need the device
-preprocessing, not ported yet).
+-> classmap lookup. With a raw-mode predictor the host only decodes to the
+canonical uint8 clip, and the eval recipe runs on the device.
 
 Endpoints:
     POST /predict   body = raw video bytes (mp4)   -> JSON top-5
@@ -68,9 +68,11 @@ class _Stats:
 class InferenceServer:
     """Batches concurrent predict calls onto one device thread.
 
-    ``predictor`` is any callable (B, n_crops, T, C, H, W) float32 ->
-    (B, num_class) logits that accepts every batch size up to
-    ``max_batch`` (TorchPredictor pads to its buckets internally)."""
+    ``predictor`` is any callable of a batch of requests -> (B, num_class)
+    logits that accepts every batch size up to ``max_batch``
+    (TorchPredictor pads to its buckets internally): (B, n_crops, T, C, H,
+    W) float32, or (B, T, raw_h, raw_w, 3) uint8 where its ``input_mode``
+    is "raw"."""
 
     def __init__(self, predictor, *, num_frames=8, frame_interval=32,
                  img_size=224, n_crops=3, max_batch=8, batch_window_ms=5.0,
@@ -125,8 +127,9 @@ class InferenceServer:
                         fut.set_exception(e)
 
     def submit(self, clip) -> Future:
-        """(n_crops, T, C, S, S) float32 clip -> Future of (num_class,)
-        logits."""
+        """clip -> Future of (num_class,) logits. The clip's layout follows
+        the predictor's input mode: (n_crops, T, C, S, S) float32, or the
+        canonical (T, H, W, 3) uint8 clip in raw mode."""
         dtype = getattr(self.predictor, "input_dtype", np.float32)
         fut = Future()
         self._queue.put((np.asarray(clip, dtype), fut, time.perf_counter()))
@@ -135,20 +138,46 @@ class InferenceServer:
     # ---- host side -------------------------------------------------------
 
     def preprocess_bytes(self, data: bytes):
-        """Decode raw video bytes + the notebook eval transform on the host
-        -> (n_crops, T, 3, S, S) float32."""
+        """Decode video bytes into the predictor's input layout: clips mode,
+        decode + the notebook eval transform on the host -> (n_crops, T, 3,
+        S, S) float32; raw mode, the canonical uint8 decode only -> (T,
+        raw_h, raw_w, 3) (server.py:137-158)."""
         from videotransformer_tpu_torch.tools.demo_inference import load_clip
 
         with tempfile.NamedTemporaryFile(suffix=".mp4", delete=False) as f:
             f.write(data)
             tmp = f.name
         try:
+            if getattr(self.predictor, "input_mode", "clips") == "raw":
+                return self._load_raw_clip(tmp)
             clip = load_clip(tmp, self.num_frames, self.frame_interval,
                              self.mean, self.std)
         finally:
             os.unlink(tmp)
         return np.asarray(clip).reshape(
             self.n_crops, self.num_frames, 3, self.img_size, self.img_size)
+
+    def _load_raw_clip(self, path):
+        """The dataset's raw-clip decode (server.py:160-176): the short edge
+        resized at decode, a temporal window from ``transforms``' generator,
+        frames spread over it from frame 0, cropped or padded to the
+        predictor's (raw_h, raw_w)."""
+        from videotransformer_tpu_torch.data import transforms as T
+        from videotransformer_tpu_torch.data.dataset import (
+            canonicalize_raw_clip)
+        from videotransformer_tpu_torch.data.video_reader import VideoReader
+
+        raw_h, raw_w = self.predictor.input_shape[1:3]
+        vr = VideoReader(path, short_edge=raw_h)
+        try:
+            start, end = T.TemporalRandomCrop(
+                self.num_frames * self.frame_interval)(len(vr))
+            indices = np.linspace(0, end - start - 1, self.num_frames,
+                                  dtype=int)
+            video = vr.get_batch(indices)  # (T, H, W, C) uint8
+        finally:
+            vr.close()
+        return canonicalize_raw_clip(video, (raw_h, raw_w))
 
     def predict_bytes(self, data: bytes, timeout=120.0):
         clip = self.preprocess_bytes(data)
@@ -230,8 +259,9 @@ def main():
     p.add_argument("--port", type=int, default=8471)
     p.add_argument("--classmap", default=None,
                    help="JSON {class name: id}, e.g. "
-                        "videotransformer_tpu/data/assets/k400_classmap.json; "
-                        "without it answers name classes by id")
+                        "videotransformer_tpu_torch/data/assets/"
+                        "k400_classmap.json; without it answers name "
+                        "classes by id")
     p.add_argument("--frame_interval", type=int, default=32)
     p.add_argument("--batch_window_ms", type=float, default=5.0)
     args = p.parse_args()

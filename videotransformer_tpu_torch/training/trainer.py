@@ -25,12 +25,20 @@ Shared by all:
   features (trainer.py:216-217, 407-410).
 - per-epoch cosine LR with warmup or multistep, the cosine weight-decay ramp
   on the decay group (``current_lr``, ``current_wd``).
+- ``raw_video`` batches, canonical uint8 clips (B, T, H, W, C): the train
+  step augments them on the device (``data/device_augment.py``) with the
+  supervised recipe of ``aug_scale``, ``aug_hflip``, ``aug_color`` and
+  ``auto_augment`` (trainer.py:380-396), or mim's fixed recipe
+  (trainer.py:328-346); the eval step runs the Center- or ThreeCrop recipe
+  on them (trainer.py:443-455). ``train_epoch``, ``validate`` and ``test``
+  read batches through ``data/pipeline.py::device_prefetch``.
 - per-parameter gradient clipping with the logged total norm, AdamW or
   SGD-nesterov (training/optimizer.py).
 - top-1/top-5 counts; eval over 1 or 3 crops (logits averaged over the
   crops), with ``label == -1`` rows counted nowhere (trainer.py:438-492).
-- last and best checkpoints with ``torch.save`` in place of orbax, and
-  resume (trainer.py:609-685). Saves are synchronous.
+- last, best and (mim) periodic checkpoints with ``torch.save`` in place
+  of orbax, and resume (trainer.py:546-552, 609-685). Saves are
+  synchronous.
 
 ``use_fp16`` means fp32 parameters with bf16 compute, as in the JAX package
 (trainer.py:54-57): the clip is cast to bf16 and every parameter is cast to
@@ -38,13 +46,12 @@ bf16 at its use, so on a CUDA device the kernels run forward and backward,
 and the gradients reach the fp32 parameters through the casts.
 
 Design for one device: the device is an argument and nothing moves to
-another one on its own; DropPath and mixup draw from one
-``torch.Generator`` on that device, seeded at each step from the seed and
-the global step (as the JAX trainer folds the step into its key,
-trainer.py:520), so a resumed run draws what an uninterrupted one would
-have drawn. There is no mesh. Not ported yet (they raise): data
-parallelism, ``raw_video`` batches (device augmentation) and the
-pretrained weight import; a mim run keeps no periodic checkpoint.
+another one on its own; the augment, mixup and DropPath draw, in that
+order, from one ``torch.Generator`` on that device, seeded at each step
+from the seed and the global step (as the JAX trainer folds the step into
+its key, trainer.py:520), so a resumed run draws what an uninterrupted one
+would have drawn. There is no mesh. Not ported yet (they raise): data
+parallelism and the pretrained weight import.
 """
 
 import os
@@ -53,8 +60,11 @@ import time
 
 import torch
 
+from videotransformer_tpu_torch.data.device_augment import (
+    augment_batch, draw_augment, eval_preprocess_batch)
 from videotransformer_tpu_torch.data.hog import batched_hog_targets
 from videotransformer_tpu_torch.data.mixup import Mixup
+from videotransformer_tpu_torch.data.pipeline import device_prefetch
 from videotransformer_tpu_torch.models.convert import (
     state_dicts_to_trainer_tree, trainer_tree_to_state_dicts)
 from videotransformer_tpu_torch.models.maskfeat import MaskFeat
@@ -63,6 +73,8 @@ from videotransformer_tpu_torch.models.vivit import ViViT
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.training import schedules
+from videotransformer_tpu_torch.training.data_module import (
+    dataset_statistics)
 from videotransformer_tpu_torch.training.metrics import (
     AccuracyMeter, topk_correct)
 from videotransformer_tpu_torch.training.optimizer import (
@@ -211,20 +223,47 @@ class VideoTransformerTrainer:
         return self.model(video, generator)
 
     # ------------------------------------------------------------------
+    def _augment(self, raw, mim=False):
+        """The train augment of uint8 clips (B, T, H, W, C) on the device,
+        its draws from ``self.generator``. Supervised: the recipe of the
+        configs (trainer.py:380-396) -> (B, T, C, S, S). mim: RandomResized
+        Crop scale (0.5, 1.0) and flip 0.5 only, whatever ``auto_augment``
+        says (trainer.py:339-346; the reference's fault (a), which the port
+        keeps) -> (normalised, before Normalize)."""
+        cfg = self.configs
+        if mim:
+            recipe = {"scale": (0.5, 1.0), "hflip": 0.5,
+                      "color": (0, 0, 0, 0), "auto_augment": False}
+        else:
+            recipe = {
+                "scale": tuple(getattr(cfg, "aug_scale", (0.08, 1.0))),
+                "hflip": getattr(cfg, "aug_hflip", 0.5),
+                "color": tuple(getattr(cfg, "aug_color",
+                                       (0.4, 0.4, 0.4, 0.0))),
+                "auto_augment": bool(getattr(cfg, "auto_augment", None))}
+        mean, std = dataset_statistics(getattr(cfg, "data_statics",
+                                               "kinetics"))
+        draws = draw_augment(self.generator, raw.shape, device=raw.device,
+                             **recipe)
+        return augment_batch(raw, out_size=cfg.img_size, mean=mean, std=std,
+                             with_raw=mim, draws=draws, **recipe)
+
     def train_step(self, batch, lr, wd):
         """One step: forward, backward, clip, update; counts one global step.
-        Supervised: ``{"video": (B, T, C, H, W) float, "label": (B,) int}``,
-        returning the loss, grad_norm, top1, top5 (device tensors) and bs.
-        mim: the batch of the module doc, returning the loss and grad_norm."""
+        Supervised: ``{"video": (B, T, C, H, W) float, "label": (B,) int}``
+        or ``{"raw_video": (B, T, H, W, C) uint8, "label"}``, returning the
+        loss, grad_norm, top1, top5 (device tensors) and bs. mim: the batch
+        of the module doc, or ``{"raw_video", "mask", "cube_marker",
+        "cube_count"}``, returning the loss and grad_norm."""
         self.generator.manual_seed(self.seed + self.global_step + 7919)
         self.global_step += 1
-        if "raw_video" in batch:
-            raise NotImplementedError("raw_video batches (device "
-                                      "augmentation) are not ported yet")
         if not self.supervised:
             return self._mim_step(batch, lr, wd)
-        video = _as_tensor(batch["video"], self.device, torch.float32)
         labels = _as_tensor(batch["label"], self.device)
+        if "raw_video" in batch:
+            video = self._augment(_as_tensor(batch["raw_video"], self.device))
+        else:
+            video = _as_tensor(batch["video"], self.device, torch.float32)
         soft = None
         if self.mixup_fn is not None:
             video, soft = self.mixup_fn(video, labels, self.generator)
@@ -269,15 +308,21 @@ class VideoTransformerTrainer:
 
     def _mim_step(self, batch, lr, wd):
         dev = self.device
-        video = _as_tensor(batch["video"], dev, torch.float32).to(self.dtype)
         mask = _as_tensor(batch["mask"], dev)
         markers = _as_tensor(batch["cube_marker"], dev)
         counts = _as_tensor(batch["cube_count"], dev)
+        if "raw_video" in batch:
+            video, raw = self._augment(_as_tensor(batch["raw_video"], dev),
+                                       mim=True)
+        else:
+            video = _as_tensor(batch["video"], dev, torch.float32)
+            raw = batch.get("raw")
+        video = video.to(self.dtype)
         if "hog" in batch:
             target = _as_tensor(batch["hog"], dev, torch.float32)
         else:
-            target = self._hog_targets(
-                _as_tensor(batch["raw"], dev, torch.float32), markers, counts)
+            target = self._hog_targets(_as_tensor(raw, dev, torch.float32),
+                                       markers, counts)
         self.optimizer.zero_grad()
         self.model.train()
         _, loss = self.model(video, target, mask, markers, counts,
@@ -290,12 +335,23 @@ class VideoTransformerTrainer:
     def eval_step(self, batch, n_crops):
         """Top-k counts of ``{"video": (B·n_crops, T, C, H, W), "label":
         (B,)}``, logits averaged over the crops; label -1 rows count
-        nowhere."""
+        nowhere. ``{"raw_video": (B, T, H, W, C) uint8, "label"}`` goes
+        through the eval recipe on the device first: CenterCrop, or
+        ThreeCrop when ``n_crops`` > 1 (trainer.py:443-455)."""
         if not self.supervised:
             raise ValueError("eval_step needs a supervised run (a mim run "
                              "has no head)")
         self.model.eval()
-        video = _as_tensor(batch["video"], self.device, self.dtype)
+        if "raw_video" in batch:
+            cfg = self.configs
+            mean, std = dataset_statistics(getattr(cfg, "data_statics",
+                                                   "kinetics"))
+            video = eval_preprocess_batch(
+                _as_tensor(batch["raw_video"], self.device),
+                img_size=cfg.img_size, three_crop=n_crops > 1, mean=mean,
+                std=std).to(self.dtype)
+        else:
+            video = _as_tensor(batch["video"], self.device, self.dtype)
         labels = _as_tensor(batch["label"], self.device)
         logits = self.cls_head(self._features(video))
         if n_crops > 1:
@@ -325,7 +381,7 @@ class VideoTransformerTrainer:
         wd = self.current_wd(max_epochs)
         self.train_meter.reset()
         data_start = time.perf_counter()
-        for i, batch in enumerate(loader):
+        for i, batch in enumerate(device_prefetch(loader, self.device)):
             data_time = time.perf_counter() - data_start
             stats = self.train_step(batch, lr, wd)
             if self.supervised:
@@ -333,7 +389,7 @@ class VideoTransformerTrainer:
                                         stats["bs"])
             if i % log_interval == 0:
                 step_time = time.perf_counter() - data_start
-                msg = (f"epoch {self.epoch} step {i} loss "
+                msg = (f"epoch {self.epoch} step {i}/{len(loader)} loss "
                        f"{float(stats['loss']):.4f} lr {lr:.3e} grad_norm "
                        f"{float(stats['grad_norm']):.3f} time {step_time:.3f} "
                        f"data_time {data_time:.3f}")
@@ -349,10 +405,15 @@ class VideoTransformerTrainer:
                 f"{self.train_meter.compute(5):.3f} of current training epoch")
         if self.ckpt_dir:
             self.save_checkpoint(osp.join(self.ckpt_dir, "last_checkpoint"))
+            freq = getattr(self.configs, "save_ckpt_freq", 20)
+            if not self.supervised and (self.epoch + 1) % freq == 0:
+                ts = time.strftime("%Y-%m-%d_%H-%M-%S", time.localtime())
+                self.save_checkpoint(osp.join(self.ckpt_dir,
+                                              f"{ts}_ep_{self.epoch}"))
 
     def _evaluate(self, loader, meter, n_crops, what):
         meter.reset()
-        for batch in loader:
+        for batch in device_prefetch(loader, self.device):
             stats = self.eval_step(batch, n_crops)
             meter.update({1: stats["top1"], 5: stats["top5"]}, stats["bs"])
         top1, top5 = meter.compute(1), meter.compute(5)

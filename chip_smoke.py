@@ -40,7 +40,22 @@ weights from a seed:
   of the uint8 and the float32 batch; raw-uint8 serving through the
   predictor and the server against the clips-mode predictor; and, where
   this machine has OpenCV, the CLI (model_pretrain.single_run) over the
-  bundled demo clips (decided before the phase, and printed either way).
+  bundled demo clips (decided before the phase, and printed either way);
+- checkpoint (a generator of its own, SEED + 4): B1 at the 448 serving
+  shape (192, 785, 768), its long variant, against its plain version and
+  stage by stage beside scaled_dot_product_attention; a synthetic ImageNet
+  ViT-B/16 .pth (full geometry, the original repo's naming) imported by the
+  trainer (-weights_from imagenet) into TimeSformer-B (divided; two steps)
+  and ViViT-B (fact_encoder, Conv3d inflation, 4 temporal layers copied;
+  one step), the missing and unexpected names asserted and every imported
+  leaf bit-equal to the file's; the TimeSformer's trainer checkpoint
+  exported by tools/export_serving.py for 224 and for 448 requests,
+  reloaded with load_predictor and served, 8 clips x 3 crops: at 224
+  bit-equal to the trainer's weights, at 448 (the 224 table resized on
+  every forward) against the plain versions, timed and profiled; the mim
+  phase's checkpoint into an arch=mvit supervised trainer (-pretrain_pth),
+  bit-equal, one step, and the same weights through a reference .pth
+  (save_reference_checkpoint) with no missing or unexpected key.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and must have gone through its kernels.
@@ -62,7 +77,8 @@ timed at ViViT-B's joint shape (8, 1569, 768), their long variant, and B5
 and B6 at the 16-frame joint shape (96, 3137, 3137), head dim 64: those
 rows are under "phases" and outside the totals. The last line is
 {"ok": true, "device": {...}}. Its phases took 178-221 s on an H100 (the
-six builds included; the data phase 22-28 s). B3's backward phases also
+six builds included; the data phase 22-28 s) before the checkpoint phase
+was added. B3's backward phases also
 time its whole call (with the projection products) beside its bound.
 Before the serving path it prints B1's, B2's, B3's and B4's stages
 (device ms a call) beside torch.matmul at each product's shape (and
@@ -70,9 +86,11 @@ scaled_dot_product_attention beside the long attention stage), and B2's
 fc1 with and without its GELU epilogue.
 """
 
+import copy
 import gc
 import importlib.util
 import json
+import os
 import subprocess
 import tempfile
 import threading
@@ -97,8 +115,9 @@ from videotransformer_tpu_torch.models.timesformer import (
     TimeSformer, get_vit_base_patch16_224)
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.serving.predictor import (
-    TorchPredictor, make_predict_fn)
+    TorchPredictor, load_predictor, make_predict_fn)
 from videotransformer_tpu_torch.serving.server import InferenceServer
+from videotransformer_tpu_torch.tools import export_serving
 from videotransformer_tpu_torch.tools.flash_bench import (
     FLASH_SHAPES, HD as MVIT_HD, JOINT_HD, JOINT_SHAPE, bound, flash_bounds,
     issue_us, sdpa_times, timed_ms)
@@ -402,15 +421,16 @@ def backward_phases(rng, phases=None):
     return report
 
 
-def stage_phases(rng):
+def stage_phases(rng, cases=None):
     """B1 at the serving shapes, B2 at the serving shape and one MViT width,
     B3's whole call at both train shapes and B4 at the TimeSformer train
     shape, stage by stage (device ms a call, torch.profiler), with
     torch.matmul's device ms at each product's GEMM shape beside them (a
     yardstick the port never calls), and B2's fc1 with and without its GELU
     epilogue; tools/fused_bench.py prints the same for every shape and
-    against another checkout's kernels."""
-    cases = [("fused_prenorm_mhsa", "dense spatial (192, 197, 768)",
+    against another checkout's kernels. ``cases``: (kernel, phase, shape,
+    block_diag or eps) in place of these."""
+    cases = cases or [("fused_prenorm_mhsa", "dense spatial (192, 197, 768)",
               (192, 197, D), 0),
              ("fused_prenorm_mhsa", "block-diagonal temporal (4704, 8, 768)",
               (4704, 8, D), 8),
@@ -460,8 +480,8 @@ def stage_phases(rng):
                     w[2], w[4])
             fn = lambda: fused_ffn._launch_backward(*args, 1e-5)
             products, pairs = FFN_PRODUCTS, ffn_products(args, *shape)
-        if shape == LONG_SHAPE:
-            note = long_attention_yardstick(rng, name.endswith("_bwd"))
+        if name.startswith("fused_prenorm_mhsa") and shape[1] > 256:
+            note = long_attention_yardstick(rng, shape, name.endswith("_bwd"))
         yard = matmul_ms(pairs)
         log(f"stages {name} [{label}] (device ms a call): "
             f"{format_stages(stage_times(fn, products))}; torch.matmul at "
@@ -470,12 +490,13 @@ def stage_phases(rng):
         del args, pairs
 
 
-def long_attention_yardstick(rng, backward):
+def long_attention_yardstick(rng, shape, backward):
     """scaled_dot_product_attention's device ms (forward, or backward) on q,
-    k, v of the long stage's shape (1, 96, 1569, 64), the library yardstick
-    beside B1's and B3's long attention stage (fused_bench.sdpa_long_ms)."""
-    ms = sdpa_long_ms(rng, LONG_SHAPE)[int(backward)]
-    bh, L = LONG_SHAPE[0] * HEADS, LONG_SHAPE[1]
+    k, v of the long stage at x's ``shape`` (B, L, D): (1, B·H, L, D/H), the
+    library yardstick beside B1's and B3's long attention stage
+    (fused_bench.sdpa_long_ms)."""
+    ms = sdpa_long_ms(rng, shape)[int(backward)]
+    bh, L = shape[0] * HEADS, shape[1]
     return (f"; scaled_dot_product_attention "
             f"{'backward' if backward else 'forward'} on the attention "
             f"stage's q, k, v (1, {bh}, {L}, {D // HEADS}): {ms:.4f} ms")
@@ -756,6 +777,13 @@ def run_train_steps(tree, batch, configs=None, n=TRAIN_STEPS):
     CUDA-event ms."""
     tr = trainer_mod.VideoTransformerTrainer(configs or train_configs(),
                                              "cuda", params=tree)
+    return tr, take_steps(tr, batch, n)
+
+
+def take_steps(tr, batch, n):
+    """``n`` supervised steps of the trainer ``tr``, the counts from 0 before
+    each: per step the stats, the kernel launches, B1's and B3's attention
+    variants and the CUDA-event ms."""
     steps = []
     for _ in range(n):
         reset_counts()
@@ -771,7 +799,7 @@ def run_train_steps(tree, batch, configs=None, n=TRAIN_STEPS):
                       "attention": dict(fused_mhsa.ATTENTION_LAUNCHES),
                       "attention_bwd": dict(fused_mhsa.ATTENTION_BWD_LAUNCHES),
                       "ms": start.elapsed_time(end)})
-    return tr, steps
+    return steps
 
 
 def plain_versions():
@@ -1596,6 +1624,298 @@ def data_phase(predictor, card):
     return launches, {"augment_ms": aug, **train}
 
 
+# ---------------------------------------------------------------- checkpoints
+
+# TimeSformer-B served at 448² from its 224 position table (resized on every
+# forward), 8 clips x 3 crops: divided spatial rows of 1 + 28·28 = 785
+# tokens (B1's long variant), temporal rows of 8, B2 over 24·(1 + 8·784)
+# rows. Its B1 row is a kernel phase of its own, drawn from the checkpoint
+# phase's generator
+HI_IMG = 448
+HI_SHAPE = (CLIPS * CROPS * FRAMES, 1 + (HI_IMG // 16) ** 2, D)
+HI_LABEL = f"long divided spatial at {HI_IMG} {HI_SHAPE}"
+HI_FWD_PHASES = [("fused_prenorm_mhsa", HI_LABEL, HI_SHAPE, 0, 1e-5, False,
+                  1)]
+# B1's attention kernels on a TimeSformer forward at 448: the long one for
+# the 12 spatial calls, the packed one for the 12 temporal calls
+HI_ATTENTION = {"packed": DEPTH, "dense": 0, "long": DEPTH, "general": 0}
+
+
+def vit_b16_state_dict(rng):
+    """A synthetic ImageNet ViT-B/16 checkpoint in the original repo's
+    naming, the JAX package's tests/test_checkpoint_surgery.py
+    _fake_vit_ckpt at full geometry: 12 layers, 768 wide, 14x14 + 1
+    positions, no temporal parts; std 0.02, LayerNorm scales 1 + 0.02·N."""
+    def n(*shape, mean=0.0):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32) * 0.02 + mean)
+
+    P = (IMG // 16) ** 2
+    sd = {"cls_token": n(1, 1, D), "pos_embed": n(1, P + 1, D),
+          "patch_embed.projection.weight": n(D, 3, 16, 16),
+          "patch_embed.projection.bias": n(D)}
+    for i in range(DEPTH):
+        pre = f"transformer_layers.layers.{i}"
+        sd.update({f"{pre}.attentions.0.norm.weight": n(D, mean=1.0),
+                   f"{pre}.attentions.0.norm.bias": n(D),
+                   f"{pre}.attentions.0.attn.qkv.weight": n(3 * D, D),
+                   f"{pre}.attentions.0.attn.qkv.bias": n(3 * D),
+                   f"{pre}.attentions.0.attn.proj.weight": n(D, D),
+                   f"{pre}.attentions.0.attn.proj.bias": n(D),
+                   f"{pre}.ffns.0.norm.weight": n(D, mean=1.0),
+                   f"{pre}.ffns.0.norm.bias": n(D),
+                   f"{pre}.ffns.0.layers.0.0.weight": n(4 * D, D),
+                   f"{pre}.ffns.0.layers.0.0.bias": n(4 * D),
+                   f"{pre}.ffns.0.layers.1.weight": n(D, 4 * D),
+                   f"{pre}.ffns.0.layers.1.bias": n(D)})
+    sd.update({"norm.weight": n(D, mean=1.0), "norm.bias": n(D)})
+    return sd
+
+
+def check_import(what, tr, imported, missing, unexpected=()):
+    """The trainer's import reported ``missing`` and ``unexpected``, and
+    every imported leaf on the card equals ``imported`` (the file's values
+    after the surgery's layout transforms) to the bit."""
+    got_missing, got_unexpected = tr.pretrained_keys
+    own = tr.model.state_dict()
+    differ = [k for k, v in imported.items()
+              if k in own and not torch.equal(own[k].cpu(),
+                                              torch.as_tensor(v))]
+    log(f"{what} import: {len(imported)} keys from the file, missing "
+        f"{len(got_missing)} {sorted(got_missing)[:3]}..., unexpected "
+        f"{got_unexpected}; leaves not bit-equal to the file: {differ}")
+    assert sorted(got_missing) == sorted(missing), got_missing
+    assert sorted(got_unexpected) == sorted(unexpected), got_unexpected
+    assert not differ, differ
+    assert all(own[k].device.type == "cuda" for k in own)
+
+
+def supervised_batch(rng, frames):
+    return {"video": torch.from_numpy(rng.standard_normal(
+        (TRAIN_CLIPS, frames, 3, IMG, IMG), dtype=np.float32)).to("cuda"),
+        "label": torch.from_numpy(rng.integers(0, CLASSES, TRAIN_CLIPS)).to(
+            "cuda")}
+
+
+def check_import_steps(what, steps, want, attention, attention_bwd):
+    for i, st in enumerate(steps):
+        log(f"{what} step {i}: loss {st['loss']:.6f}, grad_norm "
+            f"{st['grad_norm']:.6f}, {st['ms']:.2f} ms; launches "
+            f"{st['launches']}, attention {st['attention']}, backward "
+            f"{st['attention_bwd']}")
+        assert np.isfinite([st["loss"], st["grad_norm"]]).all(), st
+        assert st["launches"] == want, (what, i, st["launches"])
+        assert st["attention"] == attention, (what, i, st["attention"])
+        assert st["attention_bwd"] == attention_bwd, \
+            (what, i, st["attention_bwd"])
+
+
+def export_from_checkpoint(ckpt, out, img_size):
+    """tools/export_serving.py over the trainer's checkpoint: TimeSformer-B
+    built at 224, the checkpoint loaded strictly, the artifact for
+    ``img_size`` requests written to ``out``; the predictor loaded back on
+    the card."""
+    export_serving.main(["--out", out, "--ckpt", ckpt, "--ckpt_format",
+                         "port", "--num_frames", str(FRAMES), "--num_class",
+                         str(CLASSES), "--img_size", str(img_size)])
+    return load_predictor(out, "cuda")
+
+
+def served_forward(predictor, clips):
+    """One served batch through ``predictor`` (numpy in, numpy out), the
+    counts from 0 before it: (logits, launches, B1's attention variants)."""
+    reset_counts()
+    logits = predictor(clips)
+    torch.cuda.synchronize()
+    return logits, read_counts(), dict(fused_mhsa.ATTENTION_LAUNCHES)
+
+
+def serve_at_224(predictor, tr, rng):
+    """8 clips x 3 crops through the reloaded predictor, against the
+    trainer's model and head cast as the predictor casts them (bf16
+    backbone, fp32 head) on the same clips: bit-equal."""
+    clips = rng.standard_normal((CLIPS, CROPS, FRAMES, 3, IMG, IMG),
+                                dtype=np.float32)
+    logits, counts, attention = served_forward(predictor, clips)
+    with torch.inference_mode():
+        want = make_predict_fn(
+            copy.deepcopy(tr.model).to(torch.bfloat16).eval(),
+            copy.deepcopy(tr.cls_head).eval(), CLASSES, CROPS)(
+                torch.from_numpy(clips).to("cuda", torch.bfloat16))
+    want = want.float().cpu().numpy()
+    log(f"checkpoint serving at {IMG}: {CLIPS} clips x {CROPS} crops, "
+        f"launches {counts}, attention {attention}; logits against the "
+        f"trainer's weights: max|diff| {np.abs(logits - want).max():.3e}, "
+        f"bit-equal {np.array_equal(logits, want)}")
+    assert attention == TIMESFORMER_ATTENTION, attention
+    assert counts["fused_prenorm_mhsa"] == 2 * DEPTH and \
+        counts["fused_prenorm_ffn"] == DEPTH, counts
+    assert logits.shape == (CLIPS, CLASSES) and np.isfinite(logits).all()
+    assert np.array_equal(logits, want)
+    return counts
+
+
+def serve_at_448(predictor, rng, card):
+    """8 clips x 3 crops at 448² through the predictor exported for 448
+    (a 224 model, its table resized on every forward): the head set by
+    prototype_head from the plain features, the served logits against the
+    same forward through the plain versions (SLICE_REL_TOL, argmax equal by
+    a margin >= 1), B1 long 12 and packed 12; then timed and profiled."""
+    clips = rng.standard_normal((CLIPS, CROPS, FRAMES, 3, HI_IMG, HI_IMG),
+                                dtype=np.float32)
+    batch = torch.from_numpy(clips).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        u_min, cos_max = prototype_head(predictor, batch)
+    logits, counts, attention = served_forward(predictor, clips)
+    predict = make_predict_fn(predictor.model, predictor.head, CLASSES,
+                              CROPS)
+    with torch.inference_mode():
+        plain = with_patches(plain_forward(), predict, batch).float()
+        plain = plain.cpu().numpy()
+        err = np.abs(logits - plain).max()
+        scale = np.abs(plain).max()
+        top2 = -np.sort(-plain, axis=1)[:, :2]
+        gap = (top2[:, 0] - top2[:, 1]).min()
+        margin = gap / (2 * err) if err > 0 else float("inf")
+        log(f"checkpoint serving at {HI_IMG}: launches {counts}, attention "
+            f"{attention}; head prototypes (smallest |u_i| {u_min:.4e}, "
+            f"largest cos {cos_max:.4f}); logits max|kernel-plain| "
+            f"{err:.4e}, max|plain| {scale:.4e}, rel {err / scale:.3e} (tol "
+            f"{SLICE_REL_TOL}); smallest top-1 minus top-2 gap {gap:.4e} "
+            f"(margin x{margin:.2f})")
+        assert attention == HI_ATTENTION, attention
+        assert counts["fused_prenorm_mhsa"] == 2 * DEPTH and \
+            counts["fused_prenorm_ffn"] == DEPTH, counts
+        assert logits.shape == (CLIPS, CLASSES) and np.isfinite(logits).all()
+        assert err <= SLICE_REL_TOL * scale, (err, scale)
+        assert (logits.argmax(1) == plain.argmax(1)).all()
+        assert (plain.argmax(1) == np.arange(CLIPS)).all()
+        assert margin >= 1, (gap, err)
+        plain_ms = with_patches(plain_forward(), timed_ms,
+                                lambda: predict(batch), 1, 0, False)
+        ms = timed_ms(lambda: predict(batch), iters=5, warmup=1,
+                      queued=False)
+        log(f"checkpoint serving at {HI_IMG}: batch of {CLIPS} clips x "
+            f"{CROPS} crops, {ms:.2f} ms (plain versions {plain_ms:.2f} ms), "
+            f"{CLIPS / ms * 1e3:.1f} clips/s on {card}")
+        gc.collect()
+        profile_forward(lambda: predict(batch), ms, n=2,
+                        what=f"{HI_IMG} forward")
+    return counts
+
+
+def maskfeat_handoff(rng, mim_ckpt, tmp):
+    """The mim phase's checkpoint into an arch=mvit supervised trainer
+    (``-pretrain_pth``: the port's own checkpoint, params only): the
+    backbone bit-equal before its step; the same weights through a
+    reference .pth (save_reference_checkpoint) into a fresh MaskFeat with
+    no missing and no unexpected key; then one step through B2/B4/B5/B6."""
+    cfg = SimpleNamespace(**{**vars(mim_configs("supervised")),
+                             "pretrain_pth": mim_ckpt})
+    tr = trainer_mod.VideoTransformerTrainer(cfg, "cuda")
+    saved = torch.load(mim_ckpt, map_location="cpu", weights_only=True)
+    check_import("MaskFeat -> arch=mvit", tr, saved["model"], [])
+    ref = os.path.join(tmp, "maskfeat.pth")
+    convert.save_reference_checkpoint(tr.model, ref)
+    fresh = trainer_mod.build_model(cfg)
+    missing, unexpected = convert.init_maskfeat_from_kinetics_pretrain(
+        fresh, ref, verbose=False)
+    own = tr.model.state_dict()
+    differ = [k for k, v in fresh.state_dict().items()
+              if not torch.equal(v, own[k].cpu())]
+    log(f"MaskFeat reference .pth: {len(own)} keys, missing {missing}, "
+        f"unexpected {unexpected}, leaves not bit-equal {differ}")
+    assert not missing and not unexpected and not differ
+    del fresh
+    batch = {"video": torch.from_numpy(rng.standard_normal(
+        (MIM_CLIPS, MIM_FRAMES, 3, IMG, IMG), dtype=np.float32)).to("cuda"),
+        "label": torch.from_numpy(rng.integers(0, CLASSES, MIM_CLIPS)).to(
+            "cuda")}
+    reset_counts()
+    stats = tr.train_step(batch, MIM_LR, MIM_WD)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"arch=mvit step from the MaskFeat checkpoint: loss "
+        f"{float(stats['loss']):.6f}, grad_norm "
+        f"{float(stats['grad_norm']):.6f}, launches {launches}")
+    assert np.isfinite([float(stats["loss"]), float(stats["grad_norm"])]).all()
+    assert launches == MIM_WANT, launches
+    return launches
+
+
+def checkpoint_phase(card, mim_ckpt, tmp):
+    """Weights in and out of the port, at full width, with its own
+    generator (SEED + 4): B1's long row at the 448 serving shape against
+    its plain version, and its stages; TimeSformer-B (divided) and ViViT-B
+    (fact_encoder) imported from a synthetic ViT-B/16 .pth by the trainer
+    (-weights_from imagenet), two and one steps; the TimeSformer's
+    checkpoint exported by tools/export_serving.py for 224 and 448
+    requests, reloaded, served; the MaskFeat handoff. Returns the launches
+    of the main-path runs (steps and served batches) and the kernel
+    report's rows."""
+    rng = np.random.default_rng(SEED + 4)
+    with torch.inference_mode():
+        report = kernel_phases(rng, HI_FWD_PHASES)
+        assert report[0]["variant"] == "long", report
+        stage_phases(rng, [("fused_prenorm_mhsa", HI_LABEL, HI_SHAPE, 0)])
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def add(counts):
+        for n in KERNEL_NAMES:
+            launches[n] += counts[n]
+
+    vit = os.path.join(tmp, "vit_b16.pth")
+    torch.save(vit_b16_state_dict(rng), vit)
+    imported = convert.surgery_from_vit_pretrain(
+        convert.load_torch_state_dict(vit), "Conv2d", "divided_space_time",
+        "repeat")
+    cfg = SimpleNamespace(**{**vars(train_configs()), "pretrain_pth": vit,
+                             "weights_from": "imagenet"})
+    tr = trainer_mod.VideoTransformerTrainer(cfg, "cuda")
+    check_import("TimeSformer-B from ViT-B/16", tr, imported, ["time_embed"] + [
+        f"transformer_layers.layers.{i}.attentions.0.temporal_fc.{leaf}"
+        for i in range(DEPTH) for leaf in ("weight", "bias")])
+    steps = take_steps(tr, supervised_batch(rng, FRAMES), 2)
+    check_import_steps("TimeSformer-B from ViT-B/16", steps, {
+        "fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
+        "fused_prenorm_mhsa_bwd": 2 * DEPTH, "fused_prenorm_ffn_bwd": DEPTH,
+        "flash_attention": 0, "flash_attention_bwd": 0},
+        TIMESFORMER_ATTENTION, TIMESFORMER_ATTENTION)
+    for st in steps:
+        add(st["launches"])
+    ckpt = os.path.join(tmp, "timesformer_b.ckpt")
+    tr.save_checkpoint(ckpt)
+
+    predictor = export_from_checkpoint(ckpt, os.path.join(tmp, "a224"), IMG)
+    add(serve_at_224(predictor, tr, rng))
+    del predictor, tr
+    torch.cuda.empty_cache()
+    predictor = export_from_checkpoint(ckpt, os.path.join(tmp, "a448"),
+                                       HI_IMG)
+    add(serve_at_448(predictor, rng, card))
+    del predictor
+    torch.cuda.empty_cache()
+
+    cfg = SimpleNamespace(**{**vars(vivit_configs("fact_encoder")),
+                             "pretrain_pth": vit,
+                             "weights_from": "imagenet"})
+    tr = trainer_mod.VideoTransformerTrainer(cfg, "cuda")
+    check_import("ViViT-B fact_encoder from ViT-B/16", tr,
+                 convert.surgery_from_vit_pretrain(
+                     convert.load_torch_state_dict(vit), "Conv3d",
+                     "fact_encoder", "repeat"), ["time_embed"])
+    steps = take_steps(tr, supervised_batch(rng, VIVIT_FRAMES), 1)
+    check_import_steps("ViViT-B fact_encoder from ViT-B/16", steps,
+                       *VIVIT_WANT["fact_encoder"])
+    add(steps[0]["launches"])
+    del tr
+    torch.cuda.empty_cache()
+
+    add(maskfeat_handoff(rng, mim_ckpt, tmp))
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is visible")
@@ -1742,6 +2062,10 @@ def main():
     mim_launches, mim_trainer, mim_data = mim_slice(rng, card)
     t0 = lap("mim", t0)
     mim_forward_check(mim_trainer, mim_data)
+    # the checkpoint phase's MaskFeat handoff starts from this checkpoint
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    mim_ckpt = os.path.join(scratch.name, "mim_last_checkpoint")
+    mim_trainer.save_checkpoint(mim_ckpt)
     del mim_trainer, mim_data
     torch.cuda.empty_cache()
     mvit_launches = mvit_supervised_step(rng)
@@ -1753,6 +2077,17 @@ def main():
     data_launches, data_numbers = data_phase(predictor, card)
     del predictor
     t0 = lap("data", t0)
+    torch.cuda.empty_cache()
+
+    # ---- weights in and out: counts from 0 before each step and each
+    # served batch (checkpoint_phase)
+    try:
+        ckpt_launches, ckpt_report = checkpoint_phase(card, mim_ckpt,
+                                                      scratch.name)
+    finally:
+        scratch.cleanup()
+    report += ckpt_report
+    t0 = lap("checkpoint", t0)
 
     src, jax_src = "videotransformer_tpu_torch/csrc/", \
         "videotransformer_tpu/kernels/"
@@ -1784,7 +2119,8 @@ def main():
                    "mvit": mvit_launches[name],
                    "vivit": vivit_launches[name],
                    "timesformer_types": types_launches[name],
-                   "data": data_launches[name]}
+                   "data": data_launches[name],
+                   "checkpoint": ckpt_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -10,6 +10,8 @@ The plain version runs in fp32 from the same bf16 inputs; tolerance
 1e-2 · max|plain| for every output (forward, and each gradient of the
 backward kernels), about two bf16 ulps of the output scale."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -86,6 +88,7 @@ def _mhsa_case(rng, B, N, D, Da, H):
     (2, 100, 128, 128, 2, 0, "dense"),      # one key product (L <= 128)
     (3, 250, 128, 128, 2, 0, "dense"),      # 256 keys
     (2, 1569, 768, 768, 12, 0, "long"),     # joint space-time, 8 frames
+    (16, 785, 768, 768, 12, 0, "long"),     # divided spatial at 448², 2x8
     (3, 300, 256, 128, 2, 0, "long"),       # ragged L, Da != D
     (2, 1000, 128, 192, 3, 0, "long"),
 ])
@@ -169,6 +172,67 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
         gpu = model.to(cuda_device)(clip.to(cuda_device)).float().cpu()
     assert (fused_mhsa.LAUNCHES - m0, fused_ffn.LAUNCHES - f0) == (4, 2)
     assert _rel_err(gpu, cpu) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_model_at_another_size_never_syncs(cuda_device):
+    """A 2-layer D=64 TimeSformer with an 8x8 position table on 160²
+    clips (the table resized to 10x10 on every forward): the card against
+    the CPU, the card's forward under ``set_sync_debug_mode("error")``
+    (the resize weights go up once, from pinned memory, without a
+    wait)."""
+    model = TimeSformer(num_frames=4, img_size=128, embed_dims=64,
+                        num_heads=4, num_transformer_layers=2)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    model = model.to(torch.bfloat16).eval()
+    clip = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 4, 3, 160, 160), dtype=np.float32)).to(torch.bfloat16)
+    with torch.inference_mode():
+        cpu = model(clip).float()
+        model.to(cuda_device)
+        native = clip[..., :128, :128].to(cuda_device)
+        model(native)  # the kernels built and loaded, at the native size
+        clip = clip.to(cuda_device)
+        torch.cuda.synchronize()
+        m0 = fused_mhsa.LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gpu = model(clip)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        gpu = gpu.float().cpu()
+    assert fused_mhsa.LAUNCHES - m0 == 4
+    assert _rel_err(gpu, cpu) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_pretrained_import_on_card_matches_cpu(cuda_device, monkeypatch,
+                                               tmp_path):
+    """The trainer's ImageNet import (``-pretrain_pth``) on the card: every
+    parameter bit-equal to the CPU trainer's, the same missing and
+    unexpected names."""
+    build = lambda c: TimeSformer(num_frames=2, img_size=32, embed_dims=64,
+                                  num_heads=4, num_transformer_layers=2)
+    monkeypatch.setattr(trainer_mod, "build_model", build)
+    vit = build(None)
+    vit.reset_parameters(torch.Generator().manual_seed(5))
+    path = str(tmp_path / "vit.pth")
+    torch.save({k: v for k, v in vit.state_dict().items()
+                if "attentions.1" not in k and "temporal_fc" not in k
+                and k != "time_embed"}, path)
+    cfg = SimpleNamespace(
+        objective="supervised", arch="timesformer",
+        attention_type="divided_space_time", num_class=10, num_frames=2,
+        img_size=32, optim_type="adamw", clip_grad=1.0, seed=0, mixup=False,
+        use_fp16=True, pretrain_pth=path, weights_from="imagenet")
+    cpu = trainer_mod.VideoTransformerTrainer(cfg, "cpu")
+    card = trainer_mod.VideoTransformerTrainer(cfg, cuda_device)
+    assert card.pretrained_keys == cpu.pretrained_keys
+    assert "time_embed" in cpu.pretrained_keys[0]
+    want = cpu.model.state_dict()
+    for k, v in card.model.state_dict().items():
+        assert v.device.type == "cuda"
+        assert torch.equal(v.cpu(), want[k]), k
 
 
 def _mhsa_bwd_case(rng, B, N, D, H, block_diag, res):

@@ -168,13 +168,6 @@ def test_attention_types_build_the_jax_parameters(attention_type):
                           strict=True)
 
 
-def test_other_resolution_raises():
-    model = TimeSformer(**CFG)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="native resolution"):
-        model(torch.zeros(1, 4, 3, 96, 96))
-
-
 def test_port_never_imports_jax():
     """No module of the port, nor chip_smoke.py, imports jax, flax or any
     module of the JAX package."""
@@ -182,6 +175,10 @@ def test_port_never_imports_jax():
     for root, _, names in os.walk(os.path.join(REPO,
                                                "videotransformer_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    port = os.path.join(REPO, "videotransformer_tpu_torch")
+    for new in ("serving/export.py", "tools/export_serving.py",
+                "tools/demo_inference.py", "models/convert.py"):
+        assert os.path.join(port, new) in files, new
     banned = ("jax", "flax")
     for path in files:
         with open(path) as f:
@@ -328,6 +325,30 @@ def test_slice_runs_with_jax_and_flax_blocked():
             [(c, 0) for c in raw.numpy()], 2, collate_fn=pipeline.collate_raw,
             worker_timeout=30.0), "cpu"))
         assert batches[0]["raw_video"].dtype == torch.uint8
+        # the checkpoint path: a reference .pth into the trainer, the
+        # port's export read back by load_predictor, the tools' build_model
+        import os, tempfile
+        from videotransformer_tpu_torch.models import convert
+        from videotransformer_tpu_torch.serving.export import (
+            export_predictor)
+        from videotransformer_tpu_torch.serving.predictor import (
+            load_predictor)
+        from videotransformer_tpu_torch.tools import (
+            demo_inference, export_serving)
+        with tempfile.TemporaryDirectory() as tmp:
+            convert.save_reference_checkpoint(st.model, f"{tmp}/m.pth")
+            ft = trainer.VideoTransformerTrainer(SimpleNamespace(
+                **{**vars(cfg), "pretrain_pth": f"{tmp}/m.pth"}), "cpu")
+            assert ft.pretrained_keys == ([], [])
+            export_predictor(tmp, model, head, num_frames=4, num_class=10,
+                             img_size=160, buckets=(1,))
+            big = load_predictor(tmp, "cpu", num_heads=4,
+                                 dtype=torch.float32)
+            big_clip = np.random.RandomState(5).rand(
+                1, 3, 4, 3, 160, 160).astype(np.float32)
+            assert np.isfinite(big(big_clip)).all()
+        assert callable(export_serving.main) and callable(
+            demo_inference.build_model)
         blocked = ("jax", "flax", "videotransformer_tpu")
         assert all(sys.modules.get(m) is None for m in blocked)
         assert not [m for m in sys.modules

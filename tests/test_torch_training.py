@@ -359,20 +359,10 @@ def test_other_archs_build_the_jax_trainers_models(arch, attention_type):
     assert max(rates) == pytest.approx(0.2)
 
 
-@pytest.mark.parametrize("what", ["arch", "pretrain_pth", "resolution"])
+@pytest.mark.parametrize("what", ["arch"])
 def test_unported_options_still_raise(what):
-    """What the port still refuses: an unknown arch (as the JAX trainer
-    does), the pretrained-weight import, and position tables at another
-    resolution than the native one."""
-    if what == "arch":
-        with pytest.raises(ValueError, match="swin"):
-            ptrainer.build_model(_configs(arch="swin"))
-    elif what == "pretrain_pth":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ptrainer.VideoTransformerTrainer(
-                _configs(pretrain_pth="vit.pth"), "cpu")
-    else:
-        model = TimeSformer(**TINY)
-        model.reset_parameters(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="native resolution"):
-            model(torch.zeros(1, 2, 3, 48, 48))
+    """What the port still refuses: an unknown arch, as the JAX trainer
+    does. (The pretrained-weight import and other resolutions are ported:
+    tests/test_torch_checkpoint*.py and test_torch_export.py.)"""
+    with pytest.raises(ValueError, match="swin"):
+        ptrainer.build_model(_configs(**{what: "swin"}))

@@ -19,13 +19,22 @@ model has an ``mvit`` subtree) takes pytorchvideo's names on top, those of
 ``mlp.fc1``, ``attn.pool_q.weight``), so a MaskFeat checkpoint of the
 original repo loads too. A MaskFeat pretraining tree has no ``cls_head``.
 
+The second half is the checkpoint ecosystem of the JAX package's
+``models/convert.py``: reading the original repo's ``.pth`` files, the
+ViT, MAE and Kinetics surgery on their state dicts, the non-strict merge
+into a module, and the reference ``.pth`` export. Its output names are the
+port's module names, so there is no flax conversion step.
+
 This is a port, not an import: importing ``videotransformer_tpu.models``
 needs jax and flax, which the card's machine does not have.
 """
 
+import argparse
+import os
 import re
 
 import numpy as np
+import torch
 
 _INDEXED = re.compile(r"(layers|attentions|ffns|blocks)_(\d+)")
 # a ViViT fact_encoder's stacks: flax name <-> torch name
@@ -234,3 +243,281 @@ def state_dicts_to_trainer_tree(model_sd, head_sd=None):
     if head_sd is not None:
         tree["cls_head"] = unflatten_tree(state_dict_to_jax_flat(head_sd))
     return tree
+
+
+# ---------------------------------------------------------------------------
+# checkpoint import: the original repo's weight_init.py surgery, ported from
+# the JAX package's convert.py:42-258, 362-451 (numpy arrays throughout)
+# ---------------------------------------------------------------------------
+
+def read_checkpoint(path):
+    """``torch.load`` of a ``.pth``/``.pt`` file onto the CPU.
+
+    Loaded with ``weights_only=True`` (tensors, containers and plain
+    scalars), with ``argparse.Namespace`` allowed on top, which a Lightning
+    checkpoint of the original repo holds under ``hyper_parameters``. The
+    JAX package loads with ``weights_only=False``, which runs whatever the
+    pickle names: a downloaded checkpoint is outside input, so the port
+    unpickles nothing else, and a file that holds another object raises
+    (torch names the refused global)."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_torch_state_dict(checkpoint):
+    """A checkpoint (a path, or what ``read_checkpoint`` returned for one)
+    -> {key: np.ndarray}: the ``state_dict`` entry if there is one, then the
+    ``model`` entry if every other entry is not a tensor (convert.py:42-53);
+    entries that are not tensors are dropped."""
+    state = read_checkpoint(checkpoint) if isinstance(checkpoint, (
+        str, bytes, os.PathLike)) else checkpoint
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    if isinstance(state, dict) and "model" in state and all(
+            not torch.is_tensor(v) for k, v in state.items() if k != "model"):
+        state = state["model"]
+    return {k: v.detach().cpu().numpy() for k, v in state.items()
+            if torch.is_tensor(v)}
+
+
+def replace_state_dict(state_dict):
+    """Strip the Lightning prefixes (convert.py:56-69): ``model.`` off the
+    backbone's keys with ``in_proj_ -> qkv.`` and ``out_proj -> proj``,
+    and 9 characters off every other key (``cls_head.cls_head.weight ->
+    cls_head.weight``)."""
+    out = {}
+    for old_key, v in state_dict.items():
+        if old_key.startswith("model"):
+            new_key = old_key[6:]
+            if "in_proj" in new_key:
+                new_key = new_key.replace("in_proj_", "qkv.")
+            elif "out_proj" in new_key:
+                new_key = new_key.replace("out_proj", "proj")
+        else:
+            new_key = old_key[9:]
+        out[new_key] = v
+    return out
+
+
+def _inflate(weight, tube_size, extend_strategy):
+    """A Conv2d kernel (o, i, kh, kw) -> the Conv3d tubelet kernel (o, i,
+    tube_size, kh, kw): the frame repeated and divided by tube_size
+    (``temporal_avg``), or in the centre frame alone (``center_frame``). The
+    original repo's center_frame zeroes an expanded view of the source and
+    so leaves the whole kernel zero; the JAX package writes the intended
+    kernel (convert.py:91-99), and so does the port."""
+    new_weight = np.repeat(weight[:, :, None], tube_size, axis=2)
+    if extend_strategy == "temporal_avg":
+        new_weight = new_weight / tube_size
+    elif extend_strategy == "center_frame":
+        new_weight = np.zeros_like(new_weight)
+        new_weight[:, :, tube_size // 2] = weight
+    return new_weight
+
+
+def _copy_temporal(state_dict, attention_type, copy_strategy,
+                   num_time_transformer_layers):
+    """Divided attention: ``attentions.0`` copied to ``attentions.1``.
+    fact_encoder: the first ``num_time_transformer_layers`` spatial layers
+    copied to the temporal stack ``transformer_layers.1``. ``repeat``
+    copies the values, ``set_zero`` writes zeros (convert.py:122-138)."""
+    for old_key in list(state_dict):
+        new_key = None
+        if attention_type == "divided_space_time":
+            if "attentions.0" in old_key:
+                new_key = old_key.replace("attentions.0", "attentions.1")
+        elif attention_type == "fact_encoder":
+            matches = re.findall(r"(?<=layers\.)\d+", old_key)
+            if len(matches) > 1 and int(matches[1]) < \
+                    num_time_transformer_layers:
+                new_key = old_key.replace("transformer_layers.0.layers",
+                                          "transformer_layers.1.layers")
+        if new_key is None:
+            continue
+        if copy_strategy == "repeat":
+            state_dict[new_key] = state_dict[old_key].copy()
+        elif copy_strategy == "set_zero":
+            state_dict[new_key] = np.zeros_like(state_dict[old_key])
+    return state_dict
+
+
+def surgery_from_vit_pretrain(state_dict, conv_type, attention_type,
+                              copy_strategy="repeat",
+                              extend_strategy="temporal_avg", tube_size=2,
+                              num_time_transformer_layers=4):
+    """An image ViT's state dict in the original repo's naming -> the video
+    model's (convert.py:72-139): the patch kernel inflated for Conv3d,
+    ``transformer_layers.layers`` -> ``transformer_layers.0.layers`` for
+    fact_encoder, ``in_proj_``/``out_proj`` -> ``qkv.``/``proj``,
+    ``norms.{0,1}`` -> ``attentions.0.norm``/``ffns.0.norm``, then the
+    temporal copies (``_copy_temporal``)."""
+    state_dict = dict(state_dict)
+    for old_key in list(state_dict):
+        if conv_type == "Conv3d" and "patch_embed.projection.weight" in old_key:
+            state_dict[old_key] = _inflate(state_dict[old_key], tube_size,
+                                           extend_strategy)
+            continue
+        new_key = old_key
+        if attention_type == "fact_encoder":
+            new_key = new_key.replace("transformer_layers.layers",
+                                      "transformer_layers.0.layers")
+        if "in_proj" in new_key:
+            new_key = new_key.replace("in_proj_", "qkv.")
+        elif "out_proj" in new_key:
+            new_key = new_key.replace("out_proj", "proj")
+        if "norms" in new_key:
+            new_key = new_key.replace("norms.0", "attentions.0.norm")
+            new_key = new_key.replace("norms.1", "ffns.0.norm")
+        state_dict[new_key] = state_dict.pop(old_key)
+    return _copy_temporal(state_dict, attention_type, copy_strategy,
+                          num_time_transformer_layers)
+
+
+def surgery_from_mae_pretrain(state_dict, conv_type, attention_type,
+                              copy_strategy="repeat",
+                              extend_strategy="temporal_avg", tube_size=2,
+                              num_time_transformer_layers=4):
+    """An MAE checkpoint's state dict -> the video model's
+    (convert.py:142-227): the decoder dropped, ``encoder.patch_embed.proj``
+    -> ``patch_embed.projection`` (inflated for Conv3d), ``encoder.blocks``
+    -> the encoder stack, ``qkv.bias`` = [q_bias, 0, v_bias], ``mlp.fc{1,2}``
+    -> the FFN's linears, ``norm{1,2}`` -> the blocks' norms,
+    ``encoder.norm`` -> ``norm``, then the temporal copies. The attention
+    renames the original repo left commented out are applied, as in the
+    JAX package."""
+    state_dict = dict(state_dict)
+    for old_key in list(state_dict):
+        if old_key not in state_dict:  # a v_bias taken with its q_bias
+            continue
+        if "decoder" in old_key:
+            state_dict.pop(old_key)
+            continue
+        if "encoder.patch_embed.proj" in old_key:
+            new_key = old_key.replace("encoder.patch_embed.proj",
+                                      "patch_embed.projection")
+            value = state_dict.pop(old_key)
+            if conv_type == "Conv3d" and "weight" in old_key:
+                value = _inflate(value, tube_size, extend_strategy)
+            state_dict[new_key] = value
+            continue
+        new_key = old_key.replace(
+            "encoder.blocks", "transformer_layers.0.layers"
+            if attention_type == "fact_encoder"
+            else "transformer_layers.layers")
+        if "norm" in new_key:
+            new_key = new_key.replace("norm1", "attentions.0.norm")
+            new_key = new_key.replace("norm2", "ffns.0.norm")
+        elif "attn" in new_key:
+            if "q_bias" in new_key:
+                block = re.findall(r"(?<=blocks\.)\d+", old_key)[0]
+                q = state_dict.pop(f"encoder.blocks.{block}.attn.q_bias")
+                v = state_dict.pop(f"encoder.blocks.{block}.attn.v_bias")
+                state_dict[new_key.replace(
+                    "attn.q_bias", "attentions.0.attn.qkv.bias")] = \
+                    np.concatenate([q, np.zeros_like(q), v])
+                continue
+            if "v_bias" in new_key:
+                continue
+            new_key = new_key.replace("attn.qkv", "attentions.0.attn.qkv")
+            new_key = new_key.replace("attn.proj", "attentions.0.attn.proj")
+        elif "mlp" in new_key:
+            new_key = new_key.replace("mlp.fc1", "ffns.0.layers.0.0")
+            new_key = new_key.replace("mlp.fc2", "ffns.0.layers.1")
+        if "encoder.norm" in old_key:
+            new_key = old_key.replace("encoder.norm", "norm")
+        state_dict[new_key] = state_dict.pop(old_key)
+    return _copy_temporal(state_dict, attention_type, copy_strategy,
+                          num_time_transformer_layers)
+
+
+def merge_state_dict(module, state_dict, verbose=True):
+    """Load ``state_dict`` (arrays or tensors under the module's own names)
+    into ``module`` without strictness, as the JAX package's
+    ``merge_params`` does (convert.py:362-402): an entry of the module's
+    shape is copied in, cast to the parameter's dtype; one of another shape
+    (a ``pos_embed`` of another patch count, a ``time_embed`` of another
+    frame count) is reported as unexpected, ``"<name> (shape <file> vs
+    <module>)"``, and the parameter keeps its value, where
+    ``load_state_dict(strict=False)`` would raise. Returns (missing,
+    unexpected): the module's names the dict lacks, and the dict's names
+    the module lacks or cannot take. Unlike ``merge_params``, which names
+    an absent subtree once, every unexpected key is listed."""
+    own = module.state_dict()
+    unexpected = []
+    with torch.no_grad():
+        for name, value in state_dict.items():
+            value = torch.as_tensor(value)
+            if name not in own:
+                unexpected.append(name)
+            elif tuple(value.shape) != tuple(own[name].shape):
+                unexpected.append(f"{name} (shape {tuple(value.shape)} vs "
+                                  f"{tuple(own[name].shape)})")
+            else:
+                own[name].copy_(value)
+    missing = [name for name in own if name not in state_dict]
+    if verbose:
+        print(f"missing_keys:{missing}\n unexpected_keys:{unexpected}")
+    return missing, unexpected
+
+
+def init_from_vit_pretrain(module, checkpoint, conv_type, attention_type,
+                           copy_strategy, extend_strategy="temporal_avg",
+                           tube_size=2, num_time_transformer_layers=4,
+                           verbose=True):
+    """An image ViT checkpoint (a path, or ``read_checkpoint``'s payload)
+    into a TimeSformer or ViViT (convert.py:409-423). Returns (missing,
+    unexpected)."""
+    sd = surgery_from_vit_pretrain(
+        load_torch_state_dict(checkpoint), conv_type, attention_type,
+        copy_strategy, extend_strategy, tube_size,
+        num_time_transformer_layers)
+    return merge_state_dict(module, sd, verbose)
+
+
+def init_from_mae_pretrain(module, checkpoint, conv_type, attention_type,
+                           copy_strategy, extend_strategy="temporal_avg",
+                           tube_size=2, num_time_transformer_layers=4,
+                           verbose=True):
+    """An MAE checkpoint into a TimeSformer or ViViT (convert.py:426-440).
+    The trainer never calls it, as in the JAX package."""
+    sd = surgery_from_mae_pretrain(
+        load_torch_state_dict(checkpoint), conv_type, attention_type,
+        copy_strategy, extend_strategy, tube_size,
+        num_time_transformer_layers)
+    return merge_state_dict(module, sd, verbose)
+
+
+def init_from_kinetics_pretrain(module, checkpoint, verbose=True):
+    """A video checkpoint of the original repo (Lightning prefixes) into
+    the same model (convert.py:443-451). The JAX package's
+    ``attention_type`` argument picks its flax names for a fact_encoder;
+    the port's names are the checkpoint's, so it has none."""
+    sd = replace_state_dict(load_torch_state_dict(checkpoint))
+    return merge_state_dict(module, sd, verbose)
+
+
+# A MaskFeat/MViT checkpoint in pytorchvideo's names into MaskFeat
+# (convert.py:248-258). The JAX package's surgery_maskfeat_keys renames
+# pytorchvideo's patch_embed.patch_model, mlp.fc{1,2} and
+# attn.pool_{q,k,v}.weight to its flax modules' names; the port's modules
+# carry pytorchvideo's names, so all three renames are the identity here and
+# the import is the Kinetics one.
+init_maskfeat_from_kinetics_pretrain = init_from_kinetics_pretrain
+
+
+def save_reference_checkpoint(model, path, cls_head=None):
+    """Write a ``.pth`` the original repo (and the JAX package's imports)
+    load: ``{"state_dict": {"model.<name>": ..., "cls_head.<name>": ...}}``
+    in fp32, the layout of the JAX package's ``save_torch_checkpoint``
+    (convert.py:540-559), whose ``replace_state_dict`` strips the prefixes.
+    The port's names are the original repo's (pytorchvideo's for
+    MaskFeat), so no renaming and no ``arch`` argument are needed; the head
+    is written as ``cls_head.`` + the head module's names
+    (``cls_head.cls_head.weight``), as the JAX package writes its flax
+    head."""
+    sd = {f"model.{k}": v.detach().float().cpu().contiguous()
+          for k, v in model.state_dict().items()}
+    if cls_head is not None:
+        sd.update({f"cls_head.{k}": v.detach().float().cpu().contiguous()
+                   for k, v in cls_head.state_dict().items()})
+    torch.save({"state_dict": sd}, path)

@@ -20,10 +20,14 @@ DropPath drawing from the ``generator`` given to ``forward``; the dropouts
 use torch's default generator, and at p = 0 draw nothing. The working type
 is the clip's dtype: fp32 parameters are cast to it at each use.
 
-Not ported yet (it raises): ``interpolate_pos_encoding`` at any size other
-than the native one.
+At another resolution than the native one the spatial table is resized by
+``interpolate_pos_encoding``, as in the JAX package.
 """
 
+import functools
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -36,12 +40,71 @@ FINAL_LN_EPS = 1e-6
 ATTENTION_TYPES = ("divided_space_time", "space_only", "joint_space_time")
 
 
+def _keys_cubic(x):
+    """Keys' cubic kernel with a = -0.5 (jax/_src/image/scale.py)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+@functools.lru_cache(maxsize=None)
+def resize_weights(n_in, n_out):
+    """The (n_in, n_out) float32 matrix of ``jax.image.resize(...,
+    "bicubic")`` along one axis: Keys' cubic with a = -0.5 at the
+    half-pixel sample points, widened by the scale when it shrinks
+    (antialiasing), each column divided by its sum (the edges renormalised,
+    not clamped), columns whose sample point lies outside the input zero.
+    ``compute_weight_mat`` of jax/_src/image/scale.py, in its float32
+    arithmetic. Not ``F.interpolate``'s bicubic (a = -0.75, clamped
+    edges, no antialiasing)."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float32) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]
+               ) / kernel_scale
+    w = _keys_cubic(x).astype(np.float32)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights_on(n_in, n_out, device, dtype):
+    """``resize_weights`` on ``device`` in ``dtype``, copied up once: from
+    pinned memory without blocking on a card, so a forward never waits on
+    the host."""
+    w = torch.from_numpy(resize_weights(n_in, n_out)).to(dtype)
+    if device.type == "cuda":
+        return w.pin_memory().to(device, non_blocking=True)
+    return w.to(device)
+
+
 def interpolate_pos_encoding(pos_embed, npatch, w, h, patch_size):
-    """The identity at the native size; other sizes are not ported yet."""
-    if npatch == pos_embed.shape[1] - 1 and w == h:
+    """``pos_embed`` (1, N + 1, D), the cls slot first, for an input of
+    ``npatch`` patches of a w x h frame (timesformer.py:43-63): the
+    identity when ``npatch == N`` and w == h, else the patch table as a
+    side x side grid resized to (w0, h0) = (w, h) // patch_size, in the JAX
+    package's order (w0 first), as ``jax.image.resize(..., "bicubic")``
+    does: one product with each axis's ``resize_weights`` (an axis whose
+    size does not change is left as it is), in the table's dtype."""
+    n = pos_embed.shape[1] - 1
+    if npatch == n and w == h:
         return pos_embed
-    raise NotImplementedError(
-        "interpolate_pos_encoding: only the native resolution is ported")
+    dim = pos_embed.shape[-1]
+    w0, h0 = w // patch_size, h // patch_size
+    side = int(math.sqrt(n))
+    grid = pos_embed[0, 1:].reshape(side, side, dim)
+    on = lambda n_out: _resize_weights_on(side, n_out, pos_embed.device,
+                                          pos_embed.dtype)
+    if w0 != side:  # (w0, side) @ (side, side·dim)
+        grid = (on(w0).t() @ grid.reshape(side, side * dim)).reshape(
+            w0, side, dim)
+    if h0 != side:  # (h0, side) @ (w0, side, dim) -> (w0, h0, dim)
+        grid = on(h0).t() @ grid
+    return torch.cat([pos_embed[:, :1], grid.reshape(1, w0 * h0, dim)],
+                     dim=1)
 
 
 class TimeSformer(nn.Module):

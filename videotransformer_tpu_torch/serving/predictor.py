@@ -1,4 +1,4 @@
-"""Batched, bucketed predictor over a JAX serving artifact.
+"""Batched, bucketed predictor over a serving artifact.
 
 Port of ``videotransformer_tpu/serving/export.py``: ``make_predict_fn``'s
 crop mean (per-crop logits averaged over the ThreeCrop stack, the notebook's
@@ -7,13 +7,18 @@ crop mean (per-crop logits averaged over the ThreeCrop stack, the notebook's
 the host to the next bucket, ``warmup``, ``n_crops``, ``manifest``.
 
 ``load_predictor`` reads the ``params.npz`` and ``manifest.json`` that
-``videotransformer_tpu.serving.export.export_predictor`` writes and ignores
-its ``.shlo`` programs. The manifest's ``input_mode`` says what a request
-carries: "clips", preprocessed float32 (n_crops, T, C, S, S) crop stacks,
-or "raw", the decoder's canonical uint8 (T, raw_h, raw_w, 3) clip
-(``input_shape`` and ``input_dtype``, export.py:150-153), which goes to the
-device as uint8 and through the eval recipe there
-(``make_raw_predict_fn``; export.py:66-90).
+``videotransformer_tpu.serving.export.export_predictor`` (or the port's
+``serving/export.py``) writes and ignores the ``.shlo`` programs. The
+manifest names no model, so the model's type is read from the parameter
+names (``model_type``): any of TimeSformer's three attention types and
+ViViT's three. The model is built at the size its position table was
+trained at, so a manifest ``img_size`` above it resizes the table on every
+forward, as the JAX artifact's program does. The manifest's
+``input_mode`` says what a request carries: "clips", preprocessed float32
+(n_crops, T, C, S, S) crop stacks, or "raw", the decoder's canonical
+uint8 (T, raw_h, raw_w, 3) clip (``input_shape`` and ``input_dtype``,
+export.py:150-153), which goes to the device as uint8 and through the eval
+recipe there (``make_raw_predict_fn``; export.py:66-90).
 """
 
 import json
@@ -26,6 +31,7 @@ from videotransformer_tpu_torch.data.device_augment import (
     eval_preprocess_batch)
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
+from videotransformer_tpu_torch.models.vivit import ViViT
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 
 
@@ -133,33 +139,77 @@ class TorchPredictor:
             self(np.zeros((b,) + self.input_shape, self.input_dtype))
 
 
-def timesformer_from_state_dict(state_dict, num_frames, img_size, num_heads):
-    """A divided space-time TimeSformer shaped by a converted state dict.
-    The head count is not recorded in the weights, so it is an argument."""
-    embed_dims = state_dict["cls_token"].shape[-1]
-    patch_size = state_dict["patch_embed.projection.weight"].shape[-1]
-    depth = len({k.split(".")[2] for k in state_dict
-                 if k.startswith("transformer_layers.layers.")})
-    model = TimeSformer(num_frames=num_frames, img_size=img_size,
-                        patch_size=patch_size, embed_dims=embed_dims,
-                        num_heads=num_heads, num_transformer_layers=depth)
+def model_type(keys, patch_rank):
+    """(arch, attention_type) from an artifact's parameter names (the JAX
+    package's flat ``model/...`` keys) and its patch kernel's rank:
+    ``spatial_transformer`` is a ViViT fact_encoder; a 5-D (Conv3d) patch
+    kernel is ViViT, divided with ``attentions_1``, else joint; a 4-D one
+    is TimeSformer, divided with ``attentions_1``, space_only without
+    ``time_embed``, else joint."""
+    divided = any("/attentions_1/" in k for k in keys)
+    if any(k.startswith("model/spatial_transformer/") for k in keys):
+        return "vivit", "fact_encoder"
+    if patch_rank == 5:
+        return "vivit", ("divided_space_time" if divided
+                         else "joint_space_time")
+    if divided:
+        return "timesformer", "divided_space_time"
+    if "model/time_embed" not in keys:
+        return "timesformer", "space_only"
+    return "timesformer", "joint_space_time"
+
+
+def _depth(state_dict, stack):
+    return len({k[len(stack):].split(".")[0] for k in state_dict
+                if k.startswith(stack)})
+
+
+def model_from_state_dict(state_dict, arch, attention_type, num_frames,
+                          num_heads):
+    """The TimeSformer or ViViT shaped by a converted state dict, its
+    weights loaded strictly. The width, patch size, tube, depths and the
+    native image size (from the position table) come from the weights; the
+    head count is not recorded in them, so it is an argument."""
+    patch = state_dict["patch_embed.projection.weight"]
+    embed_dims, patch_size = patch.shape[0], patch.shape[-1]
+    side = int(round((state_dict["pos_embed"].shape[1] - 1) ** 0.5))
+    geometry = dict(num_frames=num_frames, img_size=side * patch_size,
+                    patch_size=patch_size, embed_dims=embed_dims,
+                    num_heads=num_heads, attention_type=attention_type)
+    if arch == "vivit":
+        if attention_type == "fact_encoder":
+            geometry.update(
+                num_transformer_layers=_depth(
+                    state_dict, "transformer_layers.0.layers."),
+                num_time_transformer_layers=_depth(
+                    state_dict, "transformer_layers.1.layers."))
+        else:
+            geometry["num_transformer_layers"] = _depth(
+                state_dict, "transformer_layers.layers.")
+        model = ViViT(tube_size=patch.shape[2], **geometry)
+    else:
+        model = TimeSformer(num_transformer_layers=_depth(
+            state_dict, "transformer_layers.layers."), **geometry)
     model.load_state_dict({k: torch.from_numpy(v)
                            for k, v in state_dict.items()}, strict=True)
     return model
 
 
 def load_predictor(path, device, num_heads=None, dtype=torch.bfloat16):
-    """TorchPredictor over a JAX serving artifact directory. ``num_heads``
-    defaults to embed_dims // 64 (the ViT head width of TimeSformer-B)."""
+    """TorchPredictor over an artifact directory (the JAX package's or the
+    port's) of any TimeSformer or ViViT type. ``num_heads`` defaults to
+    embed_dims // 64 (the ViT-B head width)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "params.npz")) as flat:
-        model_sd, head_sd = split_artifact_params(
-            {k: flat[k] for k in flat.files})
+        flat = {k: flat[k] for k in flat.files}
+    arch, attention_type = model_type(
+        flat, flat["model/patch_embed/projection/kernel"].ndim)
+    model_sd, head_sd = split_artifact_params(flat)
     embed_dims = model_sd["cls_token"].shape[-1]
-    model = timesformer_from_state_dict(
-        model_sd, manifest["num_frames"], manifest["img_size"],
-        num_heads or embed_dims // 64)
+    model = model_from_state_dict(model_sd, arch, attention_type,
+                                  manifest["num_frames"],
+                                  num_heads or embed_dims // 64)
     num_class, in_ch = head_sd["cls_head.weight"].shape
     head = ClassificationHead(num_class, in_ch)
     head.load_state_dict({k: torch.from_numpy(v) for k, v in head_sd.items()},

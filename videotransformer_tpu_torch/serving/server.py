@@ -252,8 +252,10 @@ def main():
 
     p = argparse.ArgumentParser()
     p.add_argument("--export_dir", required=True,
-                   help="artifact dir written by the JAX package's "
-                        "export_predictor (params.npz + manifest.json)")
+                   help="artifact dir (params.npz + manifest.json) "
+                        "written by the JAX package's export_predictor or "
+                        "the port's serving/export.py; any TimeSformer or "
+                        "ViViT type")
     p.add_argument("--device", default="cuda")
     p.add_argument("--num_heads", type=int, default=None)
     p.add_argument("--port", type=int, default=8471)

@@ -50,8 +50,14 @@ another one on its own; the augment, mixup and DropPath draw, in that
 order, from one ``torch.Generator`` on that device, seeded at each step
 from the seed and the global step (as the JAX trainer folds the step into
 its key, trainer.py:520), so a resumed run draws what an uninterrupted one
-would have drawn. There is no mesh. Not ported yet (they raise): data
-parallelism and the pretrained weight import.
+would have drawn. There is no mesh. Not ported yet: data parallelism.
+
+``pretrain_pth`` imports weights after the initialisation, by the JAX
+trainer's routes (trainer.py:184-213; ``import_pretrained``): a checkpoint
+of this trainer (``save_checkpoint``'s layout, the JAX package's orbax
+directory) gives its parameters alone, non-strict; MaskFeat/MViT builds
+take the MaskFeat import; otherwise ``weights_from`` picks the ImageNet ViT
+surgery or the Kinetics import.
 """
 
 import os
@@ -65,6 +71,7 @@ from videotransformer_tpu_torch.data.device_augment import (
 from videotransformer_tpu_torch.data.hog import batched_hog_targets
 from videotransformer_tpu_torch.data.mixup import Mixup
 from videotransformer_tpu_torch.data.pipeline import device_prefetch
+from videotransformer_tpu_torch.models import convert
 from videotransformer_tpu_torch.models.convert import (
     state_dicts_to_trainer_tree, trainer_tree_to_state_dicts)
 from videotransformer_tpu_torch.models.maskfeat import MaskFeat
@@ -141,9 +148,6 @@ class VideoTransformerTrainer:
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._log_fh = open(os.path.join(log_dir, "train.log"), "a")
-        if getattr(configs, "pretrain_pth", None):
-            raise NotImplementedError("pretrained-weight import is not "
-                                      "ported yet")
         self.supervised = configs.objective == "supervised"
         self.is_mvit = getattr(configs, "arch", None) == "mvit"
         self.linear_prob = self.supervised and getattr(
@@ -168,6 +172,9 @@ class VideoTransformerTrainer:
                 init.normal_(self.cls_head.cls_head.weight, g, std=0.01)
         else:
             self.load_params(params)
+        self.pretrained_keys = None  # (missing, unexpected) of the import
+        if getattr(configs, "pretrain_pth", None):
+            self.pretrained_keys = self.import_pretrained(configs.pretrain_pth)
         self.model.to(self.device)
         self.mixup_fn = None
         named = []
@@ -207,6 +214,40 @@ class VideoTransformerTrainer:
         self.model.load_state_dict(as_t(model_sd), strict=True)
         if self.cls_head is not None:
             self.cls_head.load_state_dict(as_t(head_sd), strict=True)
+
+    def import_pretrained(self, path):
+        """Weights from the checkpoint file ``path`` into the model, by the
+        JAX trainer's routes (trainer.py:184-213), non-strict; returns
+        (missing, unexpected) and prints them:
+
+        - a checkpoint of this trainer (``is_port_checkpoint``; the JAX
+          trainer's orbax directory, ``init_from_orbax_pretrain``): its
+          model parameters only, no optimizer state, its head ignored. It
+          is recognised before the generic unwrap, which would take its
+          ``model`` entry and then cut 9 characters off every key;
+        - ``arch='mvit'`` or ``objective='mim'``: the MaskFeat import,
+          whatever ``weights_from`` says;
+        - ``weights_from='imagenet'``: the ViT surgery, Conv3d for ViViT
+          and Conv2d otherwise, ``repeat`` copies, tube 2, 4 temporal
+          layers;
+        - ``weights_from='kinetics'``: the Kinetics import;
+        - anything else raises TypeError. A file that cannot be read
+          raises."""
+        cfg = self.configs
+        payload = convert.read_checkpoint(path)
+        if is_port_checkpoint(payload):
+            return convert.merge_state_dict(self.model, payload["model"])
+        if self.is_mvit or cfg.objective == "mim":
+            return convert.init_maskfeat_from_kinetics_pretrain(self.model,
+                                                                payload)
+        weights_from = getattr(cfg, "weights_from", "imagenet")
+        if weights_from == "imagenet":
+            conv_type = "Conv3d" if cfg.arch == "vivit" else "Conv2d"
+            return convert.init_from_vit_pretrain(
+                self.model, payload, conv_type, cfg.attention_type, "repeat")
+        if weights_from == "kinetics":
+            return convert.init_from_kinetics_pretrain(self.model, payload)
+        raise TypeError(f"not support the pretrained weight {path}")
 
     def params_tree(self):
         """The parameters as the JAX trainer's tree (fp32 numpy leaves)."""
@@ -457,7 +498,8 @@ class VideoTransformerTrainer:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path):
-        """Parameters, optimizer moments and progress to one file."""
+        """Parameters, optimizer moments and progress to one file (the keys
+        of ``CHECKPOINT_KEYS``)."""
         os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
         torch.save({"model": self.model.state_dict(),
                     "cls_head": (None if self.cls_head is None
@@ -487,6 +529,16 @@ class VideoTransformerTrainer:
         print(*args, flush=True)
         if self._log_fh is not None:
             print(*args, file=self._log_fh, flush=True)
+
+
+CHECKPOINT_KEYS = ("model", "cls_head", "opt_state", "epoch", "global_step",
+                   "max_top1_acc")
+
+
+def is_port_checkpoint(payload):
+    """Whether ``payload`` (a loaded checkpoint) is one that
+    ``VideoTransformerTrainer.save_checkpoint`` wrote."""
+    return isinstance(payload, dict) and set(CHECKPOINT_KEYS) <= set(payload)
 
 
 def _now():

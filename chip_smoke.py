@@ -55,7 +55,21 @@ weights from a seed:
   every forward) against the plain versions, timed and profiled; the mim
   phase's checkpoint into an arch=mvit supervised trainer (-pretrain_pth),
   bit-equal, one step, and the same weights through a reference .pth
-  (save_reference_checkpoint) with no missing or unexpected key.
+  (save_reference_checkpoint) with no missing or unexpected key;
+- parallel (a generator of its own, SEED + 5): B1-B4 at TimeSformer-B's
+  tensor-parallel shard shapes, tp = 2 and 4 (Da 384 / 192 over 6 / 3
+  heads, hidden 1536 / 768, the row bias zero), against their plain
+  versions, rows under "phases"; tools/mp_train_worker.py's run on
+  TimeSformer-B (8 clips, the JAX trainer's defaults: three steps, then
+  the trainer's fit over one more step and 3 eval clips read by Loaders in
+  batches of 2) in this process without a process group and through one
+  of world size 1 over NCCL, bit-equal and timed, and the coalesced
+  gradient all-reduce timed alone (a step over one data rank skips it);
+  then two processes on this card over gloo for TP = 2 and for DP = 2 (4
+  clips a rank, the eval shards uneven and padded), each rank's three
+  steps within the train phase's bounds of the one-process steps, the
+  ranks' lines identical, each rank's launches those of TimeSformer-B
+  steps and eval forwards on its shard.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and must have gone through its kernels.
@@ -92,6 +106,7 @@ import importlib.util
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -114,16 +129,17 @@ from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import (
     TimeSformer, get_vit_base_patch16_224)
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
+from videotransformer_tpu_torch.parallel import mesh as pmesh
 from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, load_predictor, make_predict_fn)
 from videotransformer_tpu_torch.serving.server import InferenceServer
-from videotransformer_tpu_torch.tools import export_serving
+from videotransformer_tpu_torch.tools import export_serving, mp_train_worker
 from videotransformer_tpu_torch.tools.flash_bench import (
     FLASH_SHAPES, HD as MVIT_HD, JOINT_HD, JOINT_SHAPE, bound, flash_bounds,
     issue_us, sdpa_times, timed_ms)
 from videotransformer_tpu_torch.tools.fused_bench import (
     FFN_FWD_PRODUCTS, FFN_PRODUCTS, MHSA_BWD_PRODUCTS, MHSA_PRODUCTS,
-    fc1_epilogue_ms, ffn_fwd_case, ffn_fwd_products,
+    fc1_epilogue_ms, ffn_bwd_bound, ffn_fwd_case, ffn_fwd_products,
     ffn_products, format_stages, matmul_ms, mhsa_bwd_bound, mhsa_bwd_case,
     mhsa_bwd_products, mhsa_products, sdpa_long_ms, stage_times)
 from videotransformer_tpu_torch.training import trainer as trainer_mod
@@ -217,13 +233,31 @@ def with_variants(counts, call):
     return out, "/".join(v for v, n in counts.items() if n > before[v])
 
 
-def ffn_weights(rng, d):
+def ffn_weights(rng, d, tp=1):
     """LayerNorm weight and bias, fc1 weight and bias, fc2 weight and bias
-    of a width-d FFN (hidden 4·d), bf16 on the card."""
-    h4 = 4 * d
-    return [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1),
-            bf16_on_card(rng, (h4, d), 0.02), bf16_on_card(rng, (h4,), 0.02),
-            bf16_on_card(rng, (d, h4), 0.02), bf16_on_card(rng, (d,), 0.02)]
+    of a width-d FFN (hidden 4·d), bf16 on the card; at ``tp`` > 1 one
+    model rank's shard, hidden 4·d / tp and the fc2 bias zero (it is added
+    after the all-reduce)."""
+    h4 = 4 * d // tp
+    w = [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1),
+         bf16_on_card(rng, (h4, d), 0.02), bf16_on_card(rng, (h4,), 0.02),
+         bf16_on_card(rng, (d, h4), 0.02), bf16_on_card(rng, (d,), 0.02)]
+    if tp > 1:
+        w[5].zero_()
+    return w
+
+
+def mhsa_weights(rng, d, tp=1):
+    """qkv weight and bias, proj weight and bias of a width-d MHSA, bf16 on
+    the card; at ``tp`` > 1 one model rank's heads, Da = d / tp, and the
+    proj bias zero."""
+    da = d // tp
+    w = [bf16_on_card(rng, (3 * da, d), 0.02),
+         bf16_on_card(rng, (3 * da,), 0.02),
+         bf16_on_card(rng, (d, da), 0.02), bf16_on_card(rng, (d,), 0.02)]
+    if tp > 1:
+        w[3].zero_()
+    return w
 
 
 # (kernel, phase, shape, block_diag, LayerNorm eps, on the TimeSformer path
@@ -244,11 +278,12 @@ FACT_BWD_PHASES = [("fused_prenorm_mhsa_bwd", FACT_LABEL, FACT_SHAPE, 0,
                     1e-5, False, 1)]
 
 
-def kernel_phases(rng, phases=None):
+def kernel_phases(rng, phases=None, iters=20):
     """Each forward kernel at a main-path shape (``phases``, by default the
     TimeSformer and MViT ones) against its plain version run in fp32 from
     the same bf16 inputs; times in turns (plain, kernel, kernel, plain) from
-    CUDA events."""
+    CUDA events, ``iters`` calls each. A phase's optional eighth field is
+    the tp of a tensor-parallel shard (``mhsa_weights``, ``ffn_weights``)."""
     # (kernel, phase, shape, block_diag, LayerNorm eps, on the TimeSformer
     # path once per block, calls a mim step); the packed layout is the JAX
     # package's
@@ -264,20 +299,21 @@ def kernel_phases(rng, phases=None):
     ] + [("fused_prenorm_ffn", label, shape, None, eps, on_path, n)
          for label, shape, eps, on_path, n in MVIT_FFN_PHASES]
     report = []
-    for name, label, shape, block_diag, eps, on_path, count in phases:
+    for phase in phases:
+        name, label, shape, block_diag, eps, on_path, count = phase[:7]
+        tp = phase[7] if len(phase) > 7 else 1
         d = shape[-1]
+        da, heads = d // tp, HEADS // tp
         x = bf16_on_card(rng, shape, 1.0)
         if block_diag is not None:
             ln = [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1)]
-            w = [bf16_on_card(rng, (3 * d, d), 0.02),
-                 bf16_on_card(rng, (3 * d,), 0.02),
-                 bf16_on_card(rng, (d, d), 0.02), bf16_on_card(rng, (d,), 0.02)]
-            tail = (HEADS, (d // HEADS) ** -0.5, eps, False, block_diag)
+            w = mhsa_weights(rng, d, tp)
+            tail = (heads, (da // heads) ** -0.5, eps, False, block_diag)
             kernel = lambda: fused_mhsa.fused_prenorm_mhsa(x, *ln, *w, *tail)
             plain_fn = fused_mhsa.fused_prenorm_mhsa_reference
             counts = fused_mhsa.ATTENTION_LAUNCHES
         else:
-            wts = ffn_weights(rng, d)
+            wts = ffn_weights(rng, d, tp)
             ln, w = wts[:2], wts[2:]
             tail = (eps,)
             kernel = lambda: fused_ffn.fused_prenorm_ffn(x, *ln, *w, *tail)
@@ -290,16 +326,17 @@ def kernel_phases(rng, phases=None):
         assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
         # the plain version as the main path would call it: bf16 operands
         ms, plain_ms = in_turns(lambda: plain_fn(x, *ln, *w, *tail), kernel,
-                                plain_iters=20)
+                                iters=iters, plain_iters=iters)
         us = issue_us(kernel)
         rows = shape[0] * shape[1] if len(shape) == 3 else shape[0]
         if block_diag is not None:  # qkv, attention over L, proj
             L = block_diag or shape[1]
-            flops = 8 * rows * d * d + 4 * rows * L * d
-            nbytes = 2 * (2 * rows * d + 4 * d * d + 6 * d)
-        else:
-            flops = 16 * rows * d * d
-            nbytes = 2 * (2 * rows * d + 8 * d * d + 7 * d)
+            flops = 8 * rows * d * da + 4 * rows * L * da
+            nbytes = 2 * (2 * rows * d + 4 * d * da + 3 * d + 3 * da)
+        else:  # hidden h
+            h = 4 * d // tp
+            flops = 4 * rows * d * h
+            nbytes = 2 * (2 * rows * d + 2 * d * h + 3 * d + h)
         bound_ms, bound_by = bound(flops, nbytes)
         log(f"kernel {name} [{label}]{variant and ' ' + variant}: "
             f"max|kernel-plain|/max|plain| = "
@@ -317,7 +354,7 @@ def kernel_phases(rng, phases=None):
     return report
 
 
-def backward_phases(rng, phases=None):
+def backward_phases(rng, phases=None, iters=20):
     """Each backward kernel at a train-step shape (batch of 8 clips) against
     its plain backward run in fp32 from the same bf16 inputs: every output
     gradient within KERNEL_REL_TOL of max|plain| of that gradient, and the
@@ -337,16 +374,17 @@ def backward_phases(rng, phases=None):
     ] + [("fused_prenorm_ffn_bwd", label, shape, None, eps, on_path, n)
          for label, shape, eps, on_path, n in MVIT_FFN_PHASES]
     report = []
-    for name, label, shape, block_diag, eps, on_path, count in phases:
+    for phase in phases:
+        name, label, shape, block_diag, eps, on_path, count = phase[:7]
+        tp = phase[7] if len(phase) > 7 else 1
         d = shape[-1]
+        da, heads = d // tp, HEADS // tp
         x = bf16_on_card(rng, shape, 1.0)
         g = bf16_on_card(rng, shape, 1.0)
         if block_diag is not None:
             ln = [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1)]
-            w = [bf16_on_card(rng, (3 * d, d), 0.02),
-                 bf16_on_card(rng, (3 * d,), 0.02),
-                 bf16_on_card(rng, (d, d), 0.02), bf16_on_card(rng, (d,), 0.02)]
-            cfg = (HEADS, (d // HEADS) ** -0.5, eps, False, block_diag)
+            w = mhsa_weights(rng, d, tp)
+            cfg = (heads, (da // heads) ** -0.5, eps, False, block_diag)
             _, qkv, attn, lse = fused_mhsa._launch(x, *ln, *w, *cfg)
             args = (g, x, qkv, attn, lse, ln[0], ln[1], w[0], w[2])
             kernel_all = lambda: fused_mhsa._launch_backward(*args, *cfg)
@@ -360,7 +398,7 @@ def backward_phases(rng, phases=None):
             tail = cfg
             counts = fused_mhsa.ATTENTION_BWD_LAUNCHES
         else:
-            w = ffn_weights(rng, d)
+            w = ffn_weights(rng, d, tp)
             _, h_pre = fused_ffn._launch(x, *w, eps, True)
             args = (g, x, h_pre, w[0], w[1], w[2], w[4])
             tail = (eps,)
@@ -377,7 +415,8 @@ def backward_phases(rng, phases=None):
         assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
         # no atomics: B3's and B4's split sums give the same bits twice
         assert all(torch.equal(a, b) for a, b in zip(got, kernel_all()))
-        ms, plain_ms = in_turns(plain, kernel)
+        ms, plain_ms = in_turns(plain, kernel, iters=iters,
+                                plain_iters=min(5, iters))
         us = issue_us(kernel_all)
         rows = shape[0] * shape[1] if len(shape) == 3 else shape[0]
         entry = {"name": name, "phase": label, "on_path": on_path,
@@ -393,20 +432,20 @@ def backward_phases(rng, phases=None):
                 *[a.float() if torch.is_tensor(a) else a for a in core]))
             assert core_err[1] <= KERNEL_REL_TOL, (label, core_err)
             assert all(torch.equal(a, b) for a, b in zip(core_got, kernel()))
-            bound_ms, bound_by = mhsa_bwd_bound(rows, L, d, whole=False)
+            bound_ms, bound_by = mhsa_bwd_bound(rows, L, d, whole=False,
+                                                da=da)
             whole_ms, whole_plain = in_turns(
-                lambda: plain_all(*plain_args, *tail), kernel_all)
-            whole_bound, whole_by = mhsa_bwd_bound(rows, L, d)
+                lambda: plain_all(*plain_args, *tail), kernel_all,
+                iters=iters, plain_iters=min(5, iters))
+            whole_bound, whole_by = mhsa_bwd_bound(rows, L, d, da=da)
             entry.update(whole_ms=whole_ms, whole_plain_ms=whole_plain,
                          whole_bound_ms=whole_bound, whole_bound_by=whole_by)
             whole = (f"; whole backward call {whole_ms:.4f} ms, plain "
                      f"{whole_plain:.4f} ms, bound {whole_bound:.4f} ms "
                      f"({whole_by}); B3 alone against its plain version "
                      f"{core_err[1]:.3e}")
-        else:
-            bound_ms, bound_by = bound(
-                32 * rows * d * d,  # B4: four products, fp32 weight grads
-                2 * (7 * rows * d + 8 * d * d) + 4 * 8 * d * d)
+        else:  # B4: four products, fp32 weight grads
+            bound_ms, bound_by = ffn_bwd_bound(rows, d, 4 * d // tp)
             whole = ""
         entry.update(bound_ms=bound_ms, bound_by=bound_by)
         log(f"kernel {name} [{label}]{variant and ' ' + variant}: worst "
@@ -1916,6 +1955,271 @@ def checkpoint_phase(card, mim_ckpt, tmp):
     return launches, report
 
 
+# ---------------------------------------------------------------- parallel
+
+TP_DEGREES = (2, 4)
+SHARD_ITERS = 5  # timed calls of each shard-shape row, in each turn
+PARALLEL_ARGS = ["--model", "b16", "--device", "cuda", "--clips",
+                 str(TRAIN_CLIPS), "--steps", "3", "--drop_path", "0.1",
+                 "--eval_clips", "3", "--eval_batch", "2", "--lr",
+                 str(TRAIN_LR)]
+WORKER_TIMEOUT_S = 300
+PARALLEL_STEPS = 4  # the worker's 3 steps and fit's one
+# the worker's 3 eval clips in batches of 2: with one data rank 2
+# validation and 2 test forwards, over two data ranks 1 and 1 a rank
+EVAL_FORWARDS = {1: 4, 2: 2}
+
+
+def parallel_want(data):
+    """A worker's launches at ``data`` data ranks, over its steps and its
+    eval forwards: a TimeSformer-B forward is 24 B1 calls (12 packed
+    temporal, 12 dense spatial) and 12 B2, a step's backward 24 B3 and 12
+    B4, on any shard. (kernel counts, B1's variants, B3's variants)."""
+    fwd = PARALLEL_STEPS + EVAL_FORWARDS[data]
+    return ({"fused_prenorm_mhsa": fwd * 2 * DEPTH,
+             "fused_prenorm_ffn": fwd * DEPTH,
+             "fused_prenorm_mhsa_bwd": PARALLEL_STEPS * 2 * DEPTH,
+             "fused_prenorm_ffn_bwd": PARALLEL_STEPS * DEPTH,
+             "flash_attention": 0, "flash_attention_bwd": 0},
+            variants(packed=fwd * DEPTH, dense=fwd * DEPTH),
+            variants(packed=PARALLEL_STEPS * DEPTH,
+                     dense=PARALLEL_STEPS * DEPTH))
+
+
+def shard_phases(rng):
+    """B1-B4 at TimeSformer-B's tensor-parallel shard shapes, tp = 2 and 4
+    (Da = 768 / tp over 12 / tp heads: qkv's 3·Da = 1152 and 576 columns,
+    not multiples of B1's 256-column tiles; hidden 3072 / tp; the row
+    product's bias zero), at the rows of kernel_phases and backward_phases
+    and the long joint rows, against their plain versions; rows under
+    "phases", outside the totals."""
+    fwd, bwd = [], []
+    for tp in TP_DEGREES:
+        da, tag = D // tp, f", tp={tp}: Da {D // tp}, {HEADS // tp} heads"
+        fwd += [(name, label + tag, shape, bd, 1e-5, False, 1, tp)
+                for name, label, shape, bd in (
+                    ("fused_prenorm_mhsa", "dense spatial (192, 197, 768)",
+                     (192, 197, D), 0),
+                    ("fused_prenorm_mhsa",
+                     "block-diagonal temporal (4704, 8, 768)",
+                     (4704, 8, D), 8),
+                    ("fused_prenorm_mhsa", LONG_LABEL, LONG_SHAPE, 0))]
+        fwd.append(("fused_prenorm_ffn", f"rows (37656, {D}), hidden "
+                    f"{4 * D // tp}, tp={tp}", (37656, D), None, 1e-5, False,
+                    1, tp))
+        bwd += [(name, label + tag, shape, bd, 1e-5, False, 1, tp)
+                for name, label, shape, bd in (
+                    ("fused_prenorm_mhsa_bwd", "dense spatial (64, 197, 768)",
+                     (64, 197, D), 0),
+                    ("fused_prenorm_mhsa_bwd",
+                     "block-diagonal temporal (1568, 8, 768)",
+                     (1568, 8, D), 8),
+                    ("fused_prenorm_mhsa_bwd", LONG_LABEL, LONG_SHAPE, 0))]
+        bwd.append(("fused_prenorm_ffn_bwd", f"rows (12552, {D}), hidden "
+                    f"{4 * D // tp}, tp={tp}", (12552, D), None, 1e-5, False,
+                    1, tp))
+    with torch.inference_mode():
+        report = kernel_phases(rng, fwd, SHARD_ITERS)
+        report += backward_phases(rng, bwd, SHARD_ITERS)
+    want = {"dense": ("dense", "dense"), "temporal": ("packed", "packed"),
+            "long": ("long", "long")}
+    for e in report:
+        if e["name"].startswith("fused_prenorm_mhsa"):
+            kind = next(k for k in want if k in e["phase"])
+            assert e["variant"] == want[kind][0], e
+    return report
+
+
+def parse_worker(out):
+    """(steps [(loss, grad_norm, ms, device_ms)], the lines every rank must
+    print alike (steps without their times, VAL, TEST, DIGEST), launches)
+    of one worker's output."""
+    assert "WORKER OK" in out, out[-4000:]
+    lines = out.splitlines()
+    steps = [tuple(float(v) for v in ln.split()[3::2]) for ln in lines
+             if ln.startswith("STEP")]
+    same = [ln.split(" ms ")[0] for ln in lines
+            if ln.startswith(("STEP", "VAL", "TEST", "DIGEST"))]
+    (launch,) = [json.loads(ln[len("LAUNCHES "):]) for ln in lines
+                 if ln.startswith("LAUNCHES ")]
+    return steps, same, launch
+
+
+def run_in_process(args, mesh=None):
+    """The worker's run here, the counts from 0 before it: (its output as
+    one string, its launches, its trainer)."""
+    reset_counts()
+    lines = []
+    tr = mp_train_worker.run(args, "cuda", mesh, out=lines.append)
+    torch.cuda.synchronize()
+    launch = mp_train_worker.launches()
+    return "\n".join(lines + [f"LAUNCHES {json.dumps(launch)}",
+                              "WORKER OK"]), launch, tr
+
+
+def world1_in_turns(trainers, args, n=3):
+    """``n`` further steps of each trainer ({"without": the one-process
+    trainer, "through": the world-1 process group's}) in turns without,
+    through, through, without, on the global batch: {side: [(host ms,
+    device ms)]}; then a profile of two steps of each."""
+    cfg = mp_train_worker.configs(args)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             mp_train_worker.global_batch(cfg, args.clips,
+                                          mp_train_worker.SEED).items()}
+    step = lambda tr: mp_train_worker.timed_step(tr, batch, args.lr,
+                                                 mp_train_worker.WD)
+    gc.collect()
+    times = {"without": [], "through": []}
+    for side in ("without", "through", "through", "without"):
+        for _ in range(n):
+            times[side].append(step(trainers[side])[1:])
+    for side, tr in trainers.items():
+        device_ms = sum(d for _, d in times[side]) / len(times[side])
+        profile_forward(lambda: tr.train_step(batch, args.lr,
+                                              mp_train_worker.WD),
+                        device_ms, n=2,
+                        what=f"train step {side} the process group")
+    return times
+
+
+def time_grad_all_reduce(tr, mesh, n=5):
+    """(CUDA-event ms, host ms) of one coalesced all-reduce of ``tr``'s
+    gradients over ``mesh``'s data group (world 1 here): what a step over
+    more than one data rank runs after its backward, and one over a single
+    data rank skips."""
+    grads = [p.grad for p in tr.optimizer.params.values()
+             if p.grad is not None]
+    pmesh.all_reduce_coalesced(grads, mesh.data_group)  # warm
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        pmesh.all_reduce_coalesced(grads, mesh.data_group)
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / n,
+            (time.perf_counter() - t0) * 1e3 / n)
+
+
+def spawn_workers(tmp, what, extra):
+    """Two workers of the run ``what`` on this card over gloo."""
+    store = f"file://{os.path.join(tmp, what)}"
+    return [subprocess.Popen(
+        [sys.executable, "-m", "videotransformer_tpu_torch.tools."
+         "mp_train_worker", "--rank", str(r), "--world", "2", "--init",
+         store, "--backend", "gloo", *PARALLEL_ARGS, *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def wait_workers(procs):
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=WORKER_TIMEOUT_S)
+            assert p.returncode == 0, out[-4000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def parallel_phase(card):
+    """Data and tensor parallelism on TimeSformer-B (divided, 8 x 224, 8
+    clips, the JAX trainer's defaults), with its own generator (SEED + 5):
+    B1-B4 at the tp = 2 and 4 shard shapes (shard_phases);
+    tools/mp_train_worker.py's run in this process without a process group
+    and through one of world size 1 over NCCL, held bit-equal (losses, grad
+    norms, top-k, the parameters' digest), then three more steps of each in
+    turns, timed, and two of each profiled, and the data group's coalesced
+    gradient all-reduce timed alone (the step skips it at one data rank);
+    then two processes on this
+    card over gloo for TP = 2 (each rank 6 heads and 1536 hidden units of
+    every block) and for DP = 2 (4 clips a rank), each rank's steps held
+    against the one-process run within the train phase's bounds, the two
+    ranks' lines identical and each rank's launches and attention variants
+    those of a TimeSformer-B step. Returns (the launches of the
+    process-group runs, this process's and the workers', the kernel rows).
+    """
+    report = shard_phases(np.random.default_rng(SEED + 5))
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = mp_train_worker.parse_args(PARALLEL_ARGS)
+    ref_out, _, ref_tr = run_in_process(args)
+    ref_steps, ref_same, _ = parse_worker(ref_out)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        device = pmesh.init_distributed(
+            backend="nccl", init_method=f"file://{tmp}/nccl", rank=0,
+            world_size=1, device="cuda")
+        try:
+            mesh = pmesh.create_mesh(model=1, device=device)
+            pg_out, launches, pg_tr = run_in_process(args, mesh)
+            turns = world1_in_turns({"without": ref_tr, "through": pg_tr},
+                                    args)
+            reduce_ms = time_grad_all_reduce(pg_tr, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    del ref_tr, pg_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    pg_steps, pg_same, _ = parse_worker(pg_out)
+    assert pg_same == ref_same, (pg_same, ref_same)  # bit-equal
+    assert {n: launches[n] for n in KERNEL_NAMES} == parallel_want(1)[0], \
+        launches
+    mean = lambda side, i: sum(t[i] for t in turns[side]) / len(turns[side])
+    log(f"parallel: DP at world 1 over NCCL, {TRAIN_CLIPS} clips a step: "
+        f"losses, grad norms, top-k and the parameters' digest bit-equal to "
+        f"the run without a process group; in turns (without, through, "
+        f"through, without), {len(turns['through'])} steps a side: "
+        f"{mean('through', 0):.2f} ms on the clock, {mean('through', 1):.2f} "
+        f"ms of CUDA events (without: {mean('without', 0):.2f} / "
+        f"{mean('without', 1):.2f} ms): the process group adds "
+        f"{mean('through', 0) - mean('without', 0):.2f} ms "
+        f"({mean('through', 1) - mean('without', 1):.2f} device; one data "
+        f"rank: no gradient all-reduce) on {card}; the coalesced gradient "
+        f"all-reduce alone, over NCCL at world 1: {reduce_ms[0]:.3f} ms of "
+        f"CUDA events, {reduce_ms[1]:.3f} ms on the clock")
+    numbers = {"steps_ms": [s[2] for s in ref_steps],
+               "nccl_world1_steps_ms": [s[2] for s in pg_steps],
+               "in_turns_without_ms": turns["without"],
+               "in_turns_through_ms": turns["through"],
+               "nccl_world1_grad_all_reduce_ms": reduce_ms}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        runs = {what: spawn_workers(tmp, what, extra)
+                for what, extra in (("tp2", ["--tp", "2"]), ("dp2", []))}
+        outs = {what: wait_workers(procs) for what, procs in runs.items()}
+    for what, (out0, out1) in outs.items():
+        (steps, same, launch), (_, same1, launch1) = map(parse_worker,
+                                                         (out0, out1))
+        want, want_fwd, want_bwd = parallel_want(2 if what == "dp2" else 1)
+        assert same == same1, (what, same, same1)  # the two ranks alike
+        for i, (k, p) in enumerate(zip(steps, ref_steps)):
+            dl = abs(k[0] - p[0]) / abs(p[0])
+            dn = abs(k[1] - p[1]) / abs(p[1])
+            log(f"parallel {what} step {i}: loss {k[0]:.6f} (one process "
+                f"{p[0]:.6f}, rel {dl:.2e}, tol {LOSS_REL_TOL}), grad_norm "
+                f"{k[1]:.6f} (one process {p[1]:.6f}, rel {dn:.2e}, tol "
+                f"{NORM_REL_TOL}); {k[2]:.1f} ms on the clock, two ranks "
+                f"sharing the card over gloo")
+            assert np.isfinite(k[:2]).all() and dl <= LOSS_REL_TOL \
+                and dn <= NORM_REL_TOL, (what, i, dl, dn)
+        for rank, got in enumerate((launch, launch1)):
+            log(f"parallel {what} rank {rank} launches: {got}")
+            assert {n: got[n] for n in KERNEL_NAMES} == want, \
+                (what, rank, got)
+            assert got["attention"] == want_fwd, got
+            assert got["attention_bwd"] == want_bwd, got
+            for n in KERNEL_NAMES:
+                launches[n] += got[n]
+        numbers[f"{what}_steps_ms"] = [s[2] for s in steps]
+    log(f"parallel numbers: {json.dumps(numbers)}")
+    return launches, report
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is visible")
@@ -2089,6 +2393,12 @@ def main():
     report += ckpt_report
     t0 = lap("checkpoint", t0)
 
+    # ---- data and tensor parallelism: counts from 0 before the
+    # process-group run here; each worker's from its start (parallel_phase)
+    par_launches, par_report = parallel_phase(card)
+    report += par_report
+    t0 = lap("parallel", t0)
+
     src, jax_src = "videotransformer_tpu_torch/csrc/", \
         "videotransformer_tpu/kernels/"
     sources = {
@@ -2120,7 +2430,8 @@ def main():
                    "vivit": vivit_launches[name],
                    "timesformer_types": types_launches[name],
                    "data": data_launches[name],
-                   "checkpoint": ckpt_launches[name]}
+                   "checkpoint": ckpt_launches[name],
+                   "parallel": par_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,

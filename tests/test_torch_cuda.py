@@ -795,3 +795,81 @@ def test_tiny_raw_video_step_on_card_matches_cpu(cuda_device, monkeypatch):
         lb = float(card.train_step(batch, 1e-3, 0.05)["loss"])
         assert np.isfinite(lb) and abs(la - lb) <= 2e-2 * abs(la), (la, lb)
     assert fused_mhsa.BWD_LAUNCHES - b0 == 8
+
+
+# Tensor parallelism: B1-B4 at TimeSformer-B's (D 768, 12 heads, hidden
+# 3072) shard shapes, tp = 2 and 4: attention width Da = 768 / tp (qkv's
+# N = 3·Da = 1152, 576: not multiples of B1's 256-column tiles), 12 / tp
+# heads, FFN hidden 3072 / tp, and the row product's bias zero (it is added
+# after the all-reduce). (B, N, block_diag) of the dense spatial, packed
+# temporal and long joint rows.
+SHARD_ROWS = [(24, 197, 0, "dense"), (196, 8, 8, "packed"),
+              (2, 1569, 0, "long")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("B,N,block_diag,variant", SHARD_ROWS)
+def test_mhsa_at_tp_shard_shapes(cuda_device, tp, B, N, block_diag, variant):
+    """B1 and B3 (whole call) on one model rank's heads against their plain
+    versions, each gradient included; B3 twice to the same bits."""
+    D, Da, H = 768, 768 // tp, 12 // tp
+    rng = np.random.default_rng(tp * N + B)
+    args = _mhsa_case(rng, B, N, D, Da, H)
+    args[-1] = torch.zeros_like(args[-1])  # the row bias, outside
+    cfg = (H, (Da // H) ** -0.5, 1e-5, False, block_diag)
+    assert fused_mhsa.attention_variant(block_diag or N, Da // H) == variant
+    out, qkv, attn, lse = fused_mhsa._launch(*args, *cfg)
+    torch.cuda.synchronize()
+    want = fused_mhsa._forward_reference(*[a.float() for a in args], *cfg)
+    for name, a, b in zip(("out", "qkv", "attn"), (out, qkv, attn), want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    g = _bf16(rng, (B, N, D), 1.0)
+    x, ln_w, ln_b, w_qkv, _, w_proj, _ = args
+    bwd = (g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj)
+    counts = dict(fused_mhsa.ATTENTION_BWD_LAUNCHES)
+    got = fused_mhsa._launch_backward(*bwd, *cfg)
+    torch.cuda.synchronize()
+    assert sum(fused_mhsa.ATTENTION_BWD_LAUNCHES.values()) == \
+        sum(counts.values()) + 1
+    want = fused_mhsa.fused_prenorm_mhsa_backward_reference(
+        *[a.float() for a in bwd[:4] + bwd[5:]], *cfg)
+    names = ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    again = fused_mhsa._launch_backward(*bwd, *cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_ffn_at_tp_shard_shapes(cuda_device, tp):
+    """B2 and B4 on one model rank's 3072 / tp hidden units (the rows of a
+    train step's FFN call at 8 clips, 12552), fc2's bias zero."""
+    M, D, hidden = 12552, 768, 3072 // tp
+    rng = np.random.default_rng(tp)
+    x = _bf16(rng, (M, D), 1.0)
+    w = [_bf16(rng, (D,), 0.1, 1.0), _bf16(rng, (D,), 0.1),
+         _bf16(rng, (hidden, D), 0.03), _bf16(rng, (hidden,), 0.03),
+         _bf16(rng, (D, hidden), 0.03), torch.zeros(D, device="cuda",
+                                                    dtype=torch.bfloat16)]
+    out, h_pre = fused_ffn._launch(x, *w, 1e-5, True)
+    torch.cuda.synchronize()
+    want_out, want_h = fused_ffn._forward_reference(
+        *[a.float() for a in (x, *w)], 1e-5)
+    assert _rel_err(out, want_out) <= REL_TOL
+    assert _rel_err(h_pre, want_h) <= REL_TOL
+    g = _bf16(rng, (M, D), 1.0)
+    args = (g, x, h_pre, w[0], w[1], w[2], w[4])
+    got = fused_ffn._launch_backward(*args, 1e-5)
+    torch.cuda.synchronize()
+    want = fused_ffn.fused_prenorm_ffn_backward_reference(
+        *[a.float() for a in args], 1e-5)
+    names = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+    again = fused_ffn._launch_backward(*args, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

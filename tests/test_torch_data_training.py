@@ -206,7 +206,9 @@ def test_parse_args_matches_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["-sp", "2"], "A11"), (["-tp", "2"], "A11"), (["-pp", "2"], "A11"),
+    # -tp is ported (tests/test_torch_parallel*.py); beside it -sp is not
+    (["-sp", "2"], "A11"), (["-tp", "2", "-sp", "2"], "A11"),
+    (["-pp", "2"], "A11"),
     (["-scan_layers", "True"], "not ported"),
     (["-remat", "True"], "not ported")])
 def test_unported_flags_raise(tmp_path, flags, what):

@@ -177,7 +177,9 @@ def test_port_never_imports_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     port = os.path.join(REPO, "videotransformer_tpu_torch")
     for new in ("serving/export.py", "tools/export_serving.py",
-                "tools/demo_inference.py", "models/convert.py"):
+                "tools/demo_inference.py", "models/convert.py",
+                "parallel/mesh.py", "parallel/tp.py", "utils/helpers.py",
+                "tools/mp_train_worker.py"):
         assert os.path.join(port, new) in files, new
     banned = ("jax", "flax")
     for path in files:

@@ -77,7 +77,7 @@ def _feed_masks(masks):
     def jax_drop_path(x, rate, deterministic, rng):
         return x / (1.0 - rate) * jnp.asarray(next(it_j), x.dtype)
 
-    def port_drop_path(x, rate, generator):
+    def port_drop_path(x, rate, generator, mesh=None):
         return x / (1.0 - rate) * torch.from_numpy(next(it_p)).to(x.dtype)
     return jax_drop_path, port_drop_path
 

@@ -13,6 +13,10 @@ Python numbers, so a caller can also hand them in (``apply``): jax.random
 and torch never give the same numbers, and the tests feed both packages the
 same draws. The arithmetic on the draws is done in float32, as the JAX
 package does it.
+
+Under data parallelism a rank holds rows of the global batch, and the
+flipped batch's rows at its positions are those of another rank, flipped:
+``partner`` hands them in (the trainer exchanges them).
 """
 
 import numpy as np
@@ -21,14 +25,16 @@ import torch
 f32 = np.float32
 
 
-def mixup_target(target, num_classes, lam=1.0, smoothing=0.0):
+def mixup_target(target, num_classes, lam=1.0, smoothing=0.0,
+                 partner=None):
     """(B,) labels -> (B, num_classes) fp32 soft targets mixed with the
-    flipped batch's."""
+    flipped batch's (``partner``'s flipped, where given)."""
     off = smoothing / num_classes
     on = 1.0 - smoothing + off
-    eye = torch.nn.functional.one_hot(target.long(), num_classes).float()
-    y1 = eye * (on - off) + off
-    y2 = y1.flip(0)
+    smooth = lambda t: torch.nn.functional.one_hot(
+        t.long(), num_classes).float() * (on - off) + off
+    y1 = smooth(target)
+    y2 = (y1 if partner is None else smooth(partner)).flip(0)
     return y1 * float(lam) + y2 * float(f32(1.0) - f32(lam))
 
 
@@ -70,18 +76,21 @@ class Mixup:
                                     self.cutmix_alpha, device),
                 "cy": cy, "cx": cx}
 
-    def __call__(self, x, target, generator):
+    def __call__(self, x, target, generator, partner=None):
         h, w = x.shape[-2], x.shape[-1]
         return self.apply(x, target,
-                          self.sample_draws(generator, h, w, x.device))
+                          self.sample_draws(generator, h, w, x.device),
+                          partner)
 
-    def apply(self, x, target, draws):
+    def apply(self, x, target, draws, partner=None):
         """x (B, T, C, H, W) float, target (B,) int, with the given draws
-        (mixup.py:76-96)."""
+        (mixup.py:76-96); each row mixed with the flipped batch's, or with
+        ``partner``'s (x, target) flipped."""
         h, w = x.shape[-2], x.shape[-1]
         do_mix, use_cutmix = draws["do_mix"], draws["use_cutmix"]
         lam_m = f32(draws["lam_mixup"]) if do_mix else f32(1.0)
-        x_flip = x.flip(0)
+        x_p, target_p = (x, None) if partner is None else partner
+        x_flip = x_p.flip(0)
         if use_cutmix and do_mix:
             ratio = np.sqrt(f32(1.0) - f32(draws["lam_cutmix"]))
             cut_h, cut_w = int(f32(h) * ratio), int(f32(w) * ratio)
@@ -95,5 +104,6 @@ class Mixup:
         else:
             x_out = x * float(lam_m) + x_flip * float(f32(1.0) - lam_m)
             lam = (f32(1.0) if use_cutmix else lam_m)
-        y = mixup_target(target, self.num_classes, lam, self.label_smoothing)
+        y = mixup_target(target, self.num_classes, lam, self.label_smoothing,
+                         target_p)
         return x_out, y

@@ -1,6 +1,6 @@
 """Host batches: collates, a threaded loader, a pinned-memory prefetch.
 
-Port of ``videotransformer_tpu/data/pipeline.py`` for one process:
+Port of ``videotransformer_tpu/data/pipeline.py``:
 
 - the collates (pipeline.py:23-60): ``collate_raw`` (uint8 clips for the
   device augment), ``collate_supervised``, ``collate_mim_raw`` and
@@ -8,7 +8,10 @@ Port of ``videotransformer_tpu/data/pipeline.py`` for one process:
 - ``Loader`` (pipeline.py:65-193): worker threads read the dataset (decode
   releases the interpreter lock), batches come out in order; a worker's
   exception is raised in the consumer, and so is the loss of every worker
-  and a batch that makes no progress for ``worker_timeout`` seconds;
+  and a batch that makes no progress for ``worker_timeout`` seconds; under
+  data parallelism each data rank (``process_index`` of ``num_processes``)
+  reads its shard of the indices, the contiguous stride of
+  pipeline.py:97-98;
 - ``device_prefetch`` (pipeline.py:195-223): batches on their way to a CUDA
   device go through a ring of two pinned host buffers, each copied with
   ``non_blocking`` on a side stream while the previous batch computes; the
@@ -68,12 +71,19 @@ def collate_mim(samples, max_cubes=8):
 class Loader:
     """Iterable over collated numpy batches, read by worker threads.
 
-    ``shuffle`` permutes the indices with ``seed + epoch`` (``set_epoch``);
-    ``drop_last`` drops a short last batch."""
+    ``shuffle`` permutes the indices with ``seed + epoch`` (``set_epoch``),
+    the same permutation in every process; process ``process_index`` of
+    ``num_processes`` then reads indices ``process_index::num_processes``
+    of it (JAX pipeline.py:97-98). ``drop_last`` drops a short last batch,
+    and across processes also the batches past the shortest shard's last
+    full one, so that every data rank takes the same number of steps (a
+    shard one sample longer than another could otherwise give its rank one
+    more step than the gradient all-reduce of the others: the JAX Loader
+    keeps it)."""
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
                  num_workers=2, collate_fn=collate_supervised, seed=0,
-                 worker_timeout=300.0):
+                 worker_timeout=300.0, process_index=0, num_processes=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -82,6 +92,11 @@ class Loader:
         self.collate_fn = collate_fn
         self.seed = seed
         self.epoch = 0
+        if not 0 <= process_index < num_processes:
+            raise ValueError(f"process_index {process_index} of "
+                             f"{num_processes} processes")
+        self.process_index = process_index
+        self.num_processes = num_processes
         # seconds one batch may go without a sample arriving before the
         # consumer raises
         self.worker_timeout = worker_timeout
@@ -93,17 +108,18 @@ class Loader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        idx = idx[self.process_index::self.num_processes]
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:
-            batches = [b for b in batches if len(b) == self.batch_size]
+            batches = batches[:len(self)]
         return batches
 
     def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+        n, p = len(self.dataset), self.num_processes
+        if self.drop_last:  # the shortest shard's, the last process's
+            return len(range(p - 1, n, p)) // self.batch_size
+        return -(-len(range(self.process_index, n, p)) // self.batch_size)
 
     def __iter__(self):
         batches = self._batches()

@@ -7,11 +7,20 @@
         -root_dir WORK -train_data_path TRAIN.txt [-val_data_path ...] \\
         [-device_augment True] [-device cpu]
 
-``single_run`` scales the LR by the batch over 256 (one device), names the
+Under torchrun (``torchrun --nproc_per_node N -m
+videotransformer_tpu_torch.model_pretrain ... [-tp T]``) each process joins
+the process group (``parallel/mesh.init_distributed``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``-device cpu``) and trains on a (data =
+N / T, model = T) mesh: data parallelism over N / T ranks, Megatron tensor
+parallelism of the blocks over T (``-batch_size`` clips a data rank).
+
+``single_run`` validates ``-tp``/``-sp`` as the JAX CLI does
+(``validate_parallel_flags``), scales the LR by the global batch over 256
+(the data ranks' batches only, JAX model_pretrain.py:237-241), names the
 run's results/{tag}/{ckpt,log} directories by the same tag (a long tag is
 cut with a hash), seeds numpy, ``random``, the transforms' generator and
-torch, builds the ``KineticsDataModule``, resumes from ``last_checkpoint``
-with ``-resume``, and fits.
+torch, builds the ``KineticsDataModule`` over the data rank's shard,
+resumes from ``last_checkpoint`` with ``-resume``, and fits.
 
 Differences from the JAX CLI, on purpose:
 
@@ -19,10 +28,10 @@ Differences from the JAX CLI, on purpose:
 - Flags of ``type=bool`` in the JAX CLI parse by value here: ``-use_fp16
   False`` is False. argparse's ``type=bool`` makes any non-empty string
   True, so the JAX CLI (and the reference) read ``False`` as True.
-- Flags the port cannot honour raise ``NotImplementedError``: ``-sp``,
-  ``-tp`` or ``-pp`` above 1 (parallelism, ROADMAP queue A item A11),
-  ``-scan_layers True`` (not ported: a lax.scan layout) and ``-remat
-  True`` (activation checkpointing is not ported). ``-fused_adamw`` only
+- Flags the port cannot honour raise ``NotImplementedError``: ``-sp`` or
+  ``-pp`` above 1 (sequence and pipeline parallelism, the rest of ROADMAP
+  queue A item A11), ``-scan_layers True`` (not ported: a lax.scan layout)
+  and ``-remat True`` (activation checkpointing is not ported). ``-fused_adamw`` only
   changes how the JAX optimizer lays out its small leaves, and ``-gpus``
   and ``-multi_crop`` are read by neither trainer.
 """
@@ -145,7 +154,8 @@ def parse_args(argv=None):
                         help="the JAX optimizer's flat small-leaf layout; "
                              "the port's AdamW is per tensor")
     parser.add_argument("-tp", type=int, default=1,
-                        help="tensor-parallel size (not ported)")
+                        help="tensor-parallel size (Megatron over the "
+                             "attention heads and FFN hidden units)")
     parser.add_argument("-sp", type=int, default=1,
                         help="sequence-parallel size (not ported)")
     parser.add_argument("-pp", type=int, default=1,
@@ -158,13 +168,43 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def validate_parallel_flags(args):
+    """Fail fast on -tp/-sp values the model geometry can't shard (JAX
+    model_pretrain.py:170-195, the same checks and messages): MViT under
+    -tp, a -tp that does not divide the 12 heads of the B/16 builders, and
+    a -sp that is not over divided attention rows or does not divide both
+    the (effective) frame and the patch count."""
+    from videotransformer_tpu_torch.parallel import tp as _tp
+
+    tp, sp = getattr(args, "tp", 1), getattr(args, "sp", 1)
+    try:
+        _tp.validate(args.arch, tp)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    if sp > 1:
+        if args.attention_type not in ("divided_space_time", "fact_encoder"):
+            raise SystemExit(
+                f"-sp > 1 requires divided attention rows "
+                f"(attention_type divided_space_time/fact_encoder), got "
+                f"{args.attention_type}")
+        frames = args.num_frames // 2 if args.arch == "vivit" \
+            else args.num_frames
+        patches = (args.img_size // 16) ** 2
+        if frames % sp or patches % sp:
+            raise SystemExit(
+                f"-sp {sp} must divide both the (effective) frame count "
+                f"({frames}) and the patch count ({patches}); a "
+                f"non-divisible sp falls back to unsharded attention rows.")
+
+
 def refuse_unported(args):
     """Raise NotImplementedError for flags the port cannot honour."""
-    for flag in ("sp", "tp", "pp"):
+    for flag, what in (("sp", "sequence"), ("pp", "pipeline")):
         if getattr(args, flag) > 1:
             raise NotImplementedError(
-                f"-{flag} {getattr(args, flag)}: parallelism is not ported "
-                "(ROADMAP queue A, item A11); the port trains on one device")
+                f"-{flag} {getattr(args, flag)}: {what} parallelism is not "
+                "ported (the rest of ROADMAP queue A, item A11); the port "
+                "has data parallelism (torchrun) and -tp")
     if args.scan_layers:
         raise NotImplementedError(
             "-scan_layers True: the lax.scan layer stack is not ported "
@@ -206,19 +246,32 @@ def exp_tag(args):
 
 def single_run(argv=None):
     args = parse_args(argv)
+    validate_parallel_flags(args)
     refuse_unported(args)
 
     import torch
 
     from videotransformer_tpu_torch.data import transforms as T
+    from videotransformer_tpu_torch.parallel import mesh as _mesh
     from videotransformer_tpu_torch.training.data_module import (
         KineticsDataModule)
     from videotransformer_tpu_torch.training.trainer import (
         VideoTransformerTrainer)
 
-    # linear LR scale by the batch over 256 (model_pretrain.py:158-164),
-    # on one device
-    args.lr = args.lr * args.batch_size / 256
+    # under torchrun: the process group, this rank's card, the mesh
+    device = _mesh.init_distributed(device=args.device)
+    mesh = None
+    world = 1
+    if torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+        mesh = _mesh.create_mesh(model=args.tp, device=device)
+    elif args.tp > 1:
+        raise SystemExit(f"-tp {args.tp} needs {args.tp} processes or more "
+                         "(torchrun --nproc_per_node)")
+    # linear LR scale by the global batch over 256 (model_pretrain.py:
+    # 158-164): the data-parallel ranks' batches only, as tensor-parallel
+    # ranks share one (JAX model_pretrain.py:237-241)
+    args.lr = args.lr * args.batch_size * (world // args.tp) / 256
     run_dir = os.path.join(args.root_dir, "results", exp_tag(args))
     ckpt_dir = os.path.join(run_dir, "ckpt")
     log_dir = os.path.join(run_dir, "log")
@@ -233,13 +286,15 @@ def single_run(argv=None):
 
     data_module = KineticsDataModule(
         configs=args, train_ann_path=args.train_data_path,
-        val_ann_path=args.val_data_path, test_ann_path=args.test_data_path)
+        val_ann_path=args.val_data_path, test_ann_path=args.test_data_path,
+        process_index=0 if mesh is None else mesh.data_rank,
+        num_processes=1 if mesh is None else mesh.data)
     if args.resume and not args.resume_from_checkpoint:
         args.resume_from_checkpoint = resolve_resume_checkpoint(ckpt_dir)
     trainer = VideoTransformerTrainer(
-        configs=args, device=args.device, ckpt_dir=ckpt_dir,
+        configs=args, device=device, ckpt_dir=ckpt_dir,
         do_eval=args.val_data_path is not None,
-        do_test=args.test_data_path is not None, log_dir=log_dir)
+        do_test=args.test_data_path is not None, log_dir=log_dir, mesh=mesh)
     try:
         resume = args.resume_from_checkpoint
         if resume and os.path.exists(resume):
@@ -251,6 +306,8 @@ def single_run(argv=None):
         trainer.fit(data_module, args.epoch)
     finally:
         trainer.close()
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
     return trainer
 
 

@@ -24,6 +24,7 @@ from torch import nn
 from videotransformer_tpu_torch.models.mvit import (
     create_multiscale_vision_transformers, linear)
 from videotransformer_tpu_torch.ops import initializers as init
+from videotransformer_tpu_torch.parallel import mesh as _mesh
 
 
 class _PatchEmbed(nn.Module):
@@ -54,8 +55,9 @@ class MaskFeat(nn.Module):
                  pool_q_stride_size=((1, 1, 2, 2), (3, 1, 2, 2),
                                      (14, 1, 2, 2)),
                  pool_kv_stride_adaptive=(1, 8, 8),
-                 pool_kvq_kernel=(3, 3, 3), depth=16):
+                 pool_kvq_kernel=(3, 3, 3), depth=16, mesh=None):
         super().__init__()
+        self.mesh = mesh  # a data-parallel run's: the loss's global count
         self.img_size = img_size
         self.num_frames = num_frames
         self.feature_dim = feature_dim
@@ -72,7 +74,7 @@ class MaskFeat(nn.Module):
             pool_kv_stride_adaptive=list(pool_kv_stride_adaptive),
             pool_kvq_kernel=list(pool_kvq_kernel), depth=depth,
             patch_embed_dim=patch_embed_dim,
-            conv_patch_embed_stride=self.stride)
+            conv_patch_embed_stride=self.stride, mesh=mesh)
         self.decoder_pred = nn.Linear(self.embed_dims, feature_dim)
         self.mask_token = nn.Parameter(torch.empty(1, 1, patch_embed_dim))
 
@@ -127,7 +129,10 @@ class MaskFeat(nn.Module):
             onehot = (centers[..., None] == frames).float() * valid[..., None]
             mask16 = mask16 * onehot.sum(1).clamp(0, 1)[:, :, None, None]
         loss = ((preds.float() - target_x.float()) ** 2).mean(-1)
-        loss = (loss * mask16).sum() / (mask16.sum() + 1e-5)
+        # over the global batch's mask count under data parallelism
+        # (maskfeat.py:151): each data rank's loss is its share of the sum
+        count = _mesh.sum_over_data(mask16.sum(), self.mesh)
+        loss = (loss * mask16).sum() / (count + 1e-5)
         if visualize:
             b = preds.shape[0]
             hp = preds.reshape(b, T, h_out, w_out, 2, 2, 3, 9)

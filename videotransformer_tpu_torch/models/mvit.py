@@ -46,6 +46,7 @@ from torch import nn
 
 from videotransformer_tpu_torch.kernels import flash_attention, fused_ffn
 from videotransformer_tpu_torch.ops import initializers as init
+from videotransformer_tpu_torch.parallel import mesh as _mesh
 
 LN_EPS = 1e-6  # every LayerNorm of the trunk (video_transformer.py:668-671)
 
@@ -241,8 +242,10 @@ class MultiScaleBlock(nn.Module):
 
     def __init__(self, dim, dim_out, num_heads, mlp_ratio=4.0, qkv_bias=True,
                  dropout_rate=0.0, droppath_rate=0.0, kernel_q=(),
-                 kernel_kv=(), stride_q=(), stride_kv=(), has_cls_embed=True):
+                 kernel_kv=(), stride_q=(), stride_kv=(), has_cls_embed=True,
+                 mesh=None):
         super().__init__()
+        self.mesh = mesh  # DropPath's data rank
         if dropout_rate or not has_cls_embed:
             raise NotImplementedError(
                 "MViT blocks with dropout or without the cls token are not "
@@ -272,12 +275,13 @@ class MultiScaleBlock(nn.Module):
 
     def _droppath_pair(self, h, h_cls, generator):
         """Stochastic depth with ONE keep mask per sample for the patch and
-        cls parts (mvit.py:325-340); uniforms from ``generator``."""
+        cls parts (mvit.py:325-340); uniforms from ``generator``, drawn for
+        the global batch under data parallelism."""
         if not self.training or self.droppath_rate == 0.0:
             return h, h_cls
         keep = 1.0 - self.droppath_rate
-        u = torch.rand((h.shape[0], 1, 1), generator=generator,
-                       dtype=h.dtype, device=h.device)
+        u = _mesh.rand_rows((h.shape[0], 1, 1), generator, h.dtype, h.device,
+                            self.mesh)
         mask = torch.floor(keep + u)
         return h / keep * mask, h_cls / keep * mask
 
@@ -346,13 +350,14 @@ class MultiscaleVisionTransformers(nn.Module):
     """Positional encoding, the block stack and the final LayerNorm
     (mvit.py:476-504)."""
 
-    def __init__(self, embed_dim, patch_embed_shape, block_configs):
+    def __init__(self, embed_dim, patch_embed_shape, block_configs,
+                 mesh=None):
         super().__init__()
         self.patch_embed_shape = tuple(patch_embed_shape)
         self.cls_positional_encoding = SpatioTemporalClsPositionalEncoding(
             embed_dim, patch_embed_shape)
         self.blocks = nn.ModuleList(
-            [MultiScaleBlock(**cfg) for cfg in block_configs])
+            [MultiScaleBlock(**cfg, mesh=mesh) for cfg in block_configs])
         self.norm_embed = nn.LayerNorm(block_configs[-1]["dim_out"],
                                        eps=LN_EPS)
 
@@ -475,10 +480,12 @@ def create_multiscale_vision_transformers(
     pool_kv_stride_size=None,
     pool_kv_stride_adaptive=None,
     pool_kvq_kernel=None,
+    mesh=None,
 ):
     """The MViT trunk of video_transformer.py:621-800 (mvit.py:593-638):
     positional encoding + blocks + final norm; the caller embeds patches.
-    Returns (module, final_embed_dim)."""
+    ``mesh``: a data-parallel run's (``parallel/mesh.py``), for DropPath's
+    draws. Returns (module, final_embed_dim)."""
     if isinstance(spatial_size, int):
         spatial_size = (spatial_size, spatial_size)
     input_dims = [temporal_size, spatial_size[0], spatial_size[1]]
@@ -494,4 +501,4 @@ def create_multiscale_vision_transformers(
         pool_kv_stride_adaptive=pool_kv_stride_adaptive,
         pool_kvq_kernel=pool_kvq_kernel)
     return MultiscaleVisionTransformers(patch_embed_dim, patch_embed_shape,
-                                        block_configs), embed_dim
+                                        block_configs, mesh), embed_dim

@@ -21,7 +21,9 @@ use torch's default generator, and at p = 0 draw nothing. The working type
 is the clip's dtype: fp32 parameters are cast to it at each use.
 
 At another resolution than the native one the spatial table is resized by
-``interpolate_pos_encoding``, as in the JAX package.
+``interpolate_pos_encoding``, as in the JAX package. ``mesh`` (a parallel
+run's, ``parallel/mesh.py``) goes to the blocks: with ``model`` > 1 ranks
+they hold this rank's shard (``ops/blocks.py``, ``parallel/tp.py``).
 """
 
 import functools
@@ -112,7 +114,7 @@ class TimeSformer(nn.Module):
     def __init__(self, num_frames, img_size=224, patch_size=16, embed_dims=768,
                  num_heads=12, num_transformer_layers=12, in_channels=3,
                  attention_type="divided_space_time", drop_path_rate=0.1,
-                 dropout_p=0.0):
+                 dropout_p=0.0, mesh=None):
         super().__init__()
         if attention_type not in ATTENTION_TYPES:
             raise ValueError(f"Unsupported Attention Type {attention_type}!")
@@ -128,7 +130,7 @@ class TimeSformer(nn.Module):
             operator_order=(("time_attn", "space_attn", "ffn")
                             if attention_type == "divided_space_time"
                             else ("self_attn", "ffn")),
-            drop_path_rate=drop_path_rate)
+            drop_path_rate=drop_path_rate, mesh=mesh)
         self.norm = nn.LayerNorm(embed_dims, eps=FINAL_LN_EPS)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dims))
         # operator_order[-2] is 'space_attn' or 'self_attn': the cls slot is

@@ -18,7 +18,9 @@ Port of ``videotransformer_tpu/models/vivit.py``. A Conv3d tubelet embedding
   ``(b·T', 1 + p, d)`` spatial output, the original repo's quirk
   (video_transformer.py:515): for b > 1 those rows are sample 0's first b
   frames, and the JAX package keeps it, since published checkpoints depend
-  on it. So does the port.
+  on it. So does the port, for the global batch under data parallelism:
+  the rows come from the data ranks that hold them (``mesh.gather_data``),
+  as the JAX trainer's global array gives them.
 
 Then the final LayerNorm (eps 1e-6) and the cls row, or the mean of the
 other rows when ``return_cls_token`` is False. The two fact_encoder stacks
@@ -26,7 +28,9 @@ are ``transformer_layers.0`` and ``.1``, the original repo's names, so a
 converted state dict loads with ``strict=True``. Position tables are
 learnable, as the JAX trainer builds them. ``model.train()`` turns on
 DropPath and the dropouts as in ``models/timesformer.py``; the working
-type is the clip's dtype.
+type is the clip's dtype. ``mesh`` (a parallel run's, ``parallel/mesh.py``)
+goes to the blocks: with ``model`` > 1 ranks they hold this rank's shard
+(``ops/blocks.py``, ``parallel/tp.py``).
 """
 
 import torch
@@ -36,6 +40,7 @@ from torch import nn
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.ops.blocks import (
     PatchEmbed, TransformerContainer)
+from videotransformer_tpu_torch.parallel import mesh as _mesh
 
 FINAL_LN_EPS = 1e-6
 ATTENTION_TYPES = ("fact_encoder", "joint_space_time", "divided_space_time")
@@ -47,8 +52,9 @@ class ViViT(nn.Module):
                  num_heads=12, num_transformer_layers=12, in_channels=3,
                  dropout_p=0.0, tube_size=2, attention_type="fact_encoder",
                  return_cls_token=True, num_time_transformer_layers=4,
-                 drop_path_rate=0.1):
+                 drop_path_rate=0.1, mesh=None):
         super().__init__()
+        self.mesh = mesh
         if attention_type not in ATTENTION_TYPES:
             raise ValueError(f"Unsupported Attention Type {attention_type}!")
         self.attention_type = attention_type
@@ -59,7 +65,7 @@ class ViViT(nn.Module):
         num_patches = self.patch_embed.num_patches
         stack = lambda depth, order: TransformerContainer(
             depth, embed_dims, num_heads, self.eff_frames, 4 * embed_dims,
-            order, drop_path_rate)
+            order, drop_path_rate, mesh)
         if attention_type == "fact_encoder":
             self.transformer_layers = nn.ModuleList([
                 stack(num_transformer_layers, ("self_attn", "ffn")),
@@ -122,7 +128,10 @@ class ViViT(nn.Module):
             spatial, temporal = self.transformer_layers
             x = spatial(x, generator)
             bt, p1, d = x.shape
-            cls_tokens = x[:b, :1]  # the x[:b, 0] quirk (module doc)
+            # the x[:b, 0] quirk (module doc), rows of the global batch
+            r = 0 if self.mesh is None else self.mesh.data_rank
+            cls_tokens = _mesh.gather_data(x[:, 0], self.mesh)[
+                r * b:(r + 1) * b, None]
             patches = x[:, 1:].reshape(b, bt // b, p1 - 1, d).mean(dim=2)
             x = torch.cat([cls_tokens, patches], dim=1)
             x = self.time_drop(x + self.time_embed.to(x.dtype))

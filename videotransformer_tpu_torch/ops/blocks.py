@@ -22,7 +22,21 @@ DropPath (stochastic depth) acts in training mode only, with the keep mask
 over the leading axis of the tensor it is applied to (blocks.py:61-79): one
 draw per ``(b·p)`` temporal row, per ``(b·t)`` spatial row and per sample in
 the FFN, placed where the JAX blocks place it (blocks.py:331-334, 433-434,
-602). Its uniforms come from the ``generator`` passed down the forward.
+602). Its uniforms come from the ``generator`` passed down the forward,
+drawn for the global batch under data parallelism (``mesh.rand_rows``).
+
+A block is built with the ``mesh`` of a parallel run (``parallel/mesh.py``;
+None for one process), which it keeps. Tensor parallelism (a mesh of
+``model`` > 1 ranks, ``parallel/tp.py``): the block holds its shard of qkv
+and fc1 (rows) and of proj and fc2 (columns) under the full model's names,
+and runs B1 or B2 (B3 or B4 backward) on it inside ``tp.sharded_call``
+(JAX blocks.py:302-324,
+395-402, 506-513, 585-591): the head count from the shard's width, the
+partial outputs summed over the model group, the row bias added once; the
+residual stays outside the kernel. Joint attention's unfused branch
+(flash attention over the rank's heads) is sharded the same way. A
+sharded block is initialised by sharding a full one (``reset_parameters``
+refuses).
 """
 
 import numpy as np
@@ -34,6 +48,8 @@ from videotransformer_tpu_torch.kernels import (
     flash_attention, fused_ffn, fused_mhsa)
 from videotransformer_tpu_torch.kernels._plain import layer_norm
 from videotransformer_tpu_torch.ops import initializers as init
+from videotransformer_tpu_torch.parallel import mesh as _mesh
+from videotransformer_tpu_torch.parallel import tp as _tp
 
 LN_EPS = 1e-5  # LayerNorm eps inside the blocks (torch's default)
 # the longest sequence the JAX package gives its fused prenorm-MHSA kernel
@@ -53,26 +69,28 @@ def get_sine_cosine_pos_emb(n_position, d_hid):
     return torch.tensor(table[None], dtype=torch.float32)
 
 
-def drop_path(x, rate, generator):
+def drop_path(x, rate, generator, mesh=None):
     """Stochastic depth per leading-axis row (blocks.py:61-79):
-    ``x / keep · floor(keep + U)``, U uniform in the working type."""
+    ``x / keep · floor(keep + U)``, U uniform in the working type, this
+    data rank's rows of the global draw under ``mesh``."""
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    u = torch.rand(shape, generator=generator, dtype=x.dtype, device=x.device)
+    u = _mesh.rand_rows(shape, generator, x.dtype, x.device, mesh)
     return x / keep * torch.floor(keep + u)
 
 
 class DropPath(nn.Module):
     """Stochastic depth at ``rate``; the identity in eval mode or at 0."""
 
-    def __init__(self, rate=0.0):
+    def __init__(self, rate=0.0, mesh=None):
         super().__init__()
         self.rate = float(rate)
+        self.mesh = mesh
 
     def forward(self, x, generator=None):
         if not self.training or self.rate == 0.0:
             return x
-        return drop_path(x, self.rate, generator)
+        return drop_path(x, self.rate, generator, self.mesh)
 
 
 def _reset_layer_norm(norm):
@@ -80,17 +98,31 @@ def _reset_layer_norm(norm):
     init.zeros_(norm.bias)
 
 
+def _refuse_sharded(module):
+    if module.tp > 1:
+        raise RuntimeError(
+            f"{type(module).__name__} holds a tp={module.tp} shard: "
+            "initialise the full model and load its shard "
+            "(parallel.tp.shard_state_dict)")
+
+
 class Attention(nn.Module):
     """Parameter holder of the fused-QKV MHSA (names ``qkv``, ``proj``); the
-    computation is ``fused_mhsa.fused_prenorm_mhsa``."""
+    computation is ``fused_mhsa.fused_prenorm_mhsa``. At ``tp`` > 1 it holds
+    one model rank's heads: qkv (3·dim/tp, dim), proj (dim, dim/tp)."""
 
-    def __init__(self, dim, num_heads):
+    def __init__(self, dim, num_heads, tp=1):
         super().__init__()
+        if num_heads % tp:
+            raise ValueError(f"tp={tp} does not divide {num_heads} heads")
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.head_dim = dim // num_heads
+        self.tp = tp
+        self.qkv = nn.Linear(dim, 3 * dim // tp)
+        self.proj = nn.Linear(dim // tp, dim)
 
     def reset_parameters(self, generator):
+        _refuse_sharded(self)
         init.torch_linear_(self.qkv, generator)
         init.torch_linear_(self.proj, generator)
 
@@ -99,26 +131,40 @@ class _PrenormMHSA(nn.Module):
     """LayerNorm + Attention, run as one fused prenorm-MHSA call, then
     DropPath on its output."""
 
-    def __init__(self, embed_dims, num_heads, drop_path_rate=0.0):
+    def __init__(self, embed_dims, num_heads, drop_path_rate=0.0,
+                 mesh=None):
         super().__init__()
+        self.mesh = mesh
         self.norm = nn.LayerNorm(embed_dims, eps=LN_EPS)
-        self.attn = Attention(embed_dims, num_heads)
-        self.layer_drop = DropPath(drop_path_rate)
+        self.attn = Attention(embed_dims, num_heads, _mesh.model_ranks(mesh))
+        self.layer_drop = DropPath(drop_path_rate, mesh)
 
     def reset_parameters(self, generator):
         _reset_layer_norm(self.norm)
         self.attn.reset_parameters(generator)
 
+    def _sharded(self, fn, x, ln_dtype=None):
+        """``fn`` over x and the block's weights in x's dtype (the LayerNorm
+        weight and bias in ``ln_dtype``, x's by default), through
+        ``tp.sharded_call``."""
+        a, dt = self.attn, x.dtype
+        ln = ln_dtype or dt
+        return _tp.sharded_call(
+            fn, self.mesh, x.contiguous(), self.norm.weight.to(ln),
+            self.norm.bias.to(ln), a.qkv.weight.to(dt), a.qkv.bias.to(dt),
+            a.proj.weight.to(dt), a.proj.bias.to(dt))
+
     def _prenorm_mhsa(self, x, generator, block_diag=0):
-        a = self.attn
-        dt = x.dtype
-        head_dim = a.qkv.weight.shape[0] // 3 // a.num_heads
-        out = fused_mhsa.fused_prenorm_mhsa(
-            x.contiguous(), self.norm.weight.to(dt), self.norm.bias.to(dt),
-            a.qkv.weight.to(dt), a.qkv.bias.to(dt), a.proj.weight.to(dt),
-            a.proj.bias.to(dt), a.num_heads, head_dim ** -0.5, LN_EPS, False,
-            block_diag)
-        return self.layer_drop(out, generator)
+        hd = self.attn.head_dim
+
+        def mhsa(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):
+            # the heads of this shard, from its width (JAX blocks.py:306)
+            return fused_mhsa.fused_prenorm_mhsa(
+                x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+                w_qkv.shape[0] // (3 * hd), hd ** -0.5, LN_EPS, False,
+                block_diag)
+
+        return self.layer_drop(self._sharded(mhsa, x), generator)
 
 
 class JointAttention(_PrenormMHSA):
@@ -136,20 +182,20 @@ class JointAttention(_PrenormMHSA):
     def forward(self, query, generator=None):
         if query.shape[1] <= FUSED_MHSA_MAX_N:
             return query + self._prenorm_mhsa(query, generator)
-        return query + self.layer_drop(self._unfused(query), generator)
+        out = self._sharded(self._unfused, query, self.norm.weight.dtype)
+        return query + self.layer_drop(out, generator)
 
-    def _unfused(self, x):
-        a = self.attn
-        dt = x.dtype
-        B, N, D = x.shape
-        hd = D // a.num_heads
-        xn = layer_norm(x, self.norm.weight, self.norm.bias, LN_EPS)
-        qkv = F.linear(xn, a.qkv.weight.to(dt), a.qkv.bias.to(dt))
-        q, k, v = qkv.reshape(B, N, 3, a.num_heads, hd).permute(
+    def _unfused(self, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):
+        B, N, _ = x.shape
+        hd = self.attn.head_dim
+        heads = w_qkv.shape[0] // (3 * hd)  # this shard's
+        xn = layer_norm(x, ln_w, ln_b, LN_EPS)
+        qkv = F.linear(xn, w_qkv, b_qkv)
+        q, k, v = qkv.reshape(B, N, 3, heads, hd).permute(
             2, 0, 3, 1, 4).contiguous().unbind(0)
         o = flash_attention.flash_attention(q, k, v, hd ** -0.5)
-        o = o.transpose(1, 2).reshape(B, N, D)
-        return F.linear(o, a.proj.weight.to(dt), a.proj.bias.to(dt))
+        o = o.transpose(1, 2).reshape(B, N, heads * hd)
+        return F.linear(o, w_proj, b_proj)
 
 
 class DividedTemporalAttention(_PrenormMHSA):
@@ -163,8 +209,8 @@ class DividedTemporalAttention(_PrenormMHSA):
     length."""
 
     def __init__(self, embed_dims, num_heads, num_frames, use_cls_token,
-                 drop_path_rate=0.0):
-        super().__init__(embed_dims, num_heads, drop_path_rate)
+                 drop_path_rate=0.0, mesh=None):
+        super().__init__(embed_dims, num_heads, drop_path_rate, mesh)
         self.num_frames = num_frames
         self.use_cls_token = use_cls_token
         if not use_cls_token:
@@ -206,8 +252,8 @@ class DividedSpatialAttention(_PrenormMHSA):
     over frames. DropPath is per length-p (or p + 1) row."""
 
     def __init__(self, embed_dims, num_heads, num_frames, use_cls_token,
-                 drop_path_rate=0.0):
-        super().__init__(embed_dims, num_heads, drop_path_rate)
+                 drop_path_rate=0.0, mesh=None):
+        super().__init__(embed_dims, num_heads, drop_path_rate, mesh)
         self.num_frames = num_frames
         self.use_cls_token = use_cls_token
 
@@ -237,16 +283,23 @@ class FFN(nn.Module):
     keeps the reference's layout: ``Sequential(Linear)`` then a bare
     ``Linear``."""
 
-    def __init__(self, embed_dims, hidden_channels, drop_path_rate=0.0):
+    def __init__(self, embed_dims, hidden_channels, drop_path_rate=0.0,
+                 mesh=None):
         super().__init__()
+        tp = _mesh.model_ranks(mesh)
+        if hidden_channels % tp:
+            raise ValueError(f"tp={tp} does not divide hidden "
+                             f"{hidden_channels}")
+        self.tp, self.mesh = tp, mesh
         self.norm = nn.LayerNorm(embed_dims, eps=LN_EPS)
         self.layers = nn.ModuleList([
-            nn.Sequential(nn.Linear(embed_dims, hidden_channels)),
-            nn.Linear(hidden_channels, embed_dims),
+            nn.Sequential(nn.Linear(embed_dims, hidden_channels // tp)),
+            nn.Linear(hidden_channels // tp, embed_dims),
         ])
-        self.layer_drop = DropPath(drop_path_rate)
+        self.layer_drop = DropPath(drop_path_rate, mesh)
 
     def reset_parameters(self, generator):
+        _refuse_sharded(self)
         _reset_layer_norm(self.norm)
         init.torch_linear_(self.layers[0][0], generator)
         init.torch_linear_(self.layers[1], generator)
@@ -254,10 +307,11 @@ class FFN(nn.Module):
     def forward(self, x, generator=None):
         fc1, fc2 = self.layers[0][0], self.layers[1]
         dt = x.dtype
-        out = fused_ffn.fused_prenorm_ffn(
+        out = _tp.sharded_call(
+            lambda *a: fused_ffn.fused_prenorm_ffn(*a, LN_EPS), self.mesh,
             x.contiguous(), self.norm.weight.to(dt), self.norm.bias.to(dt),
             fc1.weight.to(dt), fc1.bias.to(dt), fc2.weight.to(dt),
-            fc2.bias.to(dt), LN_EPS)
+            fc2.bias.to(dt))
         return x + self.layer_drop(out, generator)
 
 
@@ -268,7 +322,7 @@ class BasicTransformerBlock(nn.Module):
     the divided attention just before the FFN carries the cls token."""
 
     def __init__(self, embed_dims, num_heads, num_frames, hidden_channels,
-                 operator_order, drop_path_rate=0.0):
+                 operator_order, drop_path_rate=0.0, mesh=None):
         super().__init__()
         attentions, ffns = [], []
         order = tuple(operator_order)
@@ -279,12 +333,13 @@ class BasicTransformerBlock(nn.Module):
                 attentions.append(kinds[op](
                     embed_dims, num_heads, num_frames,
                     use_cls_token=(i == len(order) - 2),
-                    drop_path_rate=drop_path_rate))
+                    drop_path_rate=drop_path_rate, mesh=mesh))
             elif op == "self_attn":
                 attentions.append(JointAttention(embed_dims, num_heads,
-                                                 drop_path_rate))
+                                                 drop_path_rate, mesh))
             elif op == "ffn":
-                ffns.append(FFN(embed_dims, hidden_channels, drop_path_rate))
+                ffns.append(FFN(embed_dims, hidden_channels, drop_path_rate,
+                                mesh))
             else:
                 raise TypeError(f"Unsupported operator type {op}")
         self.attentions = nn.ModuleList(attentions)
@@ -308,13 +363,13 @@ class TransformerContainer(nn.Module):
 
     def __init__(self, num_transformer_layers, embed_dims, num_heads,
                  num_frames, hidden_channels, operator_order,
-                 drop_path_rate=0.0):
+                 drop_path_rate=0.0, mesh=None):
         super().__init__()
         dpr = np.linspace(0, drop_path_rate, num_transformer_layers)
         self.layers = nn.ModuleList([
             BasicTransformerBlock(embed_dims, num_heads, num_frames,
                                   hidden_channels, operator_order,
-                                  float(dpr[i]))
+                                  float(dpr[i]), mesh)
             for i in range(num_transformer_layers)])
 
     def reset_parameters(self, generator):

@@ -74,23 +74,28 @@ def ffn_fwd_bound(rows, d):
     return bound(16 * rows * d * d, 2 * (2 * rows * d + 8 * d * d + 7 * d))
 
 
-def mhsa_bwd_bound(rows, L, d, whole=True):
-    """(ms, by) of one B3 call at Da = Do = d: alone, the attention backward
-    (five products a head) and d_xn against x, qkv and do read and dx and
-    dqkv written; whole, also dw_proj, do and dw_qkv, against g, x, qkv and
-    attn read, dx and the fp32 weight gradients written."""
+def mhsa_bwd_bound(rows, L, d, whole=True, da=None):
+    """(ms, by) of one B3 call at Do = d and attention width Da = ``da`` (d
+    by default): alone, the attention backward (five products a head) and
+    d_xn against x, qkv and do read and dx and dqkv written; whole, also
+    dw_proj, do and dw_qkv, against g, x, qkv and attn read, dx and the
+    fp32 weight gradients written."""
+    da = da or d
     if not whole:
-        return bound(10 * rows * L * d + 6 * rows * d * d,
-                     2 * (9 * rows * d + 3 * d * d))
-    return bound(10 * rows * L * d + 16 * rows * d * d,
-                 2 * (7 * rows * d + 4 * d * d) + 4 * (4 * d * d + 6 * d))
+        return bound(10 * rows * L * da + 6 * rows * d * da,
+                     2 * (2 * rows * d + 7 * rows * da + 3 * d * da))
+    return bound(10 * rows * L * da + 16 * rows * d * da,
+                 2 * (3 * rows * d + 4 * rows * da + 4 * d * da)
+                 + 4 * (4 * d * da + 3 * da + 3 * d))
 
 
-def ffn_bwd_bound(rows, d):
-    """(ms, by) of one B4 call: four products against x, h_pre, g read, dx
-    written, the weights read and their fp32 gradients written."""
-    return bound(32 * rows * d * d,
-                 2 * (7 * rows * d + 8 * d * d) + 4 * 8 * d * d)
+def ffn_bwd_bound(rows, d, hidden=None):
+    """(ms, by) of one B4 call (hidden 4·d by default): four products
+    against x, h_pre, g read, dx written, the weights read and their fp32
+    gradients written."""
+    h = hidden or 4 * d
+    return bound(8 * rows * d * h,
+                 2 * (3 * rows * d + rows * h + 2 * d * h) + 4 * 2 * d * h)
 
 
 class MhsaBwd:

@@ -1,7 +1,9 @@
 """The Kinetics data module: per-objective recipes and the three loaders.
 
 Port of ``videotransformer_tpu/training/data_module.py`` (the reference's
-data_trainer.py:38-154), for one process:
+data_trainer.py:38-154); under data parallelism every loader reads the
+shard of data rank ``process_index`` of ``num_processes`` (the model ranks
+of one data slot read the same samples):
 
 - mim: RandomResizedCrop scale (0.5, 1.0) + flip, no colour jitter, the
   transform split [geometric, ToTensor + Normalize]; supervised: colour
@@ -46,8 +48,11 @@ class ThreeCropCollate:
 
 class KineticsDataModule:
     def __init__(self, configs, train_ann_path=None, val_ann_path=None,
-                 test_ann_path=None, host_hog_targets=True):
+                 test_ann_path=None, host_hog_targets=True, process_index=0,
+                 num_processes=1):
         self.configs = configs
+        self.process_index = process_index
+        self.num_processes = num_processes
         self.train_ann_path = train_ann_path
         self.val_ann_path = val_ann_path
         self.test_ann_path = test_ann_path
@@ -113,7 +118,9 @@ class KineticsDataModule:
         return Loader(dataset, batch_size=cfg.batch_size, shuffle=shuffle,
                       drop_last=drop_last,
                       num_workers=getattr(cfg, "num_workers", 2),
-                      collate_fn=collate_fn, seed=getattr(cfg, "seed", 0))
+                      collate_fn=collate_fn, seed=getattr(cfg, "seed", 0),
+                      process_index=self.process_index,
+                      num_processes=self.num_processes)
 
     def train_loader(self):
         mim = self.configs.objective == "mim"

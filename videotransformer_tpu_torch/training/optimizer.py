@@ -18,6 +18,16 @@ per-tensor form (optimizer.py:350-400):
   ``layer_decay ** (17 - mvit_layer_id(name))``; the trainer passes these
   scales for a supervised ``arch='mvit'`` run with ``layer_decay != 1``.
 
+Under data and tensor parallelism (a ``mesh``, ``parallel/mesh.py``):
+
+- ``reduce_gradients`` sums every gradient over the data group in one
+  coalesced all-reduce, in the parameters' order (so a step repeats to the
+  bit); the trainer makes each rank's loss its share of the global one;
+- a parameter split over the model ranks (``sharded``) is clipped by the
+  norm of the whole tensor, its shards' squared norms summed over the
+  model group (the per-shard norm would clip it wrongly), and the logged
+  total norm counts every element once.
+
 ``lr`` and ``wd`` arrive per step from the epoch schedules. State is plain
 tensors keyed by parameter name (``state_dict``/``load_state_dict`` for
 checkpoints). The clip and the AdamW update run as ``torch._foreach_*``
@@ -27,6 +37,9 @@ about ten per tensor.
 """
 
 import torch
+import torch.distributed as dist
+
+from videotransformer_tpu_torch.parallel.mesh import all_reduce_coalesced
 
 SKIP_KEYWORDS = ("pos_embed", "cls_token", "mask_token")
 
@@ -58,12 +71,20 @@ def layer_scales(names, layer_decay, num_layers=18):
 class RefOptimizer:
     """step(lr, wd) -> total grad norm, over ``named_params`` (name, param)
     whose ``.grad`` the backward filled; ``lr_scales`` ({name: scale}, or
-    None for 1 everywhere) scales each parameter's lr."""
+    None for 1 everywhere) scales each parameter's lr. ``mesh`` and
+    ``sharded`` (the names split over its model ranks): see the module
+    doc."""
 
     def __init__(self, named_params, optim_type="adamw", betas=(0.9, 0.999),
                  eps=1e-8, momentum=0.9, nesterov=True, clip_grad=0.0,
-                 lr_scales=None):
+                 lr_scales=None, mesh=None, sharded=()):
         self.params = dict(named_params)
+        self.mesh = mesh
+        self.sharded = None
+        if mesh is not None and mesh.model > 1:
+            self.sharded = torch.tensor([n in set(sharded)
+                                         for n in self.params],
+                                        device=mesh.device)
         self.lr_scales = {n: float((lr_scales or {}).get(n, 1.0))
                           for n in self.params}
         self.optim_type = optim_type.lower()
@@ -83,6 +104,16 @@ class RefOptimizer:
         for p in self.params.values():
             p.grad = None
 
+    def reduce_gradients(self, extra=()):
+        """Sum every gradient (zero where the loss did not reach a
+        parameter) and the tensors ``extra`` over the mesh's data group, in
+        place, in one all-reduce per dtype."""
+        for p in self.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        all_reduce_coalesced([p.grad for p in self.params.values()]
+                             + list(extra), self.mesh.data_group)
+
     def _clipped_grads(self, names):
         """Per-parameter clip (each gradient scaled by min(1, clip / (its
         norm + 1e-6))); returns (grads in ``names`` order, total norm). A
@@ -91,6 +122,10 @@ class RefOptimizer:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in (self.params[n] for n in names)]
         norms = torch.stack(torch._foreach_norm(grads))
+        if self.sharded is not None:  # the whole tensor's norm
+            part = torch.where(self.sharded, norms * norms, 0.0)
+            dist.all_reduce(part, group=self.mesh.model_group)
+            norms = torch.where(self.sharded, part.sqrt(), norms)
         total = torch.sqrt((norms * norms).sum())
         if self.clip_grad and self.clip_grad > 0:
             coef = (self.clip_grad / (norms + 1e-6)).clamp(max=1.0)

@@ -45,12 +45,48 @@ Shared by all:
 bf16 at its use, so on a CUDA device the kernels run forward and backward,
 and the gradients reach the fp32 parameters through the casts.
 
-Design for one device: the device is an argument and nothing moves to
-another one on its own; the augment, mixup and DropPath draw, in that
-order, from one ``torch.Generator`` on that device, seeded at each step
-from the seed and the global step (as the JAX trainer folds the step into
-its key, trainer.py:520), so a resumed run draws what an uninterrupted one
-would have drawn. There is no mesh. Not ported yet: data parallelism.
+Design: the device is an argument and nothing moves to another one on its
+own; the augment, mixup and DropPath draw, in that order, from one
+``torch.Generator`` on that device, seeded at each step from the seed and
+the global step (as the JAX trainer folds the step into its key,
+trainer.py:520), so a resumed run draws what an uninterrupted one would
+have drawn.
+
+Data and tensor parallelism take a ``mesh`` (``parallel/mesh.py``; the JAX
+trainer's, trainer.py:104-137): one process a rank, ``mesh.data`` ranks
+that each take their rows of the global batch and ``mesh.model`` ranks
+that each hold a Megatron shard of the transformer blocks
+(``parallel/tp.py``; TimeSformer and ViViT only, as in the JAX package).
+A step over the mesh computes what one process computes on the global
+batch:
+
+- the model is built with the mesh (``build_model``), and under tensor
+  parallelism as this rank's shard of the full model that the seed
+  initialises;
+- every draw is made for the global batch and cut to the data rank's rows
+  (the augment's, DropPath's); mixup pairs global row i with row B - 1 - i
+  (JAX mixup.py:76), which for data rank r lies on rank W - 1 - r, so each
+  rank exchanges its rows with that rank alone and mixes its own; the
+  ranks of a model group are handed the same batch (the first one's,
+  broadcast), whatever their loaders drew;
+- each rank's loss is its share of the global loss (the supervised mean
+  over the data ranks, MaskFeat's masked sum over the global batch's mask
+  count, maskfeat.py:151), and one coalesced all-reduce after the backward
+  sums the gradients and the step's loss and top-k counts over the data
+  group, in a fixed order, so that steps repeat to the bit (DDP's buckets
+  would fill in the order the backward reaches them); with one data rank
+  there is nothing to sum, and no all-reduce;
+- the initial parameters are rank 0's (a broadcast), imported and loaded
+  weights are full canonical states sharded after reading, and a
+  checkpoint is the gathered canonical state in the single-process
+  format, written by rank 0; rank 0 alone prints and logs;
+- eval runs every data rank through the same number of batches of the
+  same size, a short or missing batch padded with label -1 rows
+  (``mesh.even_eval_batches``; the JAX trainer pads its global eval batch
+  to the mesh, trainer.py:472-499), and sums the top-k counts over the
+  data group at the end of a pass.
+
+Without a mesh every step is the single-process one, unchanged.
 
 ``pretrain_pth`` imports weights after the initialisation, by the JAX
 trainer's routes (trainer.py:184-213; ``import_pretrained``): a checkpoint
@@ -65,6 +101,7 @@ import os.path as osp
 import time
 
 import torch
+import torch.distributed as dist
 
 from videotransformer_tpu_torch.data.device_augment import (
     augment_batch, draw_augment, eval_preprocess_batch)
@@ -78,7 +115,9 @@ from videotransformer_tpu_torch.models.maskfeat import MaskFeat
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
 from videotransformer_tpu_torch.models.vivit import ViViT
 from videotransformer_tpu_torch.ops import initializers as init
-from videotransformer_tpu_torch.ops.blocks import ClassificationHead
+from videotransformer_tpu_torch.ops.blocks import Attention, ClassificationHead
+from videotransformer_tpu_torch.parallel import mesh as _mesh
+from videotransformer_tpu_torch.parallel import tp as _tp
 from videotransformer_tpu_torch.training import schedules
 from videotransformer_tpu_torch.training.data_module import (
     dataset_statistics)
@@ -105,23 +144,25 @@ def model_dtype(configs):
         else torch.float32
 
 
-def build_model(configs):
+def build_model(configs, mesh=None):
     """trainer.py:60-99: MaskFeat (two q-pool stages, 216 HOG features) for
     ``objective='mim'`` or ``arch='mvit'``, else the ViViT or TimeSformer
     of ``arch`` with ``attention_type``, DropPath at ``drop_path_rate``
-    where the configs set one."""
+    where the configs set one; built for this rank of ``mesh`` (a parallel
+    run's), with ``model`` > 1 ranks its shard of the blocks."""
     if configs.objective == "mim" or configs.arch == "mvit":
+        _tp.validate("mvit", _mesh.model_ranks(mesh))
         return MaskFeat(num_frames=configs.num_frames,
                         img_size=configs.img_size,
                         pool_q_stride_size=((1, 1, 2, 2), (3, 1, 2, 2)),
-                        feature_dim=2 * 2 * 2 * 3 * 9)
+                        feature_dim=2 * 2 * 2 * 3 * 9, mesh=mesh)
     models = {"vivit": ViViT, "timesformer": TimeSformer}
     if configs.arch not in models:
         raise ValueError(configs.arch)
     dpr = getattr(configs, "drop_path_rate", None)
     return models[configs.arch](
         num_frames=configs.num_frames, img_size=configs.img_size,
-        attention_type=configs.attention_type,
+        attention_type=configs.attention_type, mesh=mesh,
         **({} if dpr is None else {"drop_path_rate": dpr}))
 
 
@@ -133,19 +174,24 @@ def _as_tensor(a, device, dtype=None):
 class VideoTransformerTrainer:
     """``params``, when given, is the JAX trainer's parameter tree (numpy
     leaves) to start from; otherwise the JAX package's initialisation is
-    drawn from ``seed``."""
+    drawn from ``seed``. ``mesh``: this rank's place in data and tensor
+    parallelism (module doc); None for one process."""
 
     def __init__(self, configs, device, ckpt_dir=None, do_eval=False,
                  do_test=False, n_crops=3, seed=None, log_dir=None,
-                 params=None):
+                 params=None, mesh=None):
         self.configs = configs
         self.device = torch.device(device)
         self.ckpt_dir = ckpt_dir
         self.do_eval = do_eval
         self.do_test = do_test
         self.n_crops = n_crops
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.model
+        self.is_main = mesh is None or mesh.rank == 0
+        self._sharded = False  # self.model holds a model rank's shard
         self._log_fh = None
-        if log_dir:
+        if log_dir and self.is_main:
             os.makedirs(log_dir, exist_ok=True)
             self._log_fh = open(os.path.join(log_dir, "train.log"), "a")
         self.supervised = configs.objective == "supervised"
@@ -157,7 +203,15 @@ class VideoTransformerTrainer:
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
 
-        self.model = build_model(configs)
+        # one process: build_model(configs); under tensor parallelism the
+        # full model first, sharded in _distribute
+        self.model = build_model(configs) if mesh is None or self.tp > 1 \
+            else build_model(configs, mesh)
+        self.num_heads = next((m.num_heads for m in self.model.modules()
+                               if isinstance(m, Attention)), None)
+        if self.tp > 1:
+            _tp.validate("mvit" if isinstance(self.model, MaskFeat)
+                      else configs.arch, self.tp, self.num_heads)
         self.cls_head = None
         if self.supervised:
             width = (self.model.embed_dims if isinstance(self.model, MaskFeat)
@@ -176,10 +230,13 @@ class VideoTransformerTrainer:
         if getattr(configs, "pretrain_pth", None):
             self.pretrained_keys = self.import_pretrained(configs.pretrain_pth)
         self.model.to(self.device)
+        if self.cls_head is not None:
+            self.cls_head.to(self.device)
+        if mesh is not None:
+            self._distribute()
         self.mixup_fn = None
         named = []
         if self.cls_head is not None:
-            self.cls_head.to(self.device)
             if getattr(configs, "mixup", False):
                 self.mixup_fn = Mixup(num_classes=configs.num_class)
             named = [(f"cls_head.{n}", p)
@@ -196,7 +253,9 @@ class VideoTransformerTrainer:
             lr_scales = layer_scales([n for n, _ in named], layer_decay)
         self.optimizer = RefOptimizer(
             named, optim_type=configs.optim_type,
-            clip_grad=getattr(configs, "clip_grad", 0.0), lr_scales=lr_scales)
+            clip_grad=getattr(configs, "clip_grad", 0.0), lr_scales=lr_scales,
+            mesh=mesh, sharded=[n for n, _ in named
+                                if self.tp > 1 and _tp.shard_dim(n) is not None])
 
         self.max_top1_acc = 0.0
         self.epoch = 0
@@ -206,12 +265,41 @@ class VideoTransformerTrainer:
         self.test_meter = AccuracyMeter()
 
     # ------------------------------------------------------------------
+    def _distribute(self):
+        """Rank 0's parameters to every rank, then this rank's shard of the
+        blocks in place of the full model."""
+        _mesh.broadcast_state(self.model)
+        if self.cls_head is not None:
+            _mesh.broadcast_state(self.cls_head)
+        if self.tp > 1:
+            full = self.model.state_dict()
+            self.model = build_model(self.configs, self.mesh).to(self.device)
+            self._sharded = True
+            self._set_model_state(full)
+
+    def _set_model_state(self, state, strict=True):
+        """Load the full canonical model state ``state``, this rank's shard
+        of it under tensor parallelism."""
+        if self._sharded:
+            state = _tp.shard_state_dict(state, self.tp,
+                                         self.mesh.model_rank,
+                                         self.num_heads)
+        return self.model.load_state_dict(state, strict=strict)
+
+    def model_state_dict(self):
+        """The full canonical model state (gathered over the model group
+        under tensor parallelism: every model rank must call it)."""
+        state = self.model.state_dict()
+        if not self._sharded:
+            return state
+        return _tp.gather_over_model(state, self.mesh, self.num_heads)
+
     def load_params(self, tree):
         """Load the JAX trainer's parameter tree (numpy leaves): {"model",
         "cls_head"}, or {"model"} alone for a mim run."""
         model_sd, head_sd = trainer_tree_to_state_dicts(tree)
         as_t = lambda sd: {k: torch.from_numpy(v) for k, v in sd.items()}
-        self.model.load_state_dict(as_t(model_sd), strict=True)
+        self._set_model_state(as_t(model_sd))
         if self.cls_head is not None:
             self.cls_head.load_state_dict(as_t(head_sd), strict=True)
 
@@ -232,27 +320,40 @@ class VideoTransformerTrainer:
           layers;
         - ``weights_from='kinetics'``: the Kinetics import;
         - anything else raises TypeError. A file that cannot be read
-          raises."""
+          raises.
+
+        Under tensor parallelism the weights go into the full model (the
+        shards gathered), which is then sharded again."""
+        if not self._sharded:
+            return self._import_into(self.model, path)
+        full = build_model(self.configs).to(self.device)
+        full.load_state_dict(self.model_state_dict())
+        keys = self._import_into(full, path)
+        self._set_model_state(full.state_dict())
+        return keys
+
+    def _import_into(self, model, path):
         cfg = self.configs
         payload = convert.read_checkpoint(path)
         if is_port_checkpoint(payload):
-            return convert.merge_state_dict(self.model, payload["model"])
+            return convert.merge_state_dict(model, payload["model"])
         if self.is_mvit or cfg.objective == "mim":
-            return convert.init_maskfeat_from_kinetics_pretrain(self.model,
+            return convert.init_maskfeat_from_kinetics_pretrain(model,
                                                                 payload)
         weights_from = getattr(cfg, "weights_from", "imagenet")
         if weights_from == "imagenet":
             conv_type = "Conv3d" if cfg.arch == "vivit" else "Conv2d"
             return convert.init_from_vit_pretrain(
-                self.model, payload, conv_type, cfg.attention_type, "repeat")
+                model, payload, conv_type, cfg.attention_type, "repeat")
         if weights_from == "kinetics":
-            return convert.init_from_kinetics_pretrain(self.model, payload)
+            return convert.init_from_kinetics_pretrain(model, payload)
         raise TypeError(f"not support the pretrained weight {path}")
 
     def params_tree(self):
-        """The parameters as the JAX trainer's tree (fp32 numpy leaves)."""
+        """The parameters as the JAX trainer's tree (fp32 numpy leaves), the
+        full model's under tensor parallelism."""
         return state_dicts_to_trainer_tree(
-            self.model.state_dict(),
+            self.model_state_dict(),
             None if self.cls_head is None else self.cls_head.state_dict())
 
     def _features(self, video, generator=None):
@@ -284,10 +385,47 @@ class VideoTransformerTrainer:
                 "auto_augment": bool(getattr(cfg, "auto_augment", None))}
         mean, std = dataset_statistics(getattr(cfg, "data_statics",
                                                "kinetics"))
-        draws = draw_augment(self.generator, raw.shape, device=raw.device,
-                             **recipe)
+        # drawn for the global batch, this data rank's rows kept
+        data = 1 if self.mesh is None else self.mesh.data
+        shape = (raw.shape[0] * data,) + raw.shape[1:]
+        draws = _mesh.shard_batch(self.mesh, draw_augment(
+            self.generator, shape, device=raw.device, **recipe))
         return augment_batch(raw, out_size=cfg.img_size, mean=mean, std=std,
                              with_raw=mim, draws=draws, **recipe)
+
+    def _mixup(self, video, labels):
+        """Mixup over the global batch (row i with row B - 1 - i): this
+        rank's rows with the flipped rows of data rank W - 1 - r, which
+        hold their partners (``mesh.partner_rows``)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data == 1:
+            return self.mixup_fn(video, labels, self.generator)
+        return self.mixup_fn(video, labels, self.generator,
+                             partner=(_mesh.partner_rows(video, mesh),
+                                      _mesh.partner_rows(labels, mesh)))
+
+    def _model_group_batch(self, batch):
+        """The batch on the device, under tensor parallelism the model
+        group's first rank's: its ranks must run the same clips, and host
+        draws made by loader threads need not agree."""
+        batch = {k: v if v is None else _as_tensor(v, self.device)
+                 .contiguous() for k, v in batch.items()}
+        if self.tp > 1:
+            _mesh.broadcast_(
+                [v for v in batch.values() if v is not None],
+                src=self.mesh.model_ranks[0], group=self.mesh.model_group)
+        return batch
+
+    def _reduce_step(self, loss, extra=()):
+        """After the backward: sum the gradients, the loss shares and
+        ``extra`` (counts) over the data group in one all-reduce; returns
+        the global loss and ``extra``. One data rank holds them already."""
+        if self.mesh.data == 1:
+            return loss.detach(), list(extra)
+        stats = torch.stack([loss.detach().float()]
+                            + [e.float() for e in extra])
+        self.optimizer.reduce_gradients([stats])
+        return stats[0], list(stats[1:])
 
     def train_step(self, batch, lr, wd):
         """One step: forward, backward, clip, update; counts one global step.
@@ -298,8 +436,13 @@ class VideoTransformerTrainer:
         "cube_count"}``, returning the loss and grad_norm."""
         self.generator.manual_seed(self.seed + self.global_step + 7919)
         self.global_step += 1
+        if self.mesh is not None:
+            batch = self._model_group_batch(batch)
         if not self.supervised:
             return self._mim_step(batch, lr, wd)
+        return self._supervised_step(batch, lr, wd)
+
+    def _supervised_step(self, batch, lr, wd):
         labels = _as_tensor(batch["label"], self.device)
         if "raw_video" in batch:
             video = self._augment(_as_tensor(batch["raw_video"], self.device))
@@ -307,7 +450,7 @@ class VideoTransformerTrainer:
             video = _as_tensor(batch["video"], self.device, torch.float32)
         soft = None
         if self.mixup_fn is not None:
-            video, soft = self.mixup_fn(video, labels, self.generator)
+            video, soft = self._mixup(video, labels)
         video = video.to(self.dtype)
         self.optimizer.zero_grad()
         if self.linear_prob:
@@ -324,12 +467,18 @@ class VideoTransformerTrainer:
         else:
             loss = cross_entropy(logits, labels)
             acc_labels = labels
+        bs = logits.shape[0]
+        if self.mesh is not None:  # this rank's share of the global mean
+            loss = loss / self.mesh.data
+            bs *= self.mesh.data
         loss.backward()
-        grad_norm = self.optimizer.step(lr, wd)
         correct = topk_correct(logits.detach(), acc_labels)
+        if self.mesh is not None:
+            loss, (correct[1], correct[5]) = self._reduce_step(
+                loss, (correct[1], correct[5]))
+        grad_norm = self.optimizer.step(lr, wd)
         return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "top1": correct[1], "top5": correct[5],
-                "bs": logits.shape[0]}
+                "top1": correct[1], "top5": correct[5], "bs": bs}
 
     def _hog_targets(self, raw, markers, counts):
         """HOG targets from the clip before Normalize (B, T, C, H, W), at the
@@ -366,9 +515,12 @@ class VideoTransformerTrainer:
                                        markers, counts)
         self.optimizer.zero_grad()
         self.model.train()
+        # under data parallelism this rank's share of the global loss
         _, loss = self.model(video, target, mask, markers, counts,
                              self.generator)
         loss.backward()
+        if self.mesh is not None:
+            loss, _ = self._reduce_step(loss)
         grad_norm = self.optimizer.step(lr, wd)
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
@@ -378,10 +530,17 @@ class VideoTransformerTrainer:
         (B,)}``, logits averaged over the crops; label -1 rows count
         nowhere. ``{"raw_video": (B, T, H, W, C) uint8, "label"}`` goes
         through the eval recipe on the device first: CenterCrop, or
-        ThreeCrop when ``n_crops`` > 1 (trainer.py:443-455)."""
+        ThreeCrop when ``n_crops`` > 1 (trainer.py:443-455). Under data
+        parallelism the batch is this rank's rows and so are the counts
+        (``_evaluate`` sums them)."""
         if not self.supervised:
             raise ValueError("eval_step needs a supervised run (a mim run "
                              "has no head)")
+        if self.mesh is not None:
+            batch = self._model_group_batch(batch)
+        return self._eval_step(batch, n_crops)
+
+    def _eval_step(self, batch, n_crops):
         self.model.eval()
         if "raw_video" in batch:
             cfg = self.configs
@@ -454,9 +613,16 @@ class VideoTransformerTrainer:
 
     def _evaluate(self, loader, meter, n_crops, what):
         meter.reset()
-        for batch in device_prefetch(loader, self.device):
+        for batch in _mesh.even_eval_batches(
+                device_prefetch(loader, self.device), self.mesh, self.device,
+                n_crops):
             stats = self.eval_step(batch, n_crops)
             meter.update({1: stats["top1"], 5: stats["top5"]}, stats["bs"])
+        if self.mesh is not None:  # the data ranks' counts summed
+            counts = torch.tensor([meter.correct[1], meter.correct[5],
+                                   meter.total], device=self.device)
+            dist.all_reduce(counts, group=self.mesh.data_group)
+            meter.correct[1], meter.correct[5], meter.total = counts.tolist()
         top1, top5 = meter.compute(1), meter.compute(5)
         self.print(f"{_now()} - Evaluating mean top1_acc:{top1:.3f}, "
                    f"top5_acc:{top5:.3f} of current {what} epoch")
@@ -499,23 +665,41 @@ class VideoTransformerTrainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path):
         """Parameters, optimizer moments and progress to one file (the keys
-        of ``CHECKPOINT_KEYS``)."""
-        os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
-        torch.save({"model": self.model.state_dict(),
-                    "cls_head": (None if self.cls_head is None
-                                 else self.cls_head.state_dict()),
-                    "opt_state": self.optimizer.state_dict(),
-                    "epoch": self.epoch + 1,
-                    "global_step": self.global_step,
-                    "max_top1_acc": self.max_top1_acc}, path)
+        of ``CHECKPOINT_KEYS``). Under a mesh every rank calls it: the
+        model group gathers the full state, rank 0 writes it, and every
+        rank waits for the file."""
+        opt_state = self.optimizer.state_dict()
+        if self._sharded:
+            for k in ("mu", "nu"):
+                opt_state[k] = _tp.gather_over_model(opt_state[k], self.mesh,
+                                                     self.num_heads)
+        payload = {"model": self.model_state_dict(),
+                   "cls_head": (None if self.cls_head is None
+                                else self.cls_head.state_dict()),
+                   "opt_state": opt_state,
+                   "epoch": self.epoch + 1,
+                   "global_step": self.global_step,
+                   "max_top1_acc": self.max_top1_acc}
+        if self.is_main:
+            os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+            torch.save(payload, path)
+        _mesh.barrier(self.mesh)
 
     def load_checkpoint(self, path):
+        """A checkpoint of ``save_checkpoint`` (the full state), this rank's
+        shard of it under tensor parallelism."""
         payload = torch.load(path, map_location=self.device,
                              weights_only=True)
-        self.model.load_state_dict(payload["model"], strict=True)
+        self._set_model_state(payload["model"])
         if self.cls_head is not None:
             self.cls_head.load_state_dict(payload["cls_head"], strict=True)
-        self.optimizer.load_state_dict(payload["opt_state"])
+        opt_state = payload["opt_state"]
+        if self._sharded:
+            opt_state = dict(opt_state, **{
+                k: _tp.shard_state_dict(opt_state[k], self.tp,
+                                        self.mesh.model_rank, self.num_heads)
+                for k in ("mu", "nu")})
+        self.optimizer.load_state_dict(opt_state)
         self.epoch = int(payload["epoch"])
         self.global_step = int(payload["global_step"])
         self.max_top1_acc = float(payload["max_top1_acc"])
@@ -526,6 +710,8 @@ class VideoTransformerTrainer:
             self._log_fh = None
 
     def print(self, *args):
+        if not self.is_main:
+            return
         print(*args, flush=True)
         if self._log_fh is not None:
             print(*args, file=self._log_fh, flush=True)

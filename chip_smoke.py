@@ -69,7 +69,18 @@ weights from a seed:
   clips a rank, the eval shards uneven and padded), each rank's three
   steps within the train phase's bounds of the one-process steps, the
   ranks' lines identical, each rank's launches those of TimeSformer-B
-  steps and eval forwards on its shard.
+  steps and eval forwards on its shard;
+- memory (a generator of its own, SEED + 6): B3's recompute mode (qkv
+  rebuilt from x, RECOMPUTE_QKV) at the train shapes (64, 197, 768) and
+  (1568, 8, 768), the long (8, 1569, 768) and the CUDA-core (8, 9, 768)
+  rows and a tp = 2 shard, against its plain version, its rebuilt qkv and
+  gradients bit-equal to B3's from the saved qkv, timed against both;
+  TimeSformer-B train steps (8 clips, DropPath 0.1) plain, with -remat,
+  with RECOMPUTE_QKV and with both, from the same state, bit-equal, each
+  mode's peak device memory, clock, device time and launches (a remat
+  step runs every block's forward kernels twice); a ViViT-B joint step
+  with and without -remat, bit-equal; get_last_selfattention on
+  TimeSformer-B against the plain CPU run.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and must have gone through its kernels.
@@ -507,7 +518,7 @@ def stage_phases(rng, cases=None):
             note = (f"; fc1 alone with its bias + GELU epilogue "
                     f"{with_gelu:.4f} ms, with the bias alone {without:.4f}")
         elif name == "fused_prenorm_mhsa_bwd":
-            args, cfg, _ = mhsa_bwd_case(rng, shape, extra)
+            args, cfg, _, _ = mhsa_bwd_case(rng, shape, extra)
             fn = lambda: fused_mhsa._launch_backward(*args, *cfg)
             products = MHSA_BWD_PRODUCTS
             pairs = mhsa_bwd_products(args, rows, d)
@@ -640,7 +651,8 @@ def profile_forward(forward, event_ms, n=3, what="forward", ranges=()):
     kernel time over ``event_ms`` (one call by CUDA events, unprofiled);
     the same time split by the code the kernels come from
     (``kernel_source``); then for each ``record_function`` range named in
-    ``ranges`` the device time of the kernels launched inside it."""
+    ``ranges`` the device time of the kernels launched inside it. Returns
+    the summed kernel time per call (None when the trace has none)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -692,6 +704,7 @@ def profile_forward(forward, event_ms, n=3, what="forward", ranges=()):
         log(f"  {sum(e.device_time_total for e in spans) / 1e3 / n:9.3f} ms "
             f" {len(spans) // n:4d} calls  range {label!r} (device time of "
             f"its kernels)")
+    return summed
 
 
 def in_ranges(cls, label):
@@ -848,9 +861,9 @@ def plain_versions():
                               fused_mhsa._forward_reference),
             mock.patch.object(
                 fused_mhsa, "_launch_backward",
-                lambda g, x, qkv, attn, lse, *rest:
+                lambda g, x, qkv, attn, lse, *rest, **kw:
                 fused_mhsa.fused_prenorm_mhsa_backward_reference(
-                    g, x, qkv, attn, *rest)),
+                    g, x, qkv, attn, *rest, **kw)),
             mock.patch.object(fused_ffn, "_launch",
                               lambda *a: fused_ffn._forward_reference(*a[:-1])),
             mock.patch.object(fused_ffn, "_launch_backward",
@@ -881,7 +894,7 @@ def check_steps(what, steps, plain, want, attention, attention_bwd):
         assert dl <= LOSS_REL_TOL and dn <= NORM_REL_TOL, (what, i, dl, dn)
         assert k["launches"] == want, (what, i, k["launches"])
         assert k["attention"] == attention, (what, i, k["attention"])
-        assert k["attention_bwd"] == attention_bwd, \
+        assert k["attention_bwd"] == saved_mode(attention_bwd), \
             (what, i, k["attention_bwd"])
         assert not any(p["launches"].values()), p["launches"]
 
@@ -924,6 +937,13 @@ def variants(**counts):
     """B1's or B3's launches by attention variant, the others 0."""
     return {v: counts.get(v, 0) for v in ("packed", "dense", "long",
                                           "general")}
+
+
+def saved_mode(bwd_variants, recompute=0):
+    """B3's expected launch counts: ``bwd_variants`` by attention variant
+    and ``recompute`` of them rebuilding qkv (RECOMPUTE_QKV; 0 on every
+    path but the memory phase's)."""
+    return {**bwd_variants, "recompute": recompute}
 
 
 # per step: the kernels' launches, B1's and B3's attention variants. Joint:
@@ -1745,7 +1765,7 @@ def check_import_steps(what, steps, want, attention, attention_bwd):
         assert np.isfinite([st["loss"], st["grad_norm"]]).all(), st
         assert st["launches"] == want, (what, i, st["launches"])
         assert st["attention"] == attention, (what, i, st["attention"])
-        assert st["attention_bwd"] == attention_bwd, \
+        assert st["attention_bwd"] == saved_mode(attention_bwd), \
             (what, i, st["attention_bwd"])
 
 
@@ -2212,12 +2232,296 @@ def parallel_phase(card):
             assert {n: got[n] for n in KERNEL_NAMES} == want, \
                 (what, rank, got)
             assert got["attention"] == want_fwd, got
-            assert got["attention_bwd"] == want_bwd, got
+            assert got["attention_bwd"] == saved_mode(want_bwd), got
             for n in KERNEL_NAMES:
                 launches[n] += got[n]
         numbers[f"{what}_steps_ms"] = [s[2] for s in steps]
     log(f"parallel numbers: {json.dumps(numbers)}")
     return launches, report
+
+
+# ---------------------------------------------------------------- memory
+
+# B3's recompute mode (qkv rebuilt from x: RECOMPUTE_QKV) at the train
+# steps' shapes: (phase, shape, block_diag, tp, the attention variant its
+# backward must take)
+RECOMPUTE_PHASES = [
+    ("dense spatial (64, 197, 768)", (64, 197, D), 0, 1, "dense"),
+    ("block-diagonal temporal (1568, 8, 768)", (1568, 8, D), 8, 1,
+     "packed"),
+    (LONG_LABEL, LONG_SHAPE, 0, 1, "long"),
+    (FACT_LABEL, FACT_SHAPE, 0, 1, "general"),
+    ("tp = 2 shard, dense spatial (64, 197, 768)", (64, 197, D), 0, 2,
+     "dense"),
+]
+# TimeSformer-B's train step by mode: (mode, remat, RECOMPUTE_QKV)
+MEMORY_MODES = (("plain", False, False), ("remat", True, False),
+                ("recompute_qkv", False, True),
+                ("remat + recompute_qkv", True, True))
+MEMORY_STEPS = 2
+ATTENTION_WEIGHTS_TOL = 2e-2  # the card's bf16 weights against the CPU's
+
+
+def recompute_phases(rng, iters=10):
+    """B3's whole call in recompute mode against its plain version (qkv
+    None: the plain qkv stage) in fp32 from the same bf16 inputs, within
+    KERNEL_REL_TOL; the rebuilt qkv (``_recompute_qkv_launch``) bit-equal
+    to B1's saved qkv and the seven gradients bit-equal to the call from
+    the saved qkv, twice; times in turns against the plain version and
+    against the call from the saved qkv, each beside its bound."""
+    report = []
+    for label, shape, block_diag, tp, want in RECOMPUTE_PHASES:
+        d = shape[-1]
+        da, heads = d // tp, HEADS // tp
+        x = bf16_on_card(rng, shape, 1.0)
+        g = bf16_on_card(rng, shape, 1.0)
+        ln = [bf16_on_card(rng, (d,), 0.1, 1.0), bf16_on_card(rng, (d,), 0.1)]
+        w_qkv, b_qkv, w_proj, b_proj = mhsa_weights(rng, d, tp)
+        cfg = (heads, (da // heads) ** -0.5, 1e-5, False, block_diag)
+        _, qkv, attn, lse = fused_mhsa._launch(x, *ln, w_qkv, b_qkv, w_proj,
+                                               b_proj, *cfg)
+        rebuilt = fused_mhsa._recompute_qkv_launch(x, *ln, w_qkv, b_qkv, 1e-5)
+        same_qkv = torch.equal(rebuilt, qkv)
+        del rebuilt
+        rest = (*ln, w_qkv, w_proj)
+        saved = lambda: fused_mhsa._launch_backward(g, x, qkv, attn, lse,
+                                                    *rest, *cfg)
+        kernel = lambda: fused_mhsa._launch_backward(
+            g, x, None, attn, lse, *rest, *cfg, b_qkv=b_qkv)
+        plain_fn = fused_mhsa.fused_prenorm_mhsa_backward_reference
+        plain = lambda: plain_fn(g, x, None, attn, *rest, *cfg, b_qkv=b_qkv)
+        got, variant = with_variants(fused_mhsa.ATTENTION_BWD_LAUNCHES, kernel)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, saved())) and \
+            all(torch.equal(a, b) for a, b in zip(got, kernel()))
+        abs_err, rel_err = worst_error(got, plain_fn(
+            g.float(), x.float(), None, attn.float(),
+            *[t.float() for t in rest], *cfg, b_qkv=b_qkv.float()))
+        log(f"kernel fused_prenorm_mhsa_bwd recompute qkv [{label}] "
+            f"{variant}: rebuilt qkv bit-equal to B1's saved qkv: "
+            f"{same_qkv}; gradients bit-equal to the call from the saved "
+            f"qkv, twice: {same}; max|kernel-plain|/max|plain| = "
+            f"{rel_err:.3e} (tol {KERNEL_REL_TOL}), max abs {abs_err:.3e}")
+        assert same_qkv and same, label
+        assert variant == f"{want}/recompute", (label, variant)
+        assert rel_err <= KERNEL_REL_TOL, (label, rel_err)
+        ms, plain_ms = in_turns(plain, kernel, iters=iters,
+                                plain_iters=min(5, iters))
+        ms2, saved_ms = in_turns(saved, kernel, iters=iters,
+                                 plain_iters=iters)
+        rows, L = shape[0] * shape[1], block_diag or shape[1]
+        bound_ms, bound_by = mhsa_bwd_bound(rows, L, d, da=da,
+                                            recompute=True)
+        saved_bound = mhsa_bwd_bound(rows, L, d, da=da)[0]
+        us = issue_us(kernel)
+        log(f"  recompute call {ms:.4f} ms (in turns with the saved call: "
+            f"{ms2:.4f} against {saved_ms:.4f} ms, +{ms2 - saved_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{bound_ms / ms:.1%} of it; the saved call's {saved_bound:.4f}, "
+            f"+{bound_ms - saved_bound:.4f}); host time to issue {us:.1f} us")
+        report.append({"name": "fused_prenorm_mhsa_bwd",
+                       "phase": f"recompute qkv, {label}", "on_path": False,
+                       "variant": variant, "count": 1,
+                       "max_abs_err": abs_err, "rel_err": rel_err, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": None,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "saved_ms": saved_ms, "turns_ms": ms2,
+                       "saved_bound_ms": saved_bound, "issue_us": us})
+        del x, g, qkv, attn, lse, got
+    return report
+
+
+def params_on_host(tr):
+    return [p.detach().cpu() for p in (*tr.model.parameters(),
+                                       *tr.cls_head.parameters())]
+
+
+def memory_mode_steps(tree, batch, configs, remat, recompute, n):
+    """``n`` steps of a fresh trainer of ``configs`` with ``remat`` and
+    RECOMPUTE_QKV set, from ``tree``: per step the stats, the launches,
+    B3's variants, the host clock to a synchronize, the peak device memory
+    (``max_memory_allocated`` from a reset just before the step) and the
+    parameters after it, on the host; the trainer after them, and the
+    device memory the earlier phases left allocated before it was built."""
+    cfg = SimpleNamespace(**{**vars(configs), "remat": remat})
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    with mock.patch.object(fused_mhsa, "RECOMPUTE_QKV", recompute):
+        tr = trainer_mod.VideoTransformerTrainer(cfg, "cuda", params=tree)
+        steps = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            stats = tr.train_step(batch, TRAIN_LR, TRAIN_WD)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            steps.append({"loss": float(stats["loss"]),
+                          "grad_norm": float(stats["grad_norm"]),
+                          "launches": read_counts(),
+                          "attention_bwd": dict(
+                              fused_mhsa.ATTENTION_BWD_LAUNCHES),
+                          "ms": ms,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2**30, "params": params_on_host(tr)})
+    return steps, tr, resident
+
+
+def compare_modes(what, base, steps, want, want_bwd):
+    """Each step of a mode bit-equal to the plain mode's (loss, grad norm,
+    every parameter after it), its launches ``want`` and B3's
+    ``want_bwd``."""
+    for i, (k, p) in enumerate(zip(steps, base)):
+        same = k["loss"] == p["loss"] and k["grad_norm"] == p["grad_norm"] \
+            and all(torch.equal(a, b) for a, b in zip(k["params"],
+                                                       p["params"]))
+        log(f"{what} step {i}: loss {k['loss']:.6f} grad_norm "
+            f"{k['grad_norm']:.6f}, bit-equal to the plain mode (loss, grad "
+            f"norm, every parameter): {same}; {k['ms']:.2f} ms on the clock, "
+            f"peak {k['peak_gib']:.3f} GiB; launches {k['launches']}, "
+            f"backward {k['attention_bwd']}")
+        assert np.isfinite([k["loss"], k["grad_norm"]]).all(), k
+        assert same, (what, i)
+        assert k["launches"] == want, (what, i, k["launches"])
+        assert k["attention_bwd"] == want_bwd, (what, i, k["attention_bwd"])
+
+
+def memory_phase(card):
+    """The memory levers on the main paths' models, a generator of its own
+    (SEED + 6): B3's recompute mode against its plain version and against
+    B3 (recompute_phases); TimeSformer-B steps (train_configs(): DropPath
+    0.1, mixup off; 8 clips) plain, with remat, with RECOMPUTE_QKV and
+    with both, MEMORY_STEPS each from the same state, bit-equal, each
+    mode's peak memory, clock and (profile of one more step) device time;
+    one ViViT-B joint step (16x224, B1/B3 long) with and without remat,
+    bit-equal; get_last_selfattention on TimeSformer-B in bf16 on 8 clips
+    against the same model's plain CPU run on the first clip. Returns the
+    launches of the steps and the forward, B3's calls among them that
+    rebuilt qkv, and the report's rows."""
+    rng = np.random.default_rng(SEED + 6)
+    with torch.inference_mode():
+        report = recompute_phases(rng)
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    tree = trainer_tree(jax_style_params(rng))
+    batch = {"video": torch.from_numpy(rng.standard_normal(
+        (TRAIN_CLIPS, FRAMES, 3, IMG, IMG), dtype=np.float32)).to("cuda"),
+        "label": torch.from_numpy(rng.integers(0, CLASSES, TRAIN_CLIPS)).to(
+            "cuda")}
+    plain_want = {"fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
+                  "fused_prenorm_mhsa_bwd": 2 * DEPTH,
+                  "fused_prenorm_ffn_bwd": DEPTH, "flash_attention": 0,
+                  "flash_attention_bwd": 0}
+    numbers, base, recomputed = {}, None, 0
+    for mode, remat, recompute in MEMORY_MODES:
+        steps, tr, resident = memory_mode_steps(
+            tree, batch, train_configs(), remat, recompute, MEMORY_STEPS)
+        if base is None:
+            base = steps
+        # a remat step runs every block's forward kernels twice
+        forwards = 2 if remat else 1
+        want = {**plain_want,
+                "fused_prenorm_mhsa": forwards * plain_want["fused_prenorm_mhsa"],
+                "fused_prenorm_ffn": forwards * plain_want["fused_prenorm_ffn"]}
+        compare_modes(f"memory TimeSformer-B {mode}", base, steps, want,
+                      saved_mode(TIMESFORMER_ATTENTION,
+                                 2 * DEPTH if recompute else 0))
+        for st in steps:
+            for name in KERNEL_NAMES:
+                launches[name] += st["launches"][name]
+            recomputed += st["attention_bwd"]["recompute"]
+        gc.collect()
+        with mock.patch.object(fused_mhsa, "RECOMPUTE_QKV", recompute):
+            device_ms = profile_forward(
+                lambda: tr.train_step(batch, TRAIN_LR, TRAIN_WD),
+                steps[-1]["ms"], n=1, what=f"{mode} train step")
+        numbers[mode] = {"peak_gib": max(st["peak_gib"] for st in steps),
+                         "resident_gib": resident,
+                         "step_ms": [st["ms"] for st in steps],
+                         "device_ms": device_ms}
+        if mode == "plain":  # the optimizer update's own peak, on the
+            # gradients the profiled step left (one more update)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr.optimizer.step(TRAIN_LR, TRAIN_WD)
+            torch.cuda.synchronize()
+            numbers["update_peak_gib"] = \
+                torch.cuda.max_memory_allocated() / 2**30
+        log(f"memory TimeSformer-B {mode}: peak {numbers[mode]['peak_gib']:.3f}"
+            f" GiB ({resident:.3f} of it allocated before the trainer), "
+            f"steps {numbers[mode]['step_ms']} ms on the clock, "
+            f"{device_ms} ms of device kernel time a step, on {card}")
+        del tr, steps
+    assert numbers["remat"]["peak_gib"] < numbers["plain"]["peak_gib"], \
+        numbers
+    del base
+    # ViViT-B joint, one step with and without remat
+    cfg = vivit_configs("joint_space_time")
+    tree = trainer_mod.VideoTransformerTrainer(cfg, "cpu").params_tree()
+    vbatch = {"video": torch.from_numpy(rng.standard_normal(
+        (TRAIN_CLIPS, VIVIT_FRAMES, 3, IMG, IMG), dtype=np.float32)).to(
+            "cuda"),
+        "label": torch.from_numpy(rng.integers(0, CLASSES, TRAIN_CLIPS)).to(
+            "cuda")}
+    vbase = None
+    for mode, remat in (("plain", False), ("remat", True)):
+        steps, tr, resident = memory_mode_steps(tree, vbatch, cfg, remat,
+                                                False, 1)
+        vbase = vbase or steps
+        forwards = 2 if remat else 1
+        want = {"fused_prenorm_mhsa": forwards * DEPTH,
+                "fused_prenorm_ffn": forwards * DEPTH,
+                "fused_prenorm_mhsa_bwd": DEPTH,
+                "fused_prenorm_ffn_bwd": DEPTH, "flash_attention": 0,
+                "flash_attention_bwd": 0}
+        compare_modes(f"memory ViViT-B joint {mode}", vbase, steps, want,
+                      saved_mode(variants(long=DEPTH)))
+        numbers[f"vivit joint {mode}"] = {"peak_gib": steps[0]["peak_gib"],
+                                          "resident_gib": resident,
+                                          "step_ms": [steps[0]["ms"]]}
+        for name in KERNEL_NAMES:
+            launches[name] += steps[0]["launches"][name]
+        del tr, steps
+    del vbase, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the attention-weights path: the last block's spatial attention plain,
+    # every block before it and the last block's temporal one on B1/B2
+    model_sd, _ = split_artifact_params(jax_style_params(rng))
+    model = get_vit_base_patch16_224(num_frames=FRAMES)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in model_sd.items()}, strict=True)
+    model = model.to(torch.bfloat16)
+    card_model = copy.deepcopy(model).to("cuda")
+    clips = bf16_on_card(rng, (CLIPS, FRAMES, 3, IMG, IMG), 1.0)
+    with torch.inference_mode():
+        reset_counts()
+        weights = card_model.get_last_selfattention(clips)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        cpu = model.float().get_last_selfattention(clips[:1].cpu().float())
+    rows = weights.sum(-1)
+    err = (weights[:FRAMES].cpu() - cpu).abs().max().item()
+    log(f"get_last_selfattention on TimeSformer-B ({CLIPS} clips, bf16): "
+        f"shape {tuple(weights.shape)}, rows summing to 1 within "
+        f"{(rows - 1).abs().max().item():.3e}; the first clip's within "
+        f"{err:.3e} of the plain fp32 CPU run (tol {ATTENTION_WEIGHTS_TOL}); "
+        f"launches {counts}")
+    assert weights.shape == (CLIPS * FRAMES, HEADS, 1 + (IMG // 16) ** 2,
+                             1 + (IMG // 16) ** 2), weights.shape
+    assert torch.isfinite(weights).all()
+    assert (rows - 1).abs().max().item() <= 1e-3
+    assert err <= ATTENTION_WEIGHTS_TOL, err
+    assert counts == {"fused_prenorm_mhsa": 2 * DEPTH - 1,
+                      "fused_prenorm_ffn": DEPTH - 1,
+                      "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": 0,
+                      "flash_attention": 0, "flash_attention_bwd": 0}, counts
+    for name in KERNEL_NAMES:
+        launches[name] += counts[name]
+    log(f"memory numbers: {json.dumps(numbers)}")
+    return launches, recomputed, report
 
 
 def main():
@@ -2398,6 +2702,13 @@ def main():
     par_launches, par_report = parallel_phase(card)
     report += par_report
     t0 = lap("parallel", t0)
+    torch.cuda.empty_cache()
+
+    # ---- the memory levers: counts from 0 before each step and before the
+    # attention-weights forward (memory_phase)
+    mem_launches, mem_recomputed, mem_report = memory_phase(card)
+    report += mem_report
+    t0 = lap("memory", t0)
 
     src, jax_src = "videotransformer_tpu_torch/csrc/", \
         "videotransformer_tpu/kernels/"
@@ -2431,7 +2742,8 @@ def main():
                    "timesformer_types": types_launches[name],
                    "data": data_launches[name],
                    "checkpoint": ckpt_launches[name],
-                   "parallel": par_launches[name]}
+                   "parallel": par_launches[name],
+                   "memory": mem_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -2447,6 +2759,8 @@ def main():
             "bound_by": max(on_path, key=lambda e: e["count"] * e["bound_ms"]
                             )["bound_by"],
             "phases": phases})
+        if name == "fused_prenorm_mhsa_bwd":  # B3r: of the memory path's
+            kernels[-1]["launches_rebuilding_qkv"] = mem_recomputed
     log(f"data path numbers: {json.dumps(data_numbers)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))

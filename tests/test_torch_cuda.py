@@ -401,6 +401,109 @@ def test_mhsa_backward_variants(cuda_device, B, N, D, Da, H, block_diag,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# (B, N, D, Da, H, block_diag, variant): B3's recompute mode at the train
+# step's shapes, through each attention variant and at a tp = 2 shard
+MHSA_RECOMPUTE_CASES = [
+    (64, 197, 768, 768, 12, 0, "dense"),   # TimeSformer-B spatial, 8 clips
+    (1568, 8, 768, 768, 12, 8, "packed"),  # its temporal rows
+    (2, 1569, 768, 768, 12, 0, "long"),    # joint space-time, 8 frames
+    (8, 9, 768, 768, 12, 0, "general"),    # the fact_encoder's temporal stack
+    (24, 197, 768, 384, 6, 0, "dense"),    # a tp = 2 shard, Da != D
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [True, False])
+@pytest.mark.parametrize("B,N,D,Da,H,block_diag,variant",
+                         MHSA_RECOMPUTE_CASES)
+def test_mhsa_recompute_backward(cuda_device, B, N, D, Da, H, block_diag,
+                                 variant, res):
+    """B3's recompute mode (qkv rebuilt from x): the rebuilt qkv bit-equal
+    to B1's saved qkv, the whole call's seven gradients bit-equal to the
+    call from the saved qkv, and within REL_TOL of the plain backward that
+    rebuilds qkv (qkv None)."""
+    rng = np.random.default_rng(N + Da + B + 7)
+    args = _mhsa_case(rng, B, N, D, Da, H)
+    cfg = (H, (Da // H) ** -0.5, 1e-5, res, block_diag)
+    assert fused_mhsa.attention_bwd_variant(block_diag or N, Da // H) == \
+        variant
+    _, qkv, attn, lse = fused_mhsa._launch(*args, *cfg)
+    x, ln_w, ln_b, w_qkv, b_qkv, w_proj, _ = args
+    rebuilt = fused_mhsa._recompute_qkv_launch(x, ln_w, ln_b, w_qkv, b_qkv,
+                                               1e-5)
+    assert torch.equal(rebuilt, qkv)
+    g = _bf16(rng, (B, N, D), 1.0)
+    rest = (ln_w, ln_b, w_qkv, w_proj)
+    saved = fused_mhsa._launch_backward(g, x, qkv, attn, lse, *rest, *cfg)
+    counts = dict(fused_mhsa.ATTENTION_BWD_LAUNCHES)
+    got = fused_mhsa._launch_backward(g, x, None, attn, lse, *rest, *cfg,
+                                      b_qkv=b_qkv)
+    torch.cuda.synchronize()
+    assert fused_mhsa.ATTENTION_BWD_LAUNCHES[variant] == counts[variant] + 1
+    assert fused_mhsa.ATTENTION_BWD_LAUNCHES["recompute"] == \
+        counts["recompute"] + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, saved))
+    want = fused_mhsa.fused_prenorm_mhsa_backward_reference(
+        g.float(), x.float(), None, attn.float(),
+        *[a.float() for a in rest], *cfg, b_qkv=b_qkv.float())
+    names = ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_proj", "db_proj")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
+
+
+def _remat_steps(cuda_device, monkeypatch, remat, recompute):
+    """Two bf16 steps of a 2-layer TimeSformer (width 128, 2 heads: head
+    dim 64) with DropPath 0.1 through the kernels, from the trainer's
+    initialisation at seed 0: per step the loss, the grad norm and the
+    launches, and the trainer."""
+    monkeypatch.setattr(trainer_mod, "build_model", lambda c: TimeSformer(
+        num_frames=2, img_size=32, embed_dims=128, num_heads=2,
+        num_transformer_layers=2, drop_path_rate=0.1, remat=c.remat))
+    monkeypatch.setattr(fused_mhsa, "RECOMPUTE_QKV", recompute)
+    cfg = SimpleNamespace(
+        objective="supervised", arch="timesformer",
+        attention_type="divided_space_time", num_class=10, num_frames=2,
+        img_size=32, optim_type="adamw", clip_grad=1.0, seed=0, mixup=False,
+        use_fp16=True, remat=remat)
+    tr = trainer_mod.VideoTransformerTrainer(cfg, cuda_device)
+    batch = {"video": np.random.default_rng(8).standard_normal(
+        (4, 2, 3, 32, 32), dtype=np.float32), "label": np.arange(4)}
+    steps = []
+    for _ in range(2):
+        n0 = (fused_mhsa.LAUNCHES, fused_ffn.LAUNCHES,
+              fused_mhsa.BWD_LAUNCHES, fused_ffn.BWD_LAUNCHES,
+              fused_mhsa.ATTENTION_BWD_LAUNCHES["recompute"])
+        st = tr.train_step(batch, 1e-3, 0.05)
+        n1 = (fused_mhsa.LAUNCHES, fused_ffn.LAUNCHES,
+              fused_mhsa.BWD_LAUNCHES, fused_ffn.BWD_LAUNCHES,
+              fused_mhsa.ATTENTION_BWD_LAUNCHES["recompute"])
+        steps.append((float(st["loss"]), float(st["grad_norm"]),
+                      tuple(b - a for a, b in zip(n0, n1))))
+    return steps, tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,recompute", [(True, False), (False, True),
+                                             (True, True)])
+def test_remat_steps_bit_equal_on_card(cuda_device, monkeypatch, remat,
+                                       recompute):
+    """Remat, RECOMPUTE_QKV or both against neither, from the same
+    parameters: losses, grad norms and every parameter bit-equal; remat
+    launches each block's forward kernels twice, RECOMPUTE_QKV makes every
+    B3 call rebuild qkv."""
+    plain, ref = _remat_steps(cuda_device, monkeypatch, False, False)
+    got, tr = _remat_steps(cuda_device, monkeypatch, remat, recompute)
+    assert [s[:2] for s in got] == [s[:2] for s in plain]
+    want = ref.model.state_dict()
+    for k, v in tr.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    forwards = 2 if remat else 1
+    assert plain[0][2] == (4, 2, 4, 2, 0)
+    assert got[0][2] == (4 * forwards, 2 * forwards, 4, 2,
+                         4 if recompute else 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,D,hidden", [(150, 64, 256), (1000, 768, 3072)])
 def test_ffn_backward_kernel_matches_plain(cuda_device, M, D, hidden):

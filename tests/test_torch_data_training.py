@@ -209,8 +209,7 @@ def test_parse_args_matches_the_jax_cli():
     # -tp is ported (tests/test_torch_parallel*.py); beside it -sp is not
     (["-sp", "2"], "A11"), (["-tp", "2", "-sp", "2"], "A11"),
     (["-pp", "2"], "A11"),
-    (["-scan_layers", "True"], "not ported"),
-    (["-remat", "True"], "not ported")])
+    (["-scan_layers", "True"], "not ported")])
 def test_unported_flags_raise(tmp_path, flags, what):
     argv = REQUIRED[:-4] + ["-root_dir", str(tmp_path), "-train_data_path",
                             "t.txt"] + flags

@@ -38,11 +38,14 @@ WEIGHTS = (3, 5)  # positions of the (in, out) JAX weights among the args
 DW_QKV = 3  # position of w_qkv among the args
 
 
-def _mhsa_args(B, N, D, seed):
+def _mhsa_args(B, N, D, seed, Da=None):
+    """x and the weights in the JAX (in, out) layout, attention width Da
+    (D by default; a tensor-parallel shard's heads when smaller)."""
+    Da = Da or D
     rng = np.random.RandomState(seed)
     return [rng.randn(B, N, D) * 0.5, rng.randn(D) * 0.1 + 1,
-            rng.randn(D) * 0.1, rng.randn(D, 3 * D) * 0.08,
-            rng.randn(3 * D) * 0.05, rng.randn(D, D) * 0.08,
+            rng.randn(D) * 0.1, rng.randn(D, 3 * Da) * 0.08,
+            rng.randn(3 * Da) * 0.05, rng.randn(Da, D) * 0.08,
             rng.randn(D) * 0.05]
 
 
@@ -110,6 +113,81 @@ def test_mhsa_plain_backward_matches_jax(B, N, H, block_diag, res, dtype):
         pallas = _jax_grads(lambda *a: fused_mhsa_pallas.fused_prenorm_mhsa(
             *a, *cfg), args, g, jdt)
     _assert_grads_close(got, pallas, dtype, {DW_QKV: DW_QKV_BF16_REL})
+
+
+RECOMPUTE_CASES = [
+    # (B, N, heads, block_diag, add_residual, Da)
+    pytest.param(2, 65, 4, 0, True, 64, id="dense-N65-res"),
+    pytest.param(1, 197, 4, 0, False, 64, id="dense-N197"),
+    pytest.param(2, 64, 4, 8, False, 64, id="blockdiag8-N64"),
+    pytest.param(1, 128, 4, 8, True, 64, id="blockdiag8-N128-res"),
+    pytest.param(1, 264, 4, 0, True, 64, id="long-N264-res"),
+    pytest.param(1, 264, 4, 0, False, 64, id="long-N264"),
+    pytest.param(2, 65, 2, 0, False, 32, id="dense-N65-Da32"),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,H,block_diag,res,Da", RECOMPUTE_CASES)
+def test_mhsa_recompute_qkv_backward_matches_jax(B, N, H, block_diag, res,
+                                                 Da, dtype):
+    """B3's recompute mode: the port's forward with RECOMPUTE_QKV keeps no
+    qkv, and its plain backward rebuilds it (qkv=None); against jax.grad
+    through the Pallas kernel in interpret mode with the JAX package's
+    RECOMPUTE_QKV on (its recompute_qkv=True backward), at B3's bounds.
+    The port's gradients equal its saved mode's to the bit, and at Da = D
+    the inputs are those of the saved mode's case above, so the two tests
+    read the same comparison in both modes. (At other inputs, seed + 64,
+    the long case with the residual put d_wqkv at 6.25e-3 of max|ref| in
+    bf16, above DW_QKV_BF16_REL: the saved mode's xn rounding, which the
+    recompute mode shares bit for bit.)"""
+    D = 64
+    args = _mhsa_args(B, N, D, seed=N + block_diag + res + (Da != D), Da=Da)
+    g = np.random.RandomState(7).randn(B, N, D).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    cfg = (H, (Da // H) ** -0.5, 1e-5, res, block_diag)
+    port = lambda *a: fused_mhsa.fused_prenorm_mhsa(*a, *cfg)
+    saved = _port_grads(port, args, g, getattr(torch, dtype))
+    assert fused_mhsa.RECOMPUTE_QKV is False
+    try:
+        fused_mhsa.RECOMPUTE_QKV = True
+        got = _port_grads(port, args, g, getattr(torch, dtype))
+    finally:
+        fused_mhsa.RECOMPUTE_QKV = False
+    for a, b in zip(got, saved):
+        np.testing.assert_array_equal(a, b)
+    assert fused_mhsa_pallas.RECOMPUTE_QKV is False
+    try:
+        fused_mhsa_pallas.RECOMPUTE_QKV = True
+        with pltpu.force_tpu_interpret_mode():
+            pallas = _jax_grads(
+                lambda *a: fused_mhsa_pallas.fused_prenorm_mhsa(*a, *cfg),
+                args, g, jdt)
+    finally:
+        fused_mhsa_pallas.RECOMPUTE_QKV = False
+    _assert_grads_close(got, pallas, dtype, {DW_QKV: DW_QKV_BF16_REL})
+
+
+def test_recompute_mode_saves_no_qkv():
+    """With RECOMPUTE_QKV on, the autograd graph holds x, attn and the
+    weights but no (rows, 3·Da) qkv; off, it holds qkv."""
+    args = [torch.tensor(a.T if i in WEIGHTS else a, dtype=torch.float32)
+            .requires_grad_() for i, a in enumerate(_mhsa_args(2, 16, 64, 0))]
+    widths = {}
+    for mode in (False, True):
+        fused_mhsa.RECOMPUTE_QKV = mode
+        try:
+            shapes = []
+            with torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: shapes.append(tuple(t.shape)) or t,
+                    lambda t: t):
+                y = fused_mhsa.fused_prenorm_mhsa(*args, 4, 0.25)
+        finally:
+            fused_mhsa.RECOMPUTE_QKV = False
+        y.sum().backward()
+        widths[mode] = {s[-1] for s in shapes if len(s) == 2}
+    assert 3 * 64 in widths[False] and 64 in widths[False]
+    assert 3 * 64 not in widths[True] and 64 in widths[True]
 
 
 def _autograd_of_plain(fn, plain, args):

@@ -4,7 +4,9 @@ TimeSformer (2 layers, width 64, 4 heads, 2 frames at 32², fp32), each run
 held against the same worker ``run`` in this process on the global batch
 (itself held against the JAX trainer in tests/test_torch_parallel.py):
 
-- DP = 2 and TP = 2, three AdamW steps with mixup and DropPath 0.1 on a
+- DP = 2, TP = 2 and TP = 2 with every block checkpointed (``--remat``,
+  against the one process without it), three AdamW steps with mixup and
+  DropPath 0.1 on a
   global batch of 4 clips, then one epoch of the trainer's ``fit``: one
   more step, and a validation and a three-crop test of 5 clips, which
   each data rank reads through its ``Loader`` shard in batches of 2 (under
@@ -222,7 +224,10 @@ def _check(outs, argv, ckpt, adamw=True, first=(1e-4, 1e-6), data=1):
 
 
 @pytest.mark.parametrize("what,world,extra,data", [
-    ("dp2", 2, [], 2), ("tp2", 2, ["--tp", "2"], 1)])
+    ("dp2", 2, [], 2), ("tp2", 2, ["--tp", "2"], 1),
+    # every block checkpointed: the backward's second forward runs the
+    # model group's all-reduces again; the one process runs without remat
+    ("tp2-remat", 2, ["--tp", "2", "--remat"], 1)])
 def test_two_processes_match_one_process(tmp_path, what, world, extra, data):
     ckpt = str(tmp_path / "ckpt")
     argv = SUPERVISED + extra

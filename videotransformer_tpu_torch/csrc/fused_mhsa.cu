@@ -56,8 +56,10 @@
 // 4. out = attn · Wprojᵀ + b (+ x in the epilogue) on the same core.
 //
 // What stays in device memory: qkv (rows x 3Da bf16, written and read once)
-// and attn (rows x Da, the same), in both modes of the wrapper; the train
-// step keeps them for the backward (the TPU kernel's save_qkv/save_attn).
+// and attn (rows x Da, the same), in every mode of the wrapper; the train
+// step keeps both for the backward (the TPU kernel's save_qkv/save_attn),
+// or attn alone with the wrapper's RECOMPUTE_QKV on, when B3 runs steps 1
+// and 2 again (sm90_gemm.cuh::launch_ln_linear, the same code).
 
 #include "flash_common.cuh"
 #include "flash_fwd.cuh"
@@ -529,27 +531,18 @@ int vt_fused_prenorm_mhsa(const void* x, const void* ln_w, const void* ln_b,
       !vt::variant_fits(variant, seq_len, Da / num_heads))
     return cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
-  float2* st2 = static_cast<float2*>(stats);
-  cudaError_t err = wg::launch_ln_stats(xb, st2, rows, D, ln_eps, st);
-  if (err != cudaSuccess) return err;
-  wg::Params p{};
-  p.bias = static_cast<const bf16*>(b_qkv);
-  p.C = qkv;
-  p.ln_stats = st2;
-  p.ln_w = static_cast<const bf16*>(ln_w);
-  p.ln_b = static_cast<const bf16*>(ln_b);
-  p.M = rows;
-  p.N = 3 * Da;
-  p.K = D;
-  err = wg::launch_gemm<256, 0, 0, wg::kBias, true>(
-      xb, static_cast<const bf16*>(w_qkv), p, 1, st);
+  cudaError_t err = wg::launch_ln_linear(
+      xb, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+      static_cast<const bf16*>(w_qkv), static_cast<const bf16*>(b_qkv),
+      static_cast<float2*>(stats), static_cast<bf16*>(qkv), rows, D, 3 * Da,
+      ln_eps, st);
   if (err != cudaSuccess) return err;
   err = vt::launch_attention(variant, static_cast<const bf16*>(qkv),
                              static_cast<bf16*>(attn),
                              static_cast<float*>(lse), rows, seq_len, Da,
                              num_heads, scale, st);
   if (err != cudaSuccess) return err;
-  p = wg::Params{};
+  wg::Params p{};
   p.bias = static_cast<const bf16*>(b_proj);
   p.aux_in = add_residual ? xb : nullptr;
   p.C = out;

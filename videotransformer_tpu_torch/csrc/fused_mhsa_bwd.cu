@@ -64,6 +64,16 @@
 //   a fixed order, no atomics, the same bits on every run.
 // dqkv, xn, do (bf16) and d_xn (fp32) go through device memory, where the
 // TPU kernel kept its intermediates in VMEM.
+//
+// Recompute mode (the TPU kernel's recompute_qkv=True, fused_mhsa_pallas.py:
+// 308-321, which the wrapper's RECOMPUTE_QKV selects): the forward kept no
+// qkv, and the whole call first rebuilds it from x into a transient bf16
+// (rows, 3Da) buffer with B1's own qkv stage (sm90_gemm.cuh::
+// launch_ln_linear: the LayerNorm statistics, then the LayerNorm-folded
+// product with the bias), the same code at the same shape, so the rebuilt
+// qkv has the saved one's bits and every attention variant (the long one
+// reads p = exp(s·scale - lse) from the forward's lse) computes what it
+// computes from the saved qkv. Extra: 2·rows·D·3Da FLOPs, x read once more.
 
 #include "bwd_common.cuh"
 #include "flash_bwd.cuh"
@@ -765,7 +775,8 @@ extern "C" {
 // another checkout's build: 2 since the long attention variant added the lse
 // pointer, B3 alone's attn and the heads, length and variant of the scratch
 // size. A library without this entry point is version 1.
-int vt_mhsa_abi_version() { return 2; }
+// 3 since the whole backward's recompute mode added b_qkv and the flag.
+int vt_mhsa_abi_version() { return 3; }
 
 // Dynamic shared memory the attention backward's `variant` (0 the CUDA-core
 // kernel, 1 packed, 2 dense, 3 long; the wrapper chooses) needs at (L, hd),
@@ -832,25 +843,47 @@ int vt_mhsa_attn_bwd(const void* x, const void* qkv, const void* dout,
   return sums.run(st);
 }
 
+// The recompute mode's first stage alone: qkv (rows, 3Da) bf16 rebuilt
+// from x (rows, D) as the whole call below rebuilds it, with ln_w, ln_b (D),
+// w_qkv (3Da, D) and b_qkv (3Da); stats (rows float2) is caller-allocated.
+// For a test to hold it against the forward's saved qkv, bit for bit.
+int vt_mhsa_bwd_qkv(const void* x, const void* ln_w, const void* ln_b,
+                    const void* w_qkv, const void* b_qkv, void* stats,
+                    void* qkv, int rows, int D, int Da, float ln_eps,
+                    void* stream) {
+  using vt::bf16;
+  if (rows < 1 || D % vt::wg::kBK || Da % 8) return cudaErrorInvalidValue;
+  return vt::wg::launch_ln_linear(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_w),
+      static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w_qkv),
+      static_cast<const bf16*>(b_qkv), static_cast<float2*>(stats),
+      static_cast<bf16*>(qkv), rows, D, 3 * Da, ln_eps,
+      static_cast<cudaStream_t>(stream));
+}
+
 // The whole backward of the fused prenorm MHSA from the output gradient g
-// (rows, Do): x (rows, D), the forward's qkv (rows, 3Da), attn (rows, Da)
-// and lse (nseq, heads, seq_len fp32; the long variant's, else may be
-// null), ln_w, ln_b (D), w_qkv (3Da, D), w_proj (Do, Da) in (out, in)
+// (rows, Do): x (rows, D), the forward's qkv (rows, 3Da; null with
+// recompute_qkv, which rebuilds it from x, ln_w, ln_b, w_qkv and b_qkv),
+// attn (rows, Da) and lse (nseq, heads, seq_len fp32; the long variant's,
+// else may be null), ln_w, ln_b (D), w_qkv (3Da, D), b_qkv (3Da; read in
+// recompute mode only, else may be null), w_proj (Do, Da) in (out, in)
 // layout.
-// bf_scratch (rows · (D + 4Da) bf16: xn, do, dqkv) and `scratch`
-// (vt_mhsa_bwd_scratch_floats) are caller-allocated; dw_proj and dw_qkv are
-// split into slices_proj / slices_qkv slices of per_proj / per_qkv 64-row k
-// tiles. Outputs: dx (rows, D) bf16; fp32 dln_w, dln_b (D), dw_qkv (3Da, D),
-// dbqkv (3Da), dw_proj (Do, Da), db_proj (Do).
+// bf_scratch (rows · (D + 4Da) bf16: xn, do, dqkv; in recompute mode
+// rows · (D + 7Da + 4): then the rebuilt qkv and its rows' LayerNorm
+// statistics) and `scratch` (vt_mhsa_bwd_scratch_floats) are
+// caller-allocated; dw_proj and dw_qkv are split into slices_proj /
+// slices_qkv slices of per_proj / per_qkv 64-row k tiles. Outputs: dx
+// (rows, D) bf16; fp32 dln_w, dln_b (D), dw_qkv (3Da, D), dbqkv (3Da),
+// dw_proj (Do, Da), db_proj (Do).
 int vt_fused_prenorm_mhsa_bwd(
     const void* g, const void* x, const void* qkv, const void* attn,
     const void* lse, const void* ln_w, const void* ln_b, const void* w_qkv,
-    const void* w_proj,
+    const void* b_qkv, const void* w_proj,
     void* bf_scratch, void* scratch, void* dx, void* dln_w, void* dln_b,
     void* dw_qkv, void* dbqkv, void* dw_proj, void* db_proj, int rows, int D,
     int Da, int Do, int num_heads, int seq_len, int variant, int slices_proj,
-    int per_proj, int slices_qkv, int per_qkv, int add_residual, float scale,
-    float ln_eps, void* stream) {
+    int per_proj, int slices_qkv, int per_qkv, int add_residual,
+    int recompute_qkv, float scale, float ln_eps, void* stream) {
   using vt::bf16;
   namespace wg = vt::wg;
   namespace bwd = vt::bwd;
@@ -858,12 +891,26 @@ int vt_fused_prenorm_mhsa_bwd(
   if (!vt::shapes_fit(rows, D, Da, num_heads, seq_len, variant) || Do < 8 ||
       Do % 8 || (add_residual && Do != D) ||
       !bwd::slices_cover(slices_proj, per_proj, rows) ||
-      !bwd::slices_cover(slices_qkv, per_qkv, rows))
+      !bwd::slices_cover(slices_qkv, per_qkv, rows) ||
+      (recompute_qkv ? b_qkv == nullptr || D % wg::kBK : qkv == nullptr))
     return cudaErrorInvalidValue;
   const bf16* gb = static_cast<const bf16*>(g);
+  const bf16* xb = static_cast<const bf16*>(x);
   bf16* xn = static_cast<bf16*>(bf_scratch);
   bf16* dout = xn + (size_t)rows * D;
   bf16* dqkv = dout + (size_t)rows * Da;
+  const bf16* qkv_in = static_cast<const bf16*>(qkv);
+  cudaError_t err;
+  if (recompute_qkv) {  // B1's qkv stage again (header)
+    bf16* rebuilt = dqkv + (size_t)rows * 3 * Da;
+    err = wg::launch_ln_linear(
+        xb, static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+        static_cast<const bf16*>(w_qkv), static_cast<const bf16*>(b_qkv),
+        reinterpret_cast<float2*>(rebuilt + (size_t)rows * 3 * Da), rebuilt,
+        rows, D, 3 * Da, ln_eps, st);
+    if (err != cudaSuccess) return err;
+    qkv_in = rebuilt;
+  }
   const vt::MhsaBwdScratch sz =
       vt::mhsa_bwd_scratch(rows, D, Da, Do, slices_proj, slices_qkv,
                            num_heads, seq_len, variant);
@@ -879,7 +926,7 @@ int vt_fused_prenorm_mhsa_bwd(
   p.N = Da;
   p.K = rows;
   p.ktiles_per_slice = per_proj;
-  cudaError_t err = wg::launch_gemm<128, 1, 1, wg::kF32>(
+  err = wg::launch_gemm<128, 1, 1, wg::kF32>(
       gb, static_cast<const bf16*>(attn), p, slices_proj, st);
   if (err != cudaSuccess) return err;
   // do = bf16(g · Wproj): (rows, Da), K = Do, the weight read N-major
@@ -891,9 +938,8 @@ int vt_fused_prenorm_mhsa_bwd(
   err = wg::launch_gemm<128, 0, 1, wg::kPlain>(
       gb, static_cast<const bf16*>(w_proj), p, 1, st);
   if (err != cudaSuccess) return err;
-  const bf16* xb = static_cast<const bf16*>(x);
   err = vt::attention_core(
-      xb, static_cast<const bf16*>(qkv), dout,
+      xb, qkv_in, dout,
       static_cast<const bf16*>(attn), static_cast<const float*>(lse),
       add_residual ? gb : nullptr,
       static_cast<const bf16*>(ln_w), static_cast<const bf16*>(w_qkv), dqkv,

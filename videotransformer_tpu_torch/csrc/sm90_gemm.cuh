@@ -740,5 +740,28 @@ inline cudaError_t launch_ln_stats(const bf16* x, float2* stats, int rows,
   return cudaGetLastError();
 }
 
+// out (rows, N) = bf16(LayerNorm(x) · Wᵀ + bias), x (rows, K), W (N, K):
+// the statistics into `stats` (rows float2), then the LayerNorm folded into
+// the A operand. B1's qkv stage; B3's recompute mode runs this same code
+// again, so its qkv has the forward's bits.
+inline cudaError_t launch_ln_linear(const bf16* x, const bf16* ln_w,
+                                    const bf16* ln_b, const bf16* w,
+                                    const bf16* bias, float2* stats,
+                                    bf16* out, int rows, int K, int N,
+                                    float eps, cudaStream_t stream) {
+  cudaError_t err = launch_ln_stats(x, stats, rows, K, eps, stream);
+  if (err != cudaSuccess) return err;
+  Params p{};
+  p.bias = bias;
+  p.C = out;
+  p.ln_stats = stats;
+  p.ln_w = ln_w;
+  p.ln_b = ln_b;
+  p.M = rows;
+  p.N = N;
+  p.K = K;
+  return launch_gemm<256, 0, 0, kBias, true>(x, w, p, 1, stream);
+}
+
 }  // namespace wg
 }  // namespace vt

@@ -13,9 +13,15 @@ with the kernels' rounding order. There is no other branch.
 The forward's qkv and pre-projection attention output are the saved
 residuals (the TPU kernel's ``save_qkv``/``save_attn``). The kernel writes
 both to device memory in every mode, since its four launches pass them from
-one to the next; autograd keeps them for the backward only when it records
-a graph, and under ``torch.inference_mode`` or ``no_grad`` they are freed
-when the call returns. ``out`` has the same bits in every mode. The backward
+one to the next. Autograd keeps them for the backward only when it records
+a graph; under ``torch.inference_mode`` or ``no_grad`` both are freed when
+the call returns. With ``RECOMPUTE_QKV`` on when the forward runs (the TPU
+kernel's ``recompute_qkv`` mode, fused_mhsa_pallas.py:493-518) only attn is
+kept: qkv is freed when the call returns, (rows, 3·Da) working-type values
+less a layer, and the backward rebuilds it from x, the LayerNorm and
+``w_qkv``/``b_qkv`` with B1's own qkv stage, so it has the same bits and
+every gradient is the one of the saved mode (the plain backward: the plain
+forward's qkv stage). ``out`` has the same bits in every mode. The backward
 is one call into the kernel library: B3 (the attention backward, d_xn, the
 LayerNorm backward and the sums) with ``_vjp_bwd``'s products around it
 (``dw_proj = gᵀ · attn``, ``do = g · W_proj``, ``d_wqkv = dqkvᵀ · xn``; XLA
@@ -58,13 +64,19 @@ from videotransformer_tpu_torch.kernels._plain import (
     layer_norm, layer_norm_backward, linear_fp32)
 from videotransformer_tpu_torch.kernels.fused_ffn import split_k
 
+# The memory knob of fused_mhsa_pallas.py:504, read when a forward runs:
+# keep no qkv for the backward, which rebuilds it from x (module doc).
+RECOMPUTE_QKV = False
+
 # Calls that reached the CUDA kernels (not the plain versions): forward, and
 # backward; and each direction's calls by the kernel its attention stage
-# took (``attention_variant``, ``attention_bwd_variant``).
+# took (``attention_variant``, ``attention_bwd_variant``), the backward's
+# also under "recompute" when it rebuilt qkv.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 ATTENTION_LAUNCHES = {"packed": 0, "dense": 0, "long": 0, "general": 0}
-ATTENTION_BWD_LAUNCHES = {"packed": 0, "dense": 0, "long": 0, "general": 0}
+ATTENTION_BWD_LAUNCHES = {"packed": 0, "dense": 0, "long": 0, "general": 0,
+                          "recompute": 0}
 _VARIANT_CODES = {"general": 0, "packed": 1, "dense": 2, "long": 3}
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
@@ -74,12 +86,14 @@ _SIGNATURES = {
     "vt_mhsa_attention_smem_bytes": [ctypes.c_int] * 3,
 }
 _BWD_SIGNATURES = {
-    "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 12
+    "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
     "vt_mhsa_attn_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
     "vt_mhsa_bwd_smem_bytes": [ctypes.c_int] * 3,
     "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 9,
+    "vt_mhsa_bwd_qkv": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
 }
 
 
@@ -160,6 +174,14 @@ def _merge_heads(t):
     return t.permute(0, 2, 1, 3).reshape(n * L, H * hd)
 
 
+def _qkv_reference(x, ln_w, ln_b, w_qkv, b_qkv, ln_eps):
+    """The plain qkv stage on x's rows: fp32 LN statistics -> xn in the
+    working type; fp32-accumulated ``xn · Wqkvᵀ + b`` -> working type."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return linear_fp32(layer_norm(x2, ln_w, ln_b, ln_eps), w_qkv,
+                       b_qkv).to(x.dtype)
+
+
 def _forward_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                        num_heads, scale, ln_eps, add_residual, block_diag):
     """Plain forward on rows, in the kernel's rounding order: fp32 LN
@@ -173,7 +195,7 @@ def _forward_reference(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     dt = x.dtype
     L = _seq_len(N, block_diag)
     x2 = x.reshape(B * N, D)
-    qkv = linear_fp32(layer_norm(x2, ln_w, ln_b, ln_eps), w_qkv, b_qkv).to(dt)
+    qkv = _qkv_reference(x, ln_w, ln_b, w_qkv, b_qkv, ln_eps)
     q, k, v = _split_heads(qkv, L, num_heads, 3)
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     m = s.amax(-1, keepdim=True)
@@ -250,11 +272,14 @@ def _backward(attn_bwd, g, x, qkv, attn, ln_w, ln_b, w_qkv, w_proj,
 def fused_prenorm_mhsa_backward_reference(g, x, qkv, attn, ln_w, ln_b, w_qkv,
                                           w_proj, num_heads, scale,
                                           ln_eps=1e-5, add_residual=True,
-                                          block_diag=0):
+                                          block_diag=0, b_qkv=None):
     """Plain backward: the gradients of (x, ln_w, ln_b, w_qkv, b_qkv,
     w_proj, b_proj) from the output gradient g and the saved qkv and attn
     (rows, ·), in the TPU kernel's rounding order (it recomputes the row
-    statistics, so it takes no lse)."""
+    statistics, so it takes no lse). ``qkv=None`` is B3's recompute mode:
+    qkv rebuilt from x by the plain forward's qkv stage, with ``b_qkv``."""
+    if qkv is None:
+        qkv = _qkv_reference(x, ln_w, ln_b, w_qkv, b_qkv, ln_eps)
     return _backward(_attn_bwd_reference, g, x, qkv, attn, ln_w, ln_b, w_qkv,
                      w_proj, num_heads, scale, ln_eps, add_residual,
                      block_diag)
@@ -272,20 +297,20 @@ class _FusedPrenormMHSA(torch.autograd.Function):
         else:
             out, qkv, attn, lse = _launch(*args)
         if any(ctx.needs_input_grad):
-            ctx.save_for_backward(x, qkv, attn, lse, ln_w, ln_b, w_qkv,
-                                  w_proj)
+            ctx.save_for_backward(x, None if RECOMPUTE_QKV else qkv, attn,
+                                  lse, ln_w, ln_b, w_qkv, w_proj, b_qkv)
             ctx.config = (num_heads, scale, ln_eps, add_residual, block_diag)
         return out.reshape(*x.shape[:2], w_proj.shape[0])
 
     @staticmethod
     def backward(ctx, g):
-        x, qkv, attn, lse, *rest = ctx.saved_tensors
+        x, qkv, attn, lse, *rest, b_qkv = ctx.saved_tensors
         if g.device.type == "cpu":
             grads = fused_prenorm_mhsa_backward_reference(
-                g, x, qkv, attn, *rest, *ctx.config)
+                g, x, qkv, attn, *rest, *ctx.config, b_qkv=b_qkv)
         else:
             grads = _launch_backward(g.contiguous(), x, qkv, attn, lse, *rest,
-                                     *ctx.config)
+                                     *ctx.config, b_qkv=b_qkv)
         return (*grads, None, None, None, None, None)
 
 
@@ -357,13 +382,14 @@ def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
 
 def _bwd_prepare(name, x, qkv, w_qkv, Do, num_heads, block_diag, lib):
     """(rows, D, Da, L, plan, lib) of a backward call, after the checks that
-    need the library (shared memory)."""
+    need the library (shared memory); qkv may be None (recompute mode)."""
     B, N, D = x.shape
     rows, Da3 = B * N, w_qkv.shape[0]
     Da = Da3 // 3
-    if w_qkv.shape != (Da3, D) or Da3 % 3 or qkv.shape != (rows, Da3):
-        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} or w_qkv "
-                         f"{tuple(w_qkv.shape)} do not fit x {tuple(x.shape)}")
+    if (w_qkv.shape != (Da3, D) or Da3 % 3
+            or (qkv is not None and qkv.shape != (rows, Da3))):
+        raise ValueError(f"{name}: qkv or w_qkv {tuple(w_qkv.shape)} do "
+                         f"not fit x {tuple(x.shape)}")
     L = _seq_len(N, block_diag)
     plan = backward_plan(rows, D, Da, Do, num_heads, L)
     if lib is None:
@@ -391,23 +417,33 @@ def _lse_arg(name, lse, variant, rows, L, num_heads, x):
     return _build.ptr(lse)
 
 
-def _count_bwd(variant):
+def _count_bwd(variant, recompute=False):
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     ATTENTION_BWD_LAUNCHES[variant] += 1
+    ATTENTION_BWD_LAUNCHES["recompute"] += recompute
 
 
 def _launch_backward(g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj,
                      num_heads, scale, ln_eps, add_residual, block_diag,
-                     lib=None):
+                     b_qkv=None, lib=None):
     """The whole backward (csrc/fused_mhsa_bwd.cu, one call): the gradients
     of (x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj), as
     ``fused_prenorm_mhsa_backward_reference`` returns them (lse is read by
-    the long variant only); ``lib`` is another build of the library
-    (``_build.load``), to compare designs."""
+    the long variant only). ``qkv=None`` is the recompute mode: the call
+    rebuilds qkv from x with ``b_qkv`` first. ``lib`` is another build of
+    the library (``_build.load``), to compare designs."""
     name = "fused_prenorm_mhsa backward"
-    _build.check_operands(name, g=g, x=x, qkv=qkv, attn=attn, ln_w=ln_w,
-                          ln_b=ln_b, w_qkv=w_qkv, w_proj=w_proj)
+    recompute = qkv is None
+    operands = dict(g=g, x=x, attn=attn, ln_w=ln_w, ln_b=ln_b, w_qkv=w_qkv,
+                    w_proj=w_proj)
+    if recompute:
+        if b_qkv is None:
+            raise ValueError(f"{name}: rebuilding qkv needs b_qkv")
+        operands["b_qkv"] = b_qkv
+    else:
+        operands["qkv"] = qkv
+    _build.check_operands(name, **operands)
     Do = w_proj.shape[0]
     rows, D, Da, L, plan, lib = _bwd_prepare(name, x, qkv, w_qkv, Do,
                                              num_heads, block_diag, lib)
@@ -419,6 +455,9 @@ def _launch_backward(g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj,
                          f"{tuple(x.shape)}")
     if add_residual and Do != D:
         raise ValueError(f"{name}: residual needs Do == D ({Do} != {D})")
+    if recompute and (b_qkv.shape != (3 * Da,) or D % 64):
+        raise ValueError(f"{name}: rebuilding qkv needs b_qkv ({3 * Da},) "
+                         f"and D={D} a multiple of 64")
     lse_p = _lse_arg(name, lse, plan.variant, rows, L, num_heads, x)
     code = _VARIANT_CODES[plan.variant]
     n_scratch = lib.vt_mhsa_bwd_scratch_floats(rows, D, Da, Do,
@@ -428,8 +467,10 @@ def _launch_backward(g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj,
     if n_scratch < 0:
         raise ValueError(f"{name}: scratch for {rows} rows is too large")
     dev = x.device
-    bf_scratch = torch.empty(rows * (D + 4 * Da), dtype=torch.bfloat16,
-                             device=dev)
+    # xn, do, dqkv; in recompute mode also the rebuilt qkv and the fp32
+    # (mean, rstd) of its rows, four bf16 a row
+    bf_scratch = torch.empty(rows * (D + 4 * Da + recompute * (3 * Da + 4)),
+                             dtype=torch.bfloat16, device=dev)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     dx = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
     sizes = (D, D, 3 * Da * D, 3 * Da, Do * Da, Do)
@@ -437,14 +478,14 @@ def _launch_backward(g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj,
     dln_w, dln_b, dw_qkv, dbqkv, dw_proj, db_proj = outs.split(sizes)
     P = _build.ptr
     status = lib.vt_fused_prenorm_mhsa_bwd(
-        P(g), P(x), P(qkv), P(attn), lse_p, P(ln_w), P(ln_b), P(w_qkv),
-        P(w_proj), P(bf_scratch), P(scratch), P(dx), P(dln_w), P(dln_b),
-        P(dw_qkv), P(dbqkv), P(dw_proj), P(db_proj), rows, D, Da, Do,
-        num_heads, L, code, *plan.split_proj, *plan.split_qkv,
-        int(bool(add_residual)), float(scale), float(ln_eps),
-        _build.stream_handle())
+        P(g), P(x), None if recompute else P(qkv), P(attn), lse_p, P(ln_w),
+        P(ln_b), P(w_qkv), P(b_qkv) if recompute else None, P(w_proj),
+        P(bf_scratch), P(scratch), P(dx), P(dln_w), P(dln_b), P(dw_qkv),
+        P(dbqkv), P(dw_proj), P(db_proj), rows, D, Da, Do, num_heads, L,
+        code, *plan.split_proj, *plan.split_qkv, int(bool(add_residual)),
+        int(recompute), float(scale), float(ln_eps), _build.stream_handle())
     _build.check_status(name, status)
-    _count_bwd(plan.variant)
+    _count_bwd(plan.variant, recompute)
     wt, wdt = ln_w.dtype, w_qkv.dtype
     return (dx, dln_w.to(wt), dln_b.to(wt), dw_qkv.reshape(3 * Da, D).to(wdt),
             dbqkv.to(wdt), dw_proj.reshape(Do, Da).to(w_proj.dtype),
@@ -494,3 +535,35 @@ def _attn_bwd_launch(x, qkv, do, g_res, ln_w, w_qkv, num_heads, scale,
     _build.check_status(name, status)
     _count_bwd(plan.variant)
     return dqkv, dx, dln_w, dln_b, dbqkv
+
+
+def _recompute_qkv_launch(x, ln_w, ln_b, w_qkv, b_qkv, ln_eps, lib=None):
+    """B3's recompute stage alone (csrc/fused_mhsa_bwd.cu's
+    ``vt_mhsa_bwd_qkv``): the (rows, 3·Da) qkv its whole call rebuilds from
+    x in recompute mode, to hold against the forward's saved qkv, bit for
+    bit; a B3 launch in recompute mode by the counts. The plain version is
+    ``_qkv_reference``."""
+    name = "fused_prenorm_mhsa backward (qkv stage)"
+    _build.check_operands(name, x=x, ln_w=ln_w, ln_b=ln_b, w_qkv=w_qkv,
+                          b_qkv=b_qkv)
+    D = x.shape[-1]
+    rows, Da3 = x.numel() // D, w_qkv.shape[0]
+    if (w_qkv.shape != (Da3, D) or b_qkv.shape != (Da3,)
+            or ln_w.shape != (D,) or ln_b.shape != (D,) or D % 64
+            or Da3 % 24):  # Da = Da3 / 3 a multiple of 8
+        raise ValueError(f"{name}: the weights do not fit x "
+                         f"{tuple(x.shape)}, or D={D} is not a multiple "
+                         f"of 64")
+    if lib is None:
+        lib = _build.load("fused_mhsa_bwd", _BWD_SIGNATURES)
+    stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((rows, Da3), dtype=x.dtype, device=x.device)
+    P = _build.ptr
+    status = lib.vt_mhsa_bwd_qkv(
+        P(x), P(ln_w), P(ln_b), P(w_qkv), P(b_qkv), P(stats), P(qkv), rows,
+        D, Da3 // 3, float(ln_eps), _build.stream_handle())
+    _build.check_status(name, status)
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    ATTENTION_BWD_LAUNCHES["recompute"] += 1
+    return qkv

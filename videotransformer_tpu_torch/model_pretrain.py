@@ -30,10 +30,11 @@ Differences from the JAX CLI, on purpose:
   True, so the JAX CLI (and the reference) read ``False`` as True.
 - Flags the port cannot honour raise ``NotImplementedError``: ``-sp`` or
   ``-pp`` above 1 (sequence and pipeline parallelism, the rest of ROADMAP
-  queue A item A11), ``-scan_layers True`` (not ported: a lax.scan layout)
-  and ``-remat True`` (activation checkpointing is not ported). ``-fused_adamw`` only
-  changes how the JAX optimizer lays out its small leaves, and ``-gpus``
-  and ``-multi_crop`` are read by neither trainer.
+  queue A item A11) and ``-scan_layers True`` (not ported: a lax.scan
+  layout). ``-remat True`` checkpoints every TimeSformer or ViViT block
+  (MaskFeat ignores it, as in JAX). ``-fused_adamw`` only changes how the
+  JAX optimizer lays out its small leaves, and ``-gpus`` and
+  ``-multi_crop`` are read by neither trainer.
 """
 
 import argparse
@@ -149,7 +150,9 @@ def parse_args(argv=None):
                         help="root dir for relative annotation rows "
                              "(default: the annotation file's directory)")
     parser.add_argument("-remat", type=str_to_bool, default=False,
-                        help="activation checkpointing (not ported)")
+                        help="activation checkpointing of every "
+                             "TimeSformer/ViViT block (torch.utils."
+                             "checkpoint)")
     parser.add_argument("-fused_adamw", type=str_to_bool, default=True,
                         help="the JAX optimizer's flat small-leaf layout; "
                              "the port's AdamW is per tensor")
@@ -209,9 +212,6 @@ def refuse_unported(args):
         raise NotImplementedError(
             "-scan_layers True: the lax.scan layer stack is not ported "
             "(ROADMAP 'Do not port')")
-    if args.remat:
-        raise NotImplementedError(
-            "-remat True: activation checkpointing is not ported")
 
 
 def resolve_resume_checkpoint(ckpt_dir):

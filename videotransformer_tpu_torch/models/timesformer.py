@@ -20,6 +20,10 @@ DropPath drawing from the ``generator`` given to ``forward``; the dropouts
 use torch's default generator, and at p = 0 draw nothing. The working type
 is the clip's dtype: fp32 parameters are cast to it at each use.
 
+``remat`` checkpoints each block while autograd records, and
+``return_attention`` / ``get_last_selfattention`` return the last block's
+last attention weights (timesformer.py:189-207; ``ops/blocks.py``).
+
 At another resolution than the native one the spatial table is resized by
 ``interpolate_pos_encoding``, as in the JAX package. ``mesh`` (a parallel
 run's, ``parallel/mesh.py``) goes to the blocks: with ``model`` > 1 ranks
@@ -36,7 +40,7 @@ from torch import nn
 
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.ops.blocks import (
-    PatchEmbed, TransformerContainer)
+    PatchEmbed, TransformerContainer, last_selfattention)
 
 FINAL_LN_EPS = 1e-6
 ATTENTION_TYPES = ("divided_space_time", "space_only", "joint_space_time")
@@ -114,7 +118,7 @@ class TimeSformer(nn.Module):
     def __init__(self, num_frames, img_size=224, patch_size=16, embed_dims=768,
                  num_heads=12, num_transformer_layers=12, in_channels=3,
                  attention_type="divided_space_time", drop_path_rate=0.1,
-                 dropout_p=0.0, mesh=None):
+                 dropout_p=0.0, mesh=None, remat=False):
         super().__init__()
         if attention_type not in ATTENTION_TYPES:
             raise ValueError(f"Unsupported Attention Type {attention_type}!")
@@ -130,7 +134,7 @@ class TimeSformer(nn.Module):
             operator_order=(("time_attn", "space_attn", "ffn")
                             if attention_type == "divided_space_time"
                             else ("self_attn", "ffn")),
-            drop_path_rate=drop_path_rate, mesh=mesh)
+            drop_path_rate=drop_path_rate, mesh=mesh, remat=remat)
         self.norm = nn.LayerNorm(embed_dims, eps=FINAL_LN_EPS)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dims))
         # operator_order[-2] is 'space_attn' or 'self_attn': the cls slot is
@@ -174,11 +178,17 @@ class TimeSformer(nn.Module):
         x = torch.cat([cls_tokens, patches.reshape(b, p * t, d)], dim=1)
         return self.time_drop(x)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, return_attention=False):
         """(b, t, c, h, w) clip in the working type -> (b, d) features;
-        ``generator`` feeds DropPath in training mode."""
+        ``generator`` feeds DropPath in training mode. With
+        ``return_attention``: the last block's last attention weights, fp32
+        (b·t, H, 1 + p, 1 + p) for divided and space-only attention, (b, H,
+        N, N) for joint."""
         b = x.shape[0]
-        x = self.transformer_layers(self.prepare_tokens(x), generator)
+        x = self.transformer_layers(self.prepare_tokens(x), generator,
+                                    return_attention)
+        if return_attention:
+            return x
         if self.attention_type == "space_only":  # the mean over frames
             x = x.reshape(b, -1, *x.shape[1:]).mean(dim=1)
         # final LayerNorm outside the kernels: fp32 statistics, working type
@@ -186,13 +196,17 @@ class TimeSformer(nn.Module):
                          self.norm.bias.float(), FINAL_LN_EPS).to(x.dtype)
         return x[:, 0]
 
+    def get_last_selfattention(self, x):
+        """timesformer.py:205-206: the weights in eval mode."""
+        return last_selfattention(self, x)
+
 
 def get_vit_base_patch16_224(num_frames, img_size=224,
                              attention_type="divided_space_time",
-                             drop_path_rate=0.1):
+                             drop_path_rate=0.1, remat=False):
     """TimeSformer-B/16 (timesformer.py:210-226)."""
     return TimeSformer(num_frames=num_frames, img_size=img_size,
                        patch_size=16, embed_dims=768, num_heads=12,
                        num_transformer_layers=12, in_channels=3,
                        attention_type=attention_type,
-                       drop_path_rate=drop_path_rate)
+                       drop_path_rate=drop_path_rate, remat=remat)

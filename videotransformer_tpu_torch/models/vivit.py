@@ -23,7 +23,11 @@ Port of ``videotransformer_tpu/models/vivit.py``. A Conv3d tubelet embedding
   as the JAX trainer's global array gives them.
 
 Then the final LayerNorm (eps 1e-6) and the cls row, or the mean of the
-other rows when ``return_cls_token`` is False. The two fact_encoder stacks
+other rows when ``return_cls_token`` is False. ``remat`` checkpoints every
+block of every stack while autograd records; ``return_attention`` and
+``get_last_selfattention`` return the last block's last attention weights
+of the (temporal, for fact_encoder) stack (vivit.py:202-234;
+``ops/blocks.py``). The two fact_encoder stacks
 are ``transformer_layers.0`` and ``.1``, the original repo's names, so a
 converted state dict loads with ``strict=True``. Position tables are
 learnable, as the JAX trainer builds them. ``model.train()`` turns on
@@ -39,7 +43,7 @@ from torch import nn
 
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.ops.blocks import (
-    PatchEmbed, TransformerContainer)
+    PatchEmbed, TransformerContainer, last_selfattention)
 from videotransformer_tpu_torch.parallel import mesh as _mesh
 
 FINAL_LN_EPS = 1e-6
@@ -52,7 +56,7 @@ class ViViT(nn.Module):
                  num_heads=12, num_transformer_layers=12, in_channels=3,
                  dropout_p=0.0, tube_size=2, attention_type="fact_encoder",
                  return_cls_token=True, num_time_transformer_layers=4,
-                 drop_path_rate=0.1, mesh=None):
+                 drop_path_rate=0.1, mesh=None, remat=False):
         super().__init__()
         self.mesh = mesh
         if attention_type not in ATTENTION_TYPES:
@@ -65,7 +69,7 @@ class ViViT(nn.Module):
         num_patches = self.patch_embed.num_patches
         stack = lambda depth, order: TransformerContainer(
             depth, embed_dims, num_heads, self.eff_frames, 4 * embed_dims,
-            order, drop_path_rate, mesh)
+            order, drop_path_rate, mesh, remat)
         if attention_type == "fact_encoder":
             self.transformer_layers = nn.ModuleList([
                 stack(num_transformer_layers, ("self_attn", "ffn")),
@@ -117,13 +121,15 @@ class ViViT(nn.Module):
         x = torch.cat([cls_tokens, patches.reshape(b, p * t, d)], dim=1)
         return self.time_drop(x)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, return_attention=False):
         """(b, t, c, h, w) clip in the working type -> (b, d) features;
-        ``generator`` feeds DropPath in training mode."""
+        ``generator`` feeds DropPath in training mode. With
+        ``return_attention``: the last attention weights (fp32), of the
+        temporal stack for fact_encoder."""
         b = x.shape[0]
         x = self.prepare_tokens(x)
         if self.attention_type != "fact_encoder":
-            x = self.transformer_layers(x, generator)
+            x = self.transformer_layers(x, generator, return_attention)
         else:
             spatial, temporal = self.transformer_layers
             x = spatial(x, generator)
@@ -135,11 +141,17 @@ class ViViT(nn.Module):
             patches = x[:, 1:].reshape(b, bt // b, p1 - 1, d).mean(dim=2)
             x = torch.cat([cls_tokens, patches], dim=1)
             x = self.time_drop(x + self.time_embed.to(x.dtype))
-            x = temporal(x, generator)
+            x = temporal(x, generator, return_attention)
+        if return_attention:
+            return x
         # final LayerNorm outside the kernels: fp32 statistics, working type
         x = F.layer_norm(x.float(), x.shape[-1:], self.norm.weight.float(),
                          self.norm.bias.float(), FINAL_LN_EPS).to(x.dtype)
         if self.return_cls_token:
             return x[:, 0]
         return x[:, 1:].mean(dim=1)
+
+    def get_last_selfattention(self, x):
+        """vivit.py:233-234: the weights in eval mode."""
+        return last_selfattention(self, x)
 

@@ -25,6 +25,22 @@ the FFN, placed where the JAX blocks place it (blocks.py:331-334, 433-434,
 602). Its uniforms come from the ``generator`` passed down the forward,
 drawn for the global batch under data parallelism (``mesh.rand_rows``).
 
+``TransformerContainer(remat=True)`` is the JAX container's ``nn.remat``
+per block (blocks.py:698-736): while autograd records, each block runs
+under ``torch.utils.checkpoint`` and keeps only its input, and the backward
+runs its forward again, kernels included. DropPath's draws in that second
+forward come from a copy of the generator at its state before the block, so
+they are the first forward's, and the live generator is left where the
+first forward left it: the steps are those without remat, to the bit.
+
+``return_attention`` (the JAX modules' keyword) returns the softmax
+weights of the last block's last attention and runs nothing after it:
+the blocks before it run as usual, and that attention takes the JAX
+package's plain ``Attention`` with ``need_weights`` (blocks.py:153-183),
+which JAX runs on its XLA path and never on a Pallas kernel, so here it is
+plain PyTorch on the card too. ``last_selfattention`` is the models'
+``get_last_selfattention``.
+
 A block is built with the ``mesh`` of a parallel run (``parallel/mesh.py``;
 None for one process), which it keeps. Tensor parallelism (a mesh of
 ``model`` > 1 ranks, ``parallel/tp.py``): the block holds its shard of qkv
@@ -43,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videotransformer_tpu_torch.kernels import (
     flash_attention, fused_ffn, fused_mhsa)
@@ -126,6 +143,28 @@ class Attention(nn.Module):
         init.torch_linear_(self.qkv, generator)
         init.torch_linear_(self.proj, generator)
 
+    def forward(self, x):
+        """JAX ``Attention.__call__(need_weights=True)`` (blocks.py:153-183)
+        on the normalised x (B, N, dim): the qkv product, the fp32 weights
+        softmax(q kᵀ·scale), their product with v in the working type, the
+        projection. Returns (out (B, N, dim), weights (B, H, N, N) fp32)."""
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"attention weights of a tp={self.tp} shard: this rank holds "
+                f"{self.num_heads // self.tp} of {self.num_heads} heads")
+        B, N, _ = x.shape
+        dt, hd = x.dtype, self.head_dim
+        qkv = F.linear(x, self.qkv.weight.to(dt), self.qkv.bias.to(dt))
+        q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        weights = torch.softmax(
+            torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5,
+            dim=-1)
+        o = torch.matmul(weights.to(dt).float(), v.float()).to(dt)
+        out = F.linear(o.transpose(1, 2).reshape(B, N, self.num_heads * hd),
+                       self.proj.weight.to(dt), self.proj.bias.to(dt))
+        return out, weights
+
 
 class _PrenormMHSA(nn.Module):
     """LayerNorm + Attention, run as one fused prenorm-MHSA call, then
@@ -166,6 +205,12 @@ class _PrenormMHSA(nn.Module):
 
         return self.layer_drop(self._sharded(mhsa, x), generator)
 
+    def _weights(self, x):
+        """The attention weights of x's rows: LayerNorm (fp32 statistics,
+        the working type), then ``Attention.forward``."""
+        return self.attn(layer_norm(x, self.norm.weight, self.norm.bias,
+                                    LN_EPS))[1]
+
 
 class JointAttention(_PrenormMHSA):
     """Prenorm joint space-time MHSA with the residual (blocks.py:453-522):
@@ -179,7 +224,9 @@ class JointAttention(_PrenormMHSA):
     the qkv product, flash attention (B5 forward, B6 backward) on (B, H,
     N, hd), the projection."""
 
-    def forward(self, query, generator=None):
+    def forward(self, query, generator=None, return_attention=False):
+        if return_attention:
+            return self._weights(query)
         if query.shape[1] <= FUSED_MHSA_MAX_N:
             return query + self._prenorm_mhsa(query, generator)
         out = self._sharded(self._unfused, query, self.norm.weight.dtype)
@@ -222,7 +269,7 @@ class DividedTemporalAttention(_PrenormMHSA):
             init.zeros_(self.temporal_fc.weight)
             init.zeros_(self.temporal_fc.bias)
 
-    def forward(self, query, generator=None):
+    def forward(self, query, generator=None, return_attention=False):
         cls_token = query[:, :1]
         patches = query[:, 1:]
         b, n, d = patches.shape
@@ -232,6 +279,8 @@ class DividedTemporalAttention(_PrenormMHSA):
         if self.use_cls_token:
             cls_rep = cls_token[:, None].expand(b, p, 1, d).reshape(b * p, 1, d)
             x = torch.cat([cls_rep, x], dim=1)
+        if return_attention:
+            return self._weights(x)
         attn_out = self._prenorm_mhsa(x, generator, block_diag=x.shape[1])
         if self.use_cls_token:
             new_cls = attn_out[:, 0].reshape(b, p, d).mean(dim=1, keepdim=True)
@@ -257,7 +306,7 @@ class DividedSpatialAttention(_PrenormMHSA):
         self.num_frames = num_frames
         self.use_cls_token = use_cls_token
 
-    def forward(self, query, generator=None):
+    def forward(self, query, generator=None, return_attention=False):
         cls_token = query[:, :1]
         patches = query[:, 1:]
         b, n, d = patches.shape
@@ -267,6 +316,8 @@ class DividedSpatialAttention(_PrenormMHSA):
         if self.use_cls_token:
             cls_rep = cls_token[:, None].expand(b, t, 1, d).reshape(b * t, 1, d)
             x = torch.cat([cls_rep, x], dim=1)
+        if return_attention:
+            return self._weights(x)
         attn_out = self._prenorm_mhsa(x, generator)
         if self.use_cls_token:
             new_cls = attn_out[:, 0].reshape(b, t, d).mean(dim=1, keepdim=True)
@@ -349,22 +400,50 @@ class BasicTransformerBlock(nn.Module):
         for m in (*self.attentions, *self.ffns):
             m.reset_parameters(generator)
 
-    def forward(self, x, generator=None):
-        for layer in self.attentions:
+    def forward(self, x, generator=None, return_attention=False):
+        """x through the attentions and the FFN; with ``return_attention``
+        the last attention's weights, and no FFN (blocks.py:685-687)."""
+        for i, layer in enumerate(self.attentions):
+            if return_attention and i == len(self.attentions) - 1:
+                return layer(x, generator, return_attention=True)
             x = layer(x, generator)
         for layer in self.ffns:
             x = layer(x, generator)
         return x
 
 
+def checkpointed(block, x, generator):
+    """``block(x, generator)`` under ``torch.utils.checkpoint`` (module
+    doc): the backward's second forward draws from a copy of ``generator``
+    at its state before the block. ``torch.utils.checkpoint`` restores only
+    the default generators, and DropPath draws from the explicit one; with
+    no generator it draws from the default one, whose state the
+    checkpoint then keeps."""
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x):
+        g = generator
+        if calls and generator is not None:  # the backward's second forward
+            g = torch.Generator(device=generator.device)
+            g.set_state(state)
+        calls.append(True)
+        return block(x, g)
+
+    return checkpoint(run, x, use_reentrant=False,
+                      preserve_rng_state=generator is None)
+
+
 class TransformerContainer(nn.Module):
     """Stack of BasicTransformerBlocks (blocks.py:694-740) with the DropPath
-    rate of layer i at ``linspace(0, drop_path_rate, depth)[i]``."""
+    rate of layer i at ``linspace(0, drop_path_rate, depth)[i]``; ``remat``
+    checkpoints each block while autograd records (module doc)."""
 
     def __init__(self, num_transformer_layers, embed_dims, num_heads,
                  num_frames, hidden_channels, operator_order,
-                 drop_path_rate=0.0, mesh=None):
+                 drop_path_rate=0.0, mesh=None, remat=False):
         super().__init__()
+        self.remat = remat
         dpr = np.linspace(0, drop_path_rate, num_transformer_layers)
         self.layers = nn.ModuleList([
             BasicTransformerBlock(embed_dims, num_heads, num_frames,
@@ -376,10 +455,30 @@ class TransformerContainer(nn.Module):
         for layer in self.layers:
             layer.reset_parameters(generator)
 
-    def forward(self, x, generator=None):
-        for layer in self.layers:
-            x = layer(x, generator)
+    def forward(self, x, generator=None, return_attention=False):
+        """x through the blocks; with ``return_attention`` the last
+        block's attention weights, no block checkpointed (blocks.py:717,
+        734-735)."""
+        remat = self.remat and not return_attention and \
+            torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            if return_attention and i == len(self.layers) - 1:
+                return layer(x, generator, return_attention=True)
+            x = checkpointed(layer, x, generator) if remat \
+                else layer(x, generator)
         return x
+
+
+def last_selfattention(model, x):
+    """``model(x, return_attention=True)`` in eval mode, as the JAX
+    models' ``get_last_selfattention`` runs with ``deterministic=True``
+    (no DropPath, no dropout); the model's mode is restored after."""
+    training = model.training
+    model.eval()
+    try:
+        return model(x, return_attention=True)
+    finally:
+        model.train(training)
 
 
 class _PatchProjection(nn.Module):

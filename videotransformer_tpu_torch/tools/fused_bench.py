@@ -7,7 +7,9 @@ FFN forward), B3 (the MHSA backward, alone from do and as the whole call
 with its projection products) and B4 (the FFN backward). B1 and B3 are
 also timed at ViViT-B's joint space-time shape (8, 1569, 768), their long
 attention variant, with ``scaled_dot_product_attention`` beside the long
-attention stage.
+attention stage. B3's whole call is also timed in its recompute mode (qkv
+rebuilt from x, the wrapper's ``RECOMPUTE_QKV``) against the same call
+from the saved qkv, in turns.
 
     python3 -m videotransformer_tpu_torch.tools.fused_bench [--baseline DIR]
 
@@ -15,9 +17,11 @@ DIR is the root of another checkout with B3's one-call backward or later;
 its libraries are built into ``DIR/build/fused_bench``. Both builds are
 called through the wrappers (``_launch``, ``_launch_backward``,
 ``_attn_bwd_launch``, each with ``lib``). A checkout whose libraries
-report entry points of version 1 (``vt_mhsa_abi_version`` missing: before
-the long variant) gets an adapter that drops the arguments the long variant
-added (``_PreLongLib``), and cannot run the long shape. Prints for each
+report older entry points gets an adapter that drops the arguments added
+since (``OlderLib``): version 2 (before the recompute mode) lacks B3's
+b_qkv and recompute flag, and times only the saved mode; version 1
+(``vt_mhsa_abi_version`` missing: before the long variant) also lacks the
+long variant's arguments, and cannot run the long shape. Prints for each
 shape: device ms of each build, its share of the bound, the host µs to
 issue a call, then each build's
 stages (device ms per call from ``torch.profiler``) with ``torch.matmul``'s
@@ -74,19 +78,23 @@ def ffn_fwd_bound(rows, d):
     return bound(16 * rows * d * d, 2 * (2 * rows * d + 8 * d * d + 7 * d))
 
 
-def mhsa_bwd_bound(rows, L, d, whole=True, da=None):
+def mhsa_bwd_bound(rows, L, d, whole=True, da=None, recompute=False):
     """(ms, by) of one B3 call at Do = d and attention width Da = ``da`` (d
     by default): alone, the attention backward (five products a head) and
     d_xn against x, qkv and do read and dx and dqkv written; whole, also
     dw_proj, do and dw_qkv, against g, x, qkv and attn read, dx and the
-    fp32 weight gradients written."""
+    fp32 weight gradients written; ``recompute``, the whole call rebuilding
+    qkv: 2·rows·d·3Da FLOPs more, and x's rows·d read in place of qkv's
+    rows·3Da."""
     da = da or d
     if not whole:
         return bound(10 * rows * L * da + 6 * rows * d * da,
                      2 * (2 * rows * d + 7 * rows * da + 3 * d * da))
-    return bound(10 * rows * L * da + 16 * rows * d * da,
+    extra = (6 * rows * d * da, 2 * (rows * d - 3 * rows * da)) \
+        if recompute else (0, 0)
+    return bound(10 * rows * L * da + 16 * rows * d * da + extra[0],
                  2 * (3 * rows * d + 4 * rows * da + 4 * d * da)
-                 + 4 * (4 * d * da + 3 * da + 3 * d))
+                 + 4 * (4 * d * da + 3 * da + 3 * d) + extra[1])
 
 
 def ffn_bwd_bound(rows, d, hidden=None):
@@ -108,30 +116,36 @@ class MhsaBwd:
     def alone(self, *core):
         return fused_mhsa._attn_bwd_launch(*core, lib=self.lib)
 
-    def whole(self, *args):
-        return fused_mhsa._launch_backward(*args, lib=self.lib)
+    def whole(self, *args, b_qkv=None):
+        return fused_mhsa._launch_backward(*args, b_qkv=b_qkv, lib=self.lib)
 
 
-class _PreLongLib:
-    """A B1 or B3 library from before the long attention variant: its C
-    entry points lack the arguments the long variant added (the lse
-    pointer; B3 alone's attn; the heads, length and variant of B3's
-    scratch size), which this adapter drops from each call."""
+class OlderLib:
+    """A B1 or B3 library of entry points of version ``abi`` (B3's
+    ``vt_mhsa_abi_version``), called with this version's arguments: the
+    adapter drops from each call the ones added since. Version 2 lacks
+    the whole backward's b_qkv and recompute flag (it always reads the
+    saved qkv); version 1 also the long variant's (the lse pointer; B3
+    alone's attn; the heads, length and variant of B3's scratch size)."""
 
-    DROPPED = {"vt_fused_prenorm_mhsa": (10,),
-               "vt_fused_prenorm_mhsa_bwd": (4,),
-               "vt_mhsa_attn_bwd": (3, 4),
-               "vt_mhsa_bwd_scratch_floats": (6, 7, 8)}
+    DROPPED = {2: {"vt_fused_prenorm_mhsa_bwd": (8, 31)},
+               1: {"vt_fused_prenorm_mhsa": (10,),
+                   "vt_fused_prenorm_mhsa_bwd": (4, 8, 31),
+                   "vt_mhsa_attn_bwd": (3, 4),
+                   "vt_mhsa_bwd_scratch_floats": (6, 7, 8)}}
+    ADDED = {"vt_mhsa_bwd_qkv": 3}  # entry points, by the version adding them
 
-    def __init__(self, name, signatures, csrc, build_dir):
+    def __init__(self, name, signatures, csrc, build_dir, abi):
+        self.dropped = self.DROPPED[abi]
         old = {fn: [t for i, t in enumerate(args)
-                    if i not in self.DROPPED.get(fn, ())]
-               for fn, args in signatures.items()}
+                    if i not in self.dropped.get(fn, ())]
+               for fn, args in signatures.items()
+               if self.ADDED.get(fn, 1) <= abi}
         self.lib = _build.load(name, old, csrc, build_dir)
 
     def __getattr__(self, fn):
         entry = getattr(self.lib, fn)
-        drop = self.DROPPED.get(fn, ())
+        drop = self.dropped.get(fn, ())
         return lambda *a: entry(*[x for i, x in enumerate(a) if i not in drop])
 
 
@@ -147,7 +161,8 @@ def _abi_version(name, csrc, build_dir):
 def checkout_libs(root):
     """{B1, B2, B3, B4} of the checkout at ``root`` (built into
     ``root/build/fused_bench``), for the wrappers' ``lib``, and whether
-    they have the long attention variant (entry points of version 2)."""
+    they have the long attention variant (entry points of version 2) and
+    B3's recompute mode (version 3)."""
     csrc = os.path.join(root, "videotransformer_tpu_torch", "csrc")
     build_dir = os.path.join(root, "build", "fused_bench")
     if not os.path.exists(os.path.join(csrc, "sm90_gemm.cuh")):
@@ -156,11 +171,11 @@ def checkout_libs(root):
     if not hasattr(bwd, "vt_mhsa_attn_bwd"):
         raise ValueError(f"{root}: its B3 has no one-call backward")
     load = lambda name, sigs: _build.load(name, sigs, csrc, build_dir)
-    if abi < 2:  # before the long variant
-        load = lambda name, sigs: _PreLongLib(name, sigs, csrc, build_dir)
+    if abi < 3:  # before the recompute mode (and the long variant, < 2)
+        load = lambda name, sigs: OlderLib(name, sigs, csrc, build_dir, abi)
     ffn_sigs = {"vt_fused_prenorm_ffn":
                 fused_ffn._SIGNATURES["vt_fused_prenorm_ffn"]}
-    return {"long": abi >= 2,
+    return {"long": abi >= 2, "recompute": abi >= 3,
             "B1": load("fused_mhsa", fused_mhsa._SIGNATURES),
             "B2": _build.load("fused_ffn", ffn_sigs, csrc, build_dir),
             "B3": MhsaBwd(load("fused_mhsa_bwd", fused_mhsa._BWD_SIGNATURES)),
@@ -272,17 +287,24 @@ def ffn_case(rng, shape, eps):
 
 def mhsa_bwd_case(rng, shape, block_diag):
     """The arguments of B3's whole call, ``_launch_backward`` (the forward
-    kernel's own qkv, attn and lse), its config, and B3 alone's (do from
-    g; attn and lse last, which its long variant reads)."""
+    kernel's own qkv, attn and lse), its config, B3 alone's (do from g;
+    attn and lse last, which its long variant reads) and b_qkv (the
+    recompute mode's)."""
     a, cfg = mhsa_case(rng, shape, block_diag)
-    x, ln_w, ln_b, w_qkv, _, w_proj, _ = a
+    x, ln_w, ln_b, w_qkv, b_qkv, w_proj, _ = a
     _, qkv, attn, lse = fused_mhsa._launch(*a, *cfg)
     g = _maker(rng)(shape, 1.0)
     d = shape[-1]
     do = (g.float().reshape(-1, d) @ w_proj.float()).to(torch.bfloat16)
     core = (x, qkv, do, g.reshape(-1, d), ln_w, w_qkv, *cfg[:3], block_diag,
             attn, lse)
-    return (g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj), cfg, core
+    return ((g, x, qkv, attn, lse, ln_w, ln_b, w_qkv, w_proj), cfg, core,
+            b_qkv)
+
+
+def recompute_args(args):
+    """B3's whole-call arguments with qkv None: the recompute mode."""
+    return args[:2] + (None,) + args[3:]
 
 
 def sdpa_long_ms(rng, shape):
@@ -370,6 +392,26 @@ def compare(kind, label, calls, bound_ms, products, pairs, totals, count):
               f"{format_stages(stage_times(fn, products))}", flush=True)
 
 
+def recompute_row(b3, build, label, shape, args, cfg, b_qkv, saved_bound,
+                  bound_ms):
+    """B3's whole call of one build with qkv rebuilt (the recompute mode)
+    against the same call from the saved qkv, timed in turns (saved,
+    recompute, recompute, saved), each beside its bound, and the bits of
+    the two calls' gradients compared."""
+    saved = lambda: b3.whole(*args, *cfg)
+    rebuilt = lambda: b3.whole(*recompute_args(args), *cfg, b_qkv=b_qkv)
+    same = all(torch.equal(p, q) for p, q in zip(saved(), rebuilt()))
+    s1, r1, r2, s2 = (timed_ms(f) for f in (saved, rebuilt, rebuilt, saved))
+    s_ms, r_ms = (s1 + s2) / 2, (r1 + r2) / 2
+    print(f"B3 whole call, recompute mode ({build}) {label} {shape}: "
+          f"{r_ms:.4f} ms ({bound_ms[0] / r_ms:.1%} of its bound "
+          f"{bound_ms[0]:.4f} ms, {bound_ms[1]}) against {s_ms:.4f} ms from "
+          f"the saved qkv ({saved_bound[0] / s_ms:.1%} of "
+          f"{saved_bound[0]:.4f} ms); extra {r_ms - s_ms:.4f} ms against "
+          f"{bound_ms[0] - saved_bound[0]:.4f} ms of bound; the same "
+          f"gradients to the bit: {same}", flush=True)
+
+
 def _libs_at(libs, L):
     """The builds that take sequences of L tokens: one from before the long
     attention variant takes none above 256."""
@@ -419,7 +461,7 @@ def main():
                   f"ms, with the bias alone {without:.4f} ms", flush=True)
             del a
         for label, shape, block_diag, count in MHSA_BWD_SHAPES:
-            a, cfg, core = mhsa_bwd_case(rng, shape, block_diag)
+            a, cfg, core, b_qkv = mhsa_bwd_case(rng, shape, block_diag)
             rows = shape[0] * shape[1]
             L = block_diag or shape[1]
             calls = {n: (lambda b=lib["B3"]: b.alone(*core))
@@ -432,6 +474,11 @@ def main():
             compare("B3 whole call", f"{label} {shape}", calls,
                     mhsa_bwd_bound(rows, L, D), MHSA_BWD_PRODUCTS,
                     mhsa_bwd_products(a, rows, D), totals, count)
+            for n, lib in _libs_at(libs, L).items():
+                if n == "kernel" or lib.get("recompute"):
+                    recompute_row(lib["B3"], n, label, shape, a, cfg, b_qkv,
+                                  mhsa_bwd_bound(rows, L, D),
+                                  mhsa_bwd_bound(rows, L, D, recompute=True))
             if L > 256:
                 print(f"  scaled_dot_product_attention backward on the long "
                       f"stage's q, k, v: {sdpa_long_ms(rng, shape)[1]:.4f} "

@@ -34,7 +34,9 @@ heads, 2 frames at 32² (the CPU tests, with ``--device cpu``; ``--arch
 vivit``: a ViViT of the same width at 4 frames, tube 2, with 2 temporal
 layers for ``fact_encoder``; ``--objective mim``: a MaskFeat of depth 4 at
 4 frames of 32², DP only, no eval); ``--attention_type`` as the trainer
-takes it.
+takes it. ``--remat`` checkpoints every block (``-remat True``); under
+``--tp`` each block's second forward in the backward runs its model-group
+all-reduces again.
 """
 
 import argparse
@@ -110,7 +112,7 @@ def configs(args):
         img_size=224 if b16 else 32, optim_type=args.optim, clip_grad=1.0,
         seed=SEED, mixup=args.mixup, eval_metrics="finetune",
         use_fp16=b16, drop_path_rate=args.drop_path, layer_decay=1.0,
-        weight_decay=WD, lr=args.lr, warmup_epochs=1)
+        weight_decay=WD, lr=args.lr, warmup_epochs=1, remat=args.remat)
 
 
 def use_tiny_models(objective):
@@ -127,7 +129,8 @@ def use_tiny_models(objective):
             else {}
         return {"timesformer": TimeSformer, "vivit": ViViT}[c.arch](
             num_frames=c.num_frames, attention_type=c.attention_type,
-            drop_path_rate=c.drop_path_rate, mesh=mesh, **TINY, **extra)
+            drop_path_rate=c.drop_path_rate, mesh=mesh, remat=c.remat,
+            **TINY, **extra)
 
     trainer_mod.build_model = build
 
@@ -244,6 +247,8 @@ def parse_args(argv=None):
     p.add_argument("--optim", choices=("adamw", "sgd"), default="adamw")
     p.add_argument("--mixup", action="store_true")
     p.add_argument("--drop_path", type=float, default=0.0)
+    p.add_argument("--remat", action="store_true",
+                   help="checkpoint every block (-remat True)")
     p.add_argument("--ckpt", default=None,
                    help="rank 0 writes the gathered checkpoint after step i "
                         "to CKPT.i")

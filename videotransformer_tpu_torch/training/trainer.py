@@ -148,8 +148,9 @@ def build_model(configs, mesh=None):
     """trainer.py:60-99: MaskFeat (two q-pool stages, 216 HOG features) for
     ``objective='mim'`` or ``arch='mvit'``, else the ViViT or TimeSformer
     of ``arch`` with ``attention_type``, DropPath at ``drop_path_rate``
-    where the configs set one; built for this rank of ``mesh`` (a parallel
-    run's), with ``model`` > 1 ranks its shard of the blocks."""
+    where the configs set one and ``remat`` (MViT has none: MaskFeat
+    ignores the flag, as in JAX); built for this rank of ``mesh`` (a
+    parallel run's), with ``model`` > 1 ranks its shard of the blocks."""
     if configs.objective == "mim" or configs.arch == "mvit":
         _tp.validate("mvit", _mesh.model_ranks(mesh))
         return MaskFeat(num_frames=configs.num_frames,
@@ -163,6 +164,7 @@ def build_model(configs, mesh=None):
     return models[configs.arch](
         num_frames=configs.num_frames, img_size=configs.img_size,
         attention_type=configs.attention_type, mesh=mesh,
+        remat=bool(getattr(configs, "remat", False)),
         **({} if dpr is None else {"drop_path_rate": dpr}))
 
 

@@ -80,7 +80,19 @@ weights from a seed:
   mode's peak device memory, clock, device time and launches (a remat
   step runs every block's forward kernels twice); a ViViT-B joint step
   with and without -remat, bit-equal; get_last_selfattention on
-  TimeSformer-B against the plain CPU run.
+  TimeSformer-B against the plain CPU run;
+- tools (the visualisation tools' seeds from a generator of their own,
+  SEED + 7): tools/visualize_attention.py on a demo clip at TimeSformer-B
+  8x224 (its cls rows against the plain fp32 CPU run, 23 B1 and 11 B2) and
+  tools/visualize_maskfeat.py at MViT-B 16x224 (its HOG maps against the
+  plain versions, both with cuDNN's deterministic algorithms; 16 B5 and 13
+  B2), their PNGs not constant; the measuring twins in benchmarks/:
+  trace_step's finetune and maskfeat configs (the categories summing to
+  the device total, the port's kernels in it, the trace's device span
+  against the CUDA events), trace_infer on both archs, profile_train,
+  serve_bench for 5 s (every answer against the predictor's direct one),
+  run_all's full matrix; and the port notebook's code cells, run in order
+  on the card.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and must have gone through its kernels.
@@ -111,9 +123,11 @@ scaled_dot_product_attention beside the long attention stage), and B2's
 fc1 with and without its GELU epilogue.
 """
 
+import contextlib
 import copy
 import gc
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -129,6 +143,8 @@ import numpy as np
 import torch
 
 from videotransformer_tpu_torch import model_pretrain
+from videotransformer_tpu_torch.benchmarks import (
+    profile_train, run_all, serve_bench, trace_infer, trace_step)
 from videotransformer_tpu_torch.data import device_augment, pipeline
 from videotransformer_tpu_torch.data.mask_generator import (
     CubeMaskGenerator, pad_cube_marker)
@@ -144,7 +160,8 @@ from videotransformer_tpu_torch.parallel import mesh as pmesh
 from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, load_predictor, make_predict_fn)
 from videotransformer_tpu_torch.serving.server import InferenceServer
-from videotransformer_tpu_torch.tools import export_serving, mp_train_worker
+from videotransformer_tpu_torch.tools import (
+    export_serving, mp_train_worker, visualize_attention, visualize_maskfeat)
 from videotransformer_tpu_torch.tools.flash_bench import (
     FLASH_SHAPES, HD as MVIT_HD, JOINT_HD, JOINT_SHAPE, bound, flash_bounds,
     issue_us, sdpa_times, timed_ms)
@@ -154,6 +171,7 @@ from videotransformer_tpu_torch.tools.fused_bench import (
     ffn_products, format_stages, matmul_ms, mhsa_bwd_bound, mhsa_bwd_case,
     mhsa_bwd_products, mhsa_products, sdpa_long_ms, stage_times)
 from videotransformer_tpu_torch.training import trainer as trainer_mod
+from videotransformer_tpu_torch.utils import profiling
 
 SEED = 0
 D, HEADS, FRAMES, IMG, CLASSES, DEPTH = 768, 12, 8, 224, 400, 12
@@ -629,30 +647,16 @@ def flash_phases(rng, cases=None):
 
 # ---------------------------------------------------------------- profile
 
-def kernel_source(name):
-    """Which code a device kernel of the profile comes from, by its name:
-    "port" (csrc/: namespace vt), "cuDNN", "cuBLAS", else "other" (PyTorch's
-    own kernels, memsets)."""
-    name = name.removeprefix("void ")
-    low = name.lower()
-    if name.startswith("vt::"):
-        return "port"
-    if "cudnn" in low or "convolve" in low:
-        return "cuDNN"
-    if any(k in low for k in ("nvjet", "cutlass", "xmma", "cublas", "gemv")):
-        return "cuBLAS"
-    return "other"
-
-
 def profile_forward(forward, event_ms, n=3, what="forward", ranges=()):
     """Device kernels of ``n`` calls of ``forward`` under ``torch.profiler``:
     device ms per call for each kernel name, the device's busy share between
     the first kernel's start and the last kernel's end, and the summed
-    kernel time over ``event_ms`` (one call by CUDA events, unprofiled);
-    the same time split by the code the kernels come from
-    (``kernel_source``); then for each ``record_function`` range named in
-    ``ranges`` the device time of the kernels launched inside it. Returns
-    the summed kernel time per call (None when the trace has none)."""
+    kernel time over ``event_ms`` (one call by CUDA events, unprofiled)
+    (``profiling.summarize``); the same time split by the code the kernels
+    come from (``profiling.kernel_source``); then for each
+    ``record_function`` range named in ``ranges`` the device time of the
+    kernels launched inside it. Returns the summed kernel time per call
+    (None when the trace has none)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -663,35 +667,18 @@ def profile_forward(forward, event_ms, n=3, what="forward", ranges=()):
         for _ in range(n):
             forward()
         torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name not in ranges]
-    if not device:
+    summary = profiling.summarize(
+        profiling.profile_spans(prof, "cuda", exclude=ranges), n)
+    if summary is None:
         log("profile: no device events in the trace; not measured")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy, (lo, hi) = 0.0, spans[0]
-    first, last = spans[0][0], max(end for _, end in spans)
-    for start, end in spans[1:]:
-        if start > hi:
-            busy, lo = busy + hi - lo, start
-        hi = max(hi, end)
-    busy += hi - lo
-    per_name = {}
-    for e in device:
-        ms, calls = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
-                            / 1e3 / n, calls + 1)
-    summed = sum(ms for ms, _ in per_name.values())
+    per_name, summed = summary["per_name"], summary["total_ms"]
     log(f"profile ({n} x {what}): device kernel time {summed:.3f} ms per "
         f"{what} against {event_ms:.3f} ms by CUDA events unprofiled "
         f"(ratio {summed / event_ms:.3f}); busy share of the traced device "
-        f"span {busy / (last - first):.4f}, idle share "
-        f"{1 - busy / (last - first):.4f}")
-    by_source = {}
-    for name, (ms, calls) in per_name.items():
-        src_ms, src_calls = by_source.get(kernel_source(name), (0.0, 0))
-        by_source[kernel_source(name)] = (src_ms + ms, src_calls + calls)
+        f"span {summary['busy_share']:.4f}, idle share "
+        f"{summary['idle_share']:.4f}")
+    by_source = profiling.group(per_name, profiling.kernel_source)
     log(f"  by source (device ms per {what}, calls): " + ", ".join(
         f"{src} {ms:.3f} ({calls // n})" for src, (ms, calls) in sorted(
             by_source.items(), key=lambda kv: -kv[1][0])))
@@ -2524,6 +2511,270 @@ def memory_phase(card):
     return launches, recomputed, report
 
 
+# ---------------------------------------------------------------- tools
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+NOTEBOOK = os.path.join(REPO, "notebook", "VideoTransformer_torch_demo.ipynb")
+DEMO_CLIP = os.path.join(visualize_attention.DEMO_DIR, "checker_spin_0.mp4")
+ROWS_SUM_TOL = 1e-3  # a bf16 softmax row's sum, as the memory phase holds it
+TRACE_SPAN_TOL = 0.1  # the trace's device span against the CUDA events
+SERVE_SECONDS = 5
+NO_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def counts_of(**per_call):
+    """The launch counts of calls: ``per_call`` maps a kernel name to its
+    launches; the rest 0."""
+    return {**NO_LAUNCHES, **per_call}
+
+
+def nonconstant_pngs(paths):
+    from PIL import Image
+
+    for path in paths:
+        img = np.asarray(Image.open(path))
+        assert img.std() > 0, path
+
+
+def tools_viz_attention(tmp, seed):
+    """visualize_attention's run at TimeSformer-B 8x224 on a demo clip (the
+    last block's spatial attention plain, the blocks before it and the last
+    block's temporal attention through B1/B2), its cls rows against the
+    same model's plain fp32 run on the CPU."""
+    args = visualize_attention.parse_args([
+        "--video", DEMO_CLIP, "--output_dir", os.path.join(tmp, "attn"),
+        "--seed", str(seed)])
+    reset_counts()
+    video, rows = visualize_attention.run(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cpu = visualize_attention.cls_attention(
+        visualize_attention.build_model(args).eval(), video)
+    err = np.abs(rows - cpu).max()
+    sums = np.abs(rows.sum(-1) - 1).max()
+    log(f"tools visualize_attention (TimeSformer-B 8x224, bf16): cls rows "
+        f"{rows.shape}, summing to 1 within {sums:.3e}, within {err:.3e} of "
+        f"the plain fp32 CPU run (tol {ATTENTION_WEIGHTS_TOL}); launches "
+        f"{counts}")
+    assert rows.shape == (FRAMES, HEADS, 1 + (IMG // 16) ** 2), rows.shape
+    assert np.isfinite(rows).all()
+    assert sums <= ROWS_SUM_TOL, sums
+    assert err <= ATTENTION_WEIGHTS_TOL, err
+    assert counts == counts_of(fused_prenorm_mhsa=2 * DEPTH - 1,
+                               fused_prenorm_ffn=DEPTH - 1), counts
+    nonconstant_pngs(os.path.join(args.output_dir, f"attn_img{i}.png")
+                     for i in range(FRAMES))
+    return counts
+
+
+def tools_viz_maskfeat(tmp, seed):
+    """visualize_maskfeat's run at MViT-B 16x224 through the kernels, and
+    again through the plain versions, both with cuDNN's deterministic
+    algorithms: the HOG maps within MIM_FEATURE_REL_TOL."""
+    args = visualize_maskfeat.parse_args([
+        "--output_dir", os.path.join(tmp, "maskfeat"), "--seed", str(seed)])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_counts()
+        got = visualize_maskfeat.run(args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = with_plain_versions(visualize_maskfeat.run, args)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = worst_error([torch.from_numpy(got["hog_preds"])],
+                      [torch.from_numpy(want["hog_preds"])])[1]
+    log(f"tools visualize_maskfeat (MViT-B 16x224, bf16): hog_preds "
+        f"{got['hog_preds'].shape}, loss {float(got['loss']):.5f} (plain "
+        f"{float(want['loss']):.5f}), max|kernel-plain|/max|plain| "
+        f"{rel:.3e} (tol {MIM_FEATURE_REL_TOL}); launches {counts}")
+    assert np.isfinite(got["hog_preds"]).all()
+    assert rel <= MIM_FEATURE_REL_TOL, rel
+    assert counts == counts_of(fused_prenorm_ffn=MIM_WANT["fused_prenorm_ffn"],
+                               flash_attention=MIM_WANT["flash_attention"]), \
+        counts
+    nonconstant_pngs(os.path.join(args.output_dir, n)
+                     for n in ("hog_pred.png", "real_img.png",
+                               "mask_img.png"))
+    return counts
+
+
+def tools_trace_step(tmp, card):
+    """trace_step's finetune (3 traced steps) and maskfeat (1) configs: the
+    categories sum to the device total, the port's kernels are in it, and
+    the trace's device span is within TRACE_SPAN_TOL of the CUDA events
+    around the traced steps (a host-held step's device total is below its
+    CUDA-event time by the idle share: both are printed)."""
+    launches = dict(NO_LAUNCHES)
+    for config, steps, per_step in (
+            ("finetune", 3, counts_of(
+                fused_prenorm_mhsa=2 * DEPTH, fused_prenorm_ffn=DEPTH,
+                fused_prenorm_mhsa_bwd=2 * DEPTH,
+                fused_prenorm_ffn_bwd=DEPTH)),
+            ("maskfeat", 1, MIM_WANT)):
+        gc.collect()
+        reset_counts()
+        out = trace_step.run(trace_step.parse_args([
+            "--config", config, "--steps", str(steps), "--trace_dir",
+            os.path.join(tmp, f"trace_{config}")]))
+        counts = read_counts()
+        a = out["analysis"]
+        assert a is not None, f"trace_step {config}: no device events"
+        cats, total = a["categories"], a["device_ms"]
+        events = out["event_ms_per_step"]
+        log(f"tools trace_step {config} on {card}: wall "
+            f"{out['wall_ms_per_step']:.3f} ms a step, CUDA events "
+            f"{events:.3f}, trace span {a['span_ms']:.3f} (ratio "
+            f"{a['span_ms'] / events:.4f}, tol {TRACE_SPAN_TOL}), device "
+            f"total {total:.3f} (ratio {total / events:.4f}), busy "
+            f"{a['busy_ms']:.3f}, host share {out['host_share']:.4f}; "
+            f"launches {counts}")
+        assert abs(sum(cats.values()) - total) <= 1e-9 * total, cats
+        assert cats["port"] > 0, cats
+        assert abs(a["span_ms"] - events) <= TRACE_SPAN_TOL * events, \
+            (a["span_ms"], events)
+        # the 2 steps before the trace and the traced ones
+        assert counts == {n: (2 + steps) * c for n, c in per_step.items()}, \
+            counts
+        for n in KERNEL_NAMES:
+            launches[n] += counts[n]
+    return launches
+
+
+def tools_trace_infer(tmp):
+    """trace_infer on both archs, batches of 8: TimeSformer-B a rep of
+    warm-up and 3 traced reps of 4 batches (its defaults), MViT-B one and
+    one of 2 (its trace holds cuDNN's many launches)."""
+    launches = dict(NO_LAUNCHES)
+    for arch, reps, scans, per_forward in (
+            ("timesformer", 3, 4, counts_of(fused_prenorm_mhsa=2 * DEPTH,
+                                            fused_prenorm_ffn=DEPTH)),
+            ("mvit", 1, 2, counts_of(
+                fused_prenorm_ffn=MIM_WANT["fused_prenorm_ffn"],
+                flash_attention=MIM_WANT["flash_attention"]))):
+        reset_counts()
+        out = trace_infer.run(trace_infer.parse_args([
+            "--arch", arch, "--reps", str(reps), "--scans", str(scans),
+            "--trace_dir", os.path.join(tmp, f"trace_infer_{arch}")]))
+        counts = read_counts()
+        assert out["analysis"] is not None, f"trace_infer {arch}: no events"
+        assert out["analysis"]["categories"]["port"] > 0
+        assert counts == {n: (1 + reps) * scans * c
+                          for n, c in per_forward.items()}, counts
+        for n in KERNEL_NAMES:
+            launches[n] += counts[n]
+    return launches
+
+
+def tools_profile_train():
+    """profile_train: 7 calls (2 + 5) of each timed piece; the forwards
+    and fwd+bwd through B1/B2 (and B3/B4), the step through all four."""
+    reset_counts()
+    line = profile_train.run(profile_train.parse_args([]))
+    counts = read_counts()
+    forwards, backwards = 7 * 3 + 1 + 7, 7 + 1 + 7  # fwd x2, fwd+bwd, opt
+    assert counts == counts_of(
+        fused_prenorm_mhsa=forwards * 2 * DEPTH,
+        fused_prenorm_ffn=forwards * DEPTH,
+        fused_prenorm_mhsa_bwd=backwards * 2 * DEPTH,
+        fused_prenorm_ffn_bwd=backwards * DEPTH), counts
+    assert line["timer"] == "cuda_events"
+    return counts
+
+
+def tools_serve_bench(card):
+    """serve_bench for SERVE_SECONDS: every answer within SERVER_REL_TOL of
+    the predictor's direct answer for the clip."""
+    reset_counts()
+    lines, clip, answers, predictor = serve_bench.run(serve_bench.parse_args(
+        ["--seconds", str(SERVE_SECONDS)]))
+    counts = read_counts()
+    direct = predictor(clip[None])[0]
+    scale = np.abs(direct).max()
+    worst = max(np.abs(a - direct).max() for a in answers) / scale
+    hist = {int(k): v for k, v in lines[-1]["batch_histogram"].items()}
+    log(f"tools serve_bench on {card}: {len(answers)} answers, batches "
+        f"{hist}, worst rel diff from the direct answer {worst:.3e} (tol "
+        f"{SERVER_REL_TOL})")
+    assert worst <= SERVER_REL_TOL, worst
+    assert max(hist) > 1, hist
+    assert counts["fused_prenorm_mhsa"] > 0 and \
+        counts["fused_prenorm_ffn"] > 0, counts
+    return counts
+
+
+def tools_run_all():
+    """run_all's full matrix; every kernel launched in it."""
+    reset_counts()
+    t0 = time.perf_counter()
+    lines = run_all.run(run_all.parse_args([]))
+    counts = read_counts()
+    log(f"tools run_all: {len(lines)} lines in "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    assert not [ln for ln in lines if "error" in ln], lines
+    assert all(counts[n] > 0 for n in KERNEL_NAMES), counts
+    return counts
+
+
+def tools_notebook():
+    """The port notebook's code cells in order, with ``exec`` (this machine
+    need not have nbclient), the parameters cell as it is (the card,
+    TimeSformer-B) but for the checkout's root."""
+    with open(NOTEBOOK) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    scope, out = {}, io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        for i, source in enumerate(cells):
+            exec(compile(source, f"{NOTEBOOK} code cell {i}", "exec"), scope)
+            if i == 0:
+                scope["repo_root"] = REPO
+    torch.cuda.synchronize()
+    counts = read_counts()
+    printed = out.getvalue()
+    log(f"tools notebook: {printed.strip().splitlines()[-1]}; launches "
+        f"{counts}")
+    assert "prediction:" in printed, printed
+    assert scope["logits"].shape == (1, CLASSES)
+    assert torch.isfinite(scope["logits"]).all()
+    assert counts == counts_of(fused_prenorm_mhsa=2 * DEPTH,
+                               fused_prenorm_ffn=DEPTH), counts
+    return counts
+
+
+def tools_phase(card):
+    """The tools and the measuring twins, each with the launch counts from 0
+    and asserted. The visualisation tools' seeds (their temporal windows and
+    the cube mask) come from a generator of the phase's own, SEED + 7; the
+    twins seed their own draws. Returns the launches summed over them and
+    each part's seconds."""
+    rng = np.random.default_rng(SEED + 7)
+    seeds = rng.integers(0, 2**31, 2)
+    launches, seconds = dict(NO_LAUNCHES), {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        parts = [("visualize_attention",
+                  lambda: tools_viz_attention(tmp, seeds[0])),
+                 ("visualize_maskfeat",
+                  lambda: tools_viz_maskfeat(tmp, seeds[1])),
+                 ("trace_step", lambda: tools_trace_step(tmp, card)),
+                 ("trace_infer", lambda: tools_trace_infer(tmp)),
+                 ("profile_train", tools_profile_train),
+                 ("serve_bench", lambda: tools_serve_bench(card)),
+                 ("run_all", tools_run_all),
+                 ("notebook", tools_notebook)]
+        for name, part in parts:
+            t0 = time.perf_counter()
+            for n, c in part().items():
+                launches[n] += c
+            gc.collect()
+            torch.cuda.empty_cache()
+            seconds[name] = time.perf_counter() - t0
+            log(f"tools {name}: {seconds[name]:.1f} s")
+    return launches, seconds
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is visible")
@@ -2709,6 +2960,12 @@ def main():
     mem_launches, mem_recomputed, mem_report = memory_phase(card)
     report += mem_report
     t0 = lap("memory", t0)
+    torch.cuda.empty_cache()
+
+    # ---- the tools, the notebook and the measuring twins: counts from 0
+    # before each (tools_phase)
+    tools_launches, seconds["tools parts"] = tools_phase(card)
+    t0 = lap("tools", t0)
 
     src, jax_src = "videotransformer_tpu_torch/csrc/", \
         "videotransformer_tpu/kernels/"
@@ -2743,7 +3000,8 @@ def main():
                    "data": data_launches[name],
                    "checkpoint": ckpt_launches[name],
                    "parallel": par_launches[name],
-                   "memory": mem_launches[name]}
+                   "memory": mem_launches[name],
+                   "tools": tools_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)
         kernels.append({
             "name": name, "route": "cuda", "source": source,

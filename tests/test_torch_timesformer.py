@@ -179,7 +179,12 @@ def test_port_never_imports_jax():
     for new in ("serving/export.py", "tools/export_serving.py",
                 "tools/demo_inference.py", "models/convert.py",
                 "parallel/mesh.py", "parallel/tp.py", "utils/helpers.py",
-                "tools/mp_train_worker.py"):
+                "tools/mp_train_worker.py", "utils/__init__.py",
+                "utils/profiling.py", "tools/visualize_attention.py",
+                "tools/visualize_maskfeat.py", "benchmarks/__init__.py",
+                "benchmarks/common.py", "benchmarks/trace_step.py",
+                "benchmarks/trace_infer.py", "benchmarks/profile_train.py",
+                "benchmarks/serve_bench.py", "benchmarks/run_all.py"):
         assert os.path.join(port, new) in files, new
     banned = ("jax", "flax")
     for path in files:
@@ -357,7 +362,11 @@ def test_slice_runs_with_jax_and_flax_blocked():
                     if m.startswith("videotransformer_tpu.")]
         print("OK", out.shape)
     """)
+    # one thread: its models are tiny, and beside the other test processes
+    # torch's full thread pool only contends for the cores (eight threads
+    # took ~200 s here under load, one ~20 s)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "OK (1, 10)" in proc.stdout

@@ -1,0 +1,249 @@
+"""Profiling and step timing of the port.
+
+Port of ``videotransformer_tpu/utils/profiling.py`` with ``torch.profiler``
+in place of ``jax.profiler``: ``trace`` around a region (a chrome trace
+written into ``log_dir``), ``device_sync`` and ``StepTimer`` (the
+reference's time / data_time accounting, model_trainer.py:172-179). Also
+the device-time breakdown of ``benchmarks/trace_step.py:124-208`` over
+torch.profiler's events:
+
+- ``profile_spans`` / ``chrome_trace_spans``: the device's spans (name,
+  start µs, end µs) of a finished session or of its chrome trace: on a
+  card its kernels, copies and memsets; on the CPU the top-level CPU ops;
+- ``category``: which code a span comes from: the port's kernels
+  (``vt::``), cuBLAS, cuDNN, PyTorch's elementwise kernels, layout and
+  copies (copies, ``cat``, transposes, memcpy), collectives (NCCL, gloo)
+  and other; ``kernel_source`` folds the last four into "other";
+- ``summarize``: device ms per call for each name, the summed time, and
+  the busy and idle share of the traced device span;
+- ``analyze``: prints and returns the breakdown by category and the top
+  ops per step.
+"""
+
+import contextlib
+import json
+import os
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+CATEGORIES = ("port", "cuBLAS", "cuDNN", "elementwise", "layout/copy",
+              "collective", "other")
+_CUBLAS = ("nvjet", "cutlass", "xmma", "cublas", "gemv")
+_COPY = ("memcpy", "copy", "transpose")
+_COPY_OPS = ("aten::cat", "aten::contiguous", "aten::clone")
+_ELEMENTWISE = ("elementwise", "multi_tensor_apply", "aten::_foreach_")
+_ELEMENTWISE_OPS = (
+    "aten::add", "aten::add_", "aten::sub", "aten::rsub", "aten::mul",
+    "aten::mul_", "aten::div", "aten::div_", "aten::neg", "aten::exp",
+    "aten::sqrt", "aten::gelu", "aten::relu", "aten::where", "aten::clamp",
+    "aten::addcmul_", "aten::addcdiv_", "aten::lerp_")
+
+
+def activities():
+    """CPU, and CUDA where a card is visible."""
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """A torch.profiler session around the region, yielding the profiler;
+    its chrome trace is written to ``log_dir``/trace.json. A throwaway
+    session runs first, so that the profiler's start-up stays out of the
+    traced window."""
+    with profile(activities=activities()):
+        pass
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities()) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _first_tensor(x):
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        for v in x:
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+    return None
+
+
+def device_sync(x=None):
+    """Wait for the card that ``x`` (a tensor, or the first tensor of a
+    dict, list or tuple) lies on; nothing for a CPU tensor or None."""
+    t = None if x is None else _first_tensor(x)
+    if t is not None and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+class StepTimer:
+    """time / data_time accounting (reference model_trainer.py:172-231)."""
+
+    def __init__(self):
+        self.data_start = time.perf_counter()
+        self.step_start = self.data_start
+        self.data_time = 0.0
+        self.step_time = 0.0
+
+    def data_ready(self):
+        now = time.perf_counter()
+        self.data_time = now - self.data_start
+        self.step_start = now
+
+    def step_done(self, sync_on=None):
+        if sync_on is not None:
+            device_sync(sync_on)
+        now = time.perf_counter()
+        self.step_time = now - self.data_start
+        self.data_start = now
+        return {"time": round(self.step_time, 3),
+                "data_time": round(self.data_time, 3)}
+
+
+# ------------------------------------------------------------ the breakdown
+
+def category(name):
+    """The code a device span comes from, by its name (one of
+    ``CATEGORIES``)."""
+    name = name.removeprefix("void ")
+    low = name.lower()
+    if name.startswith("vt::"):
+        return "port"
+    if "nccl" in low or "gloo" in low or low.startswith("c10d::"):
+        return "collective"
+    if "cudnn" in low or "convolve" in low:
+        return "cuDNN"
+    if any(k in low for k in _CUBLAS):
+        return "cuBLAS"
+    if any(k in low for k in _COPY) or name in _COPY_OPS:
+        return "layout/copy"
+    if any(k in low for k in _ELEMENTWISE) or name in _ELEMENTWISE_OPS:
+        return "elementwise"
+    return "other"
+
+
+def kernel_source(name):
+    """Which code a device kernel comes from: "port" (csrc/: namespace
+    vt), "cuDNN", "cuBLAS", else "other" (PyTorch's own kernels, memsets,
+    copies, collectives)."""
+    cat = category(name)
+    return cat if cat in ("port", "cuDNN", "cuBLAS") else "other"
+
+
+def _top_level(events):
+    """Of (key, name, start, end) events, those not inside an earlier one
+    of the same key (thread)."""
+    out, open_end = [], {}
+    for key, name, start, end in sorted(events, key=lambda e: (e[0], e[2])):
+        if start >= open_end.get(key, float("-inf")):
+            out.append((name, start, end))
+            open_end[key] = end
+    return out
+
+
+def profile_spans(prof, device, exclude=()):
+    """The spans of a finished torch.profiler session on ``device``
+    ("cuda": its CUDA events, user annotations and the names in
+    ``exclude`` left out; "cpu": the top-level CPU ops)."""
+    if torch.device(device).type == "cuda":
+        return [(e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in exclude
+                and not getattr(e, "is_user_annotation", False)]
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.cpu_parent is None]
+
+
+def chrome_trace_spans(path, device):
+    """``profile_spans`` of the chrome trace ``path`` that ``trace`` (or
+    ``export_chrome_trace``) wrote."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    if torch.device(device).type == "cuda":
+        return [(e["name"], e["ts"], e["ts"] + e.get("dur", 0))
+                for e in events
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return _top_level([((e.get("pid"), e.get("tid")), e["name"], e["ts"],
+                        e["ts"] + e.get("dur", 0))
+                       for e in events if e.get("cat") == "cpu_op"])
+
+
+def summarize(spans, n):
+    """Over ``n`` calls (steps): {"per_name": {name: (ms per call, calls
+    in all)}, "total_ms": the summed span time per call, "span_ms": first
+    start to last end per call, "busy_ms": the time per call when at least
+    one span runs (below the summed time where spans overlap, as kernels
+    on several streams do), "busy_share" and "idle_share" of the span}.
+    None without spans."""
+    if not spans:
+        return None
+    ordered = sorted((start, end) for _, start, end in spans)
+    busy, (lo, hi) = 0.0, ordered[0]
+    first, last = ordered[0][0], max(end for _, end in ordered)
+    for start, end in ordered[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy += hi - lo
+    per_name = {}
+    for name, start, end in spans:
+        ms, calls = per_name.get(name, (0.0, 0))
+        per_name[name] = (ms + (end - start) / 1e3 / n, calls + 1)
+    share = busy / (last - first) if last > first else 1.0
+    return {"per_name": per_name,
+            "total_ms": sum(ms for ms, _ in per_name.values()),
+            "span_ms": (last - first) / 1e3 / n, "busy_ms": busy / 1e3 / n,
+            "busy_share": share, "idle_share": 1 - share}
+
+
+def group(per_name, key):
+    """``summarize``'s per-name times summed by ``key(name)``: {key: (ms
+    per call, calls in all)}."""
+    out = {}
+    for name, (ms, calls) in per_name.items():
+        k = key(name)
+        k_ms, k_calls = out.get(k, (0.0, 0))
+        out[k] = (k_ms + ms, k_calls + calls)
+    return out
+
+
+def analyze(spans, steps, top=20, out=print):
+    """Print the device time per step by category (``category``) and the
+    top ops, as trace_step.py:124-208 does, and return {"device_ms" (the
+    summed span time), "busy_ms", "span_ms", "busy_share", "idle_share",
+    "categories": {category: ms per step}, "top": [[name, ms per step,
+    calls per step], ...]}; None when the trace holds no span (not
+    measured)."""
+    s = summarize(spans, steps)
+    if s is None:
+        out("no device events in the trace; not measured")
+        return None
+    total = s["total_ms"]
+    cats = group(s["per_name"], category)
+    out(f"device total: {total:.3f} ms/step (busy {s['busy_ms']:.3f}) over "
+        f"a span of {s['span_ms']:.3f} ms/step (busy share "
+        f"{s['busy_share']:.4f}, idle share {s['idle_share']:.4f})")
+    for cat, (ms, calls) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+        out(f"  {cat:34s} {ms:8.3f} ms/step ({100 * ms / total:4.1f}%) "
+            f"{calls / steps:8.1f} calls/step")
+    out("top ops:")
+    ranked = sorted(s["per_name"].items(), key=lambda kv: -kv[1][0])[:top]
+    for name, (ms, calls) in ranked:
+        out(f"  {name[:76]:76s} {ms:8.3f} ms/step {calls / steps:6.1f}")
+    return {"device_ms": total, "busy_ms": s["busy_ms"],
+            "span_ms": s["span_ms"], "busy_share": s["busy_share"],
+            "idle_share": s["idle_share"],
+            "categories": {c: cats.get(c, (0.0, 0))[0] for c in CATEGORIES},
+            "top": [[n, ms, calls / steps] for n, (ms, calls) in ranked]}

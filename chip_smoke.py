@@ -70,6 +70,20 @@ weights from a seed:
   steps within the train phase's bounds of the one-process steps, the
   ranks' lines identical, each rank's launches those of TimeSformer-B
   steps and eval forwards on its shard;
+- sequence parallel (a generator of its own, SEED + 8): B1-B4 at
+  TimeSformer-B's sequence-parallel shard shapes, sp = 2 and 4 (a rank's
+  196 / sp patches: temporal rows (clips · 196 / sp, 8, 768), spatial
+  rows (clips · 8 / sp, 197, 768), FFN rows clips · (1 + 196 / sp · 8)),
+  train and serving, against their plain versions, rows under "phases";
+  then, on this card over gloo, the worker's TimeSformer-B run over SP = 2
+  (two ranks: three steps and the fit), over SP = 2 x TP = 2 (four ranks,
+  one step) and ViViT-B fact_encoder at 16x224 over SP = 2 (one step,
+  against this process's one-process step), each rank's steps within the
+  train phase's bounds, the ranks' lines identical, each rank's launches
+  and attention variants a one-process run's, each rank's peak device
+  memory beside the one process's; then parallel/sp.py's ring at (8,
+  1569, 768) over two gloo ranks, its output and every gradient against
+  one process's B1 + B3 long (1e-2 of max|ref|), timed beside them;
 - memory (a generator of its own, SEED + 6): B3's recompute mode (qkv
   rebuilt from x, RECOMPUTE_QKV) at the train shapes (64, 197, 768) and
   (1568, 8, 768), the long (8, 1569, 768) and the CUDA-core (8, 9, 768)
@@ -2049,19 +2063,25 @@ def parse_worker(out):
             if ln.startswith(("STEP", "VAL", "TEST", "DIGEST"))]
     (launch,) = [json.loads(ln[len("LAUNCHES "):]) for ln in lines
                  if ln.startswith("LAUNCHES ")]
+    launch["peak_gib"] = next((float(ln.split()[1]) for ln in lines
+                               if ln.startswith("PEAK_GIB ")), None)
     return steps, same, launch
 
 
 def run_in_process(args, mesh=None):
     """The worker's run here, the counts from 0 before it: (its output as
-    one string, its launches, its trainer)."""
+    one string, its launches, its trainer, its peak device memory in GiB
+    above what was allocated before it)."""
     reset_counts()
     lines = []
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     tr = mp_train_worker.run(args, "cuda", mesh, out=lines.append)
     torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     launch = mp_train_worker.launches()
     return "\n".join(lines + [f"LAUNCHES {json.dumps(launch)}",
-                              "WORKER OK"]), launch, tr
+                              "WORKER OK"]), launch, tr, peak
 
 
 def world1_in_turns(trainers, args, n=3):
@@ -2109,15 +2129,15 @@ def time_grad_all_reduce(tr, mesh, n=5):
             (time.perf_counter() - t0) * 1e3 / n)
 
 
-def spawn_workers(tmp, what, extra):
-    """Two workers of the run ``what`` on this card over gloo."""
+def spawn_workers(tmp, what, extra, world=2, base=PARALLEL_ARGS):
+    """``world`` workers of the run ``what`` on this card over gloo."""
     store = f"file://{os.path.join(tmp, what)}"
     return [subprocess.Popen(
         [sys.executable, "-m", "videotransformer_tpu_torch.tools."
-         "mp_train_worker", "--rank", str(r), "--world", "2", "--init",
-         store, "--backend", "gloo", *PARALLEL_ARGS, *extra],
+         "mp_train_worker", "--rank", str(r), "--world", str(world),
+         "--init", store, "--backend", "gloo", *base, *extra],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
+        for r in range(world)]
 
 
 def wait_workers(procs):
@@ -2150,13 +2170,14 @@ def parallel_phase(card):
     against the one-process run within the train phase's bounds, the two
     ranks' lines identical and each rank's launches and attention variants
     those of a TimeSformer-B step. Returns (the launches of the
-    process-group runs, this process's and the workers', the kernel rows).
+    process-group runs, this process's and the workers', the kernel rows,
+    (the one-process run's steps, its peak GiB)).
     """
     report = shard_phases(np.random.default_rng(SEED + 5))
     gc.collect()
     torch.cuda.empty_cache()
     args = mp_train_worker.parse_args(PARALLEL_ARGS)
-    ref_out, _, ref_tr = run_in_process(args)
+    ref_out, _, ref_tr, ref_peak = run_in_process(args)
     ref_steps, ref_same, _ = parse_worker(ref_out)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
         device = pmesh.init_distributed(
@@ -2164,7 +2185,7 @@ def parallel_phase(card):
             world_size=1, device="cuda")
         try:
             mesh = pmesh.create_mesh(model=1, device=device)
-            pg_out, launches, pg_tr = run_in_process(args, mesh)
+            pg_out, launches, pg_tr, _ = run_in_process(args, mesh)
             turns = world1_in_turns({"without": ref_tr, "through": pg_tr},
                                     args)
             reduce_ms = time_grad_all_reduce(pg_tr, mesh)
@@ -2224,6 +2245,271 @@ def parallel_phase(card):
                 launches[n] += got[n]
         numbers[f"{what}_steps_ms"] = [s[2] for s in steps]
     log(f"parallel numbers: {json.dumps(numbers)}")
+    return launches, report, (ref_steps, ref_peak)
+
+
+# ------------------------------------------------------ sequence parallel
+
+SP_DEGREES = (2, 4)
+PATCHES = (IMG // 16) ** 2
+SP_ONE_STEP = ["--steps", "1", "--eval_clips", "0"]
+# ViViT-B fact_encoder at 16x224 (the CLI's other -sp type), one step
+SP_VIVIT_ARGS = ["--model", "b16", "--device", "cuda", "--clips",
+                 str(TRAIN_CLIPS), "--drop_path", "0.1", "--lr",
+                 str(TRAIN_LR), "--arch", "vivit", "--attention_type",
+                 "fact_encoder", "--frames", str(VIVIT_FRAMES), *SP_ONE_STEP]
+RING_ITERS = 3
+# one rank of the ring check: JAX's layout (sp.token_chunk) of the inputs
+# in ring_in.pt, a forward and backward, the weight gradients summed over
+# the ranks, then RING_ITERS timed forward and backward passes
+RING_RANK = """
+import json, sys, time, torch
+from videotransformer_tpu_torch.parallel import mesh, sp
+rank, store, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dev = mesh.init_distributed("gloo", store, rank, 2, "cuda")
+m = mesh.create_mesh(seq=2, device=dev)
+inp = torch.load(f"{d}/ring_in.pt", map_location=dev)
+n = inp["x"].shape[1]
+x = sp.token_chunk(inp["x"], m).contiguous().requires_grad_()
+g = sp.token_chunk(inp["g"], m).contiguous()
+w = [inp[k].clone().requires_grad_() for k in inp["weights"]]
+def step():
+    for t in w + [x]:
+        t.grad = None
+    out = sp.ring_prenorm_mhsa(x, *w, 64, 64 ** -0.5, 1e-5, m, n=n)
+    out.backward(g)
+    return out
+out = step()
+grads = [t.grad.float() for t in w]
+for gr in grads:
+    torch.distributed.all_reduce(gr)
+torch.save({"out": out.detach(), "dx": x.grad, "grads": grads},
+           f"{d}/ring_out{rank}.pt")
+times = []
+for _ in range(%d):
+    mesh.barrier(m)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    t0 = time.perf_counter()
+    start.record()
+    step()
+    end.record()
+    end.synchronize()
+    times.append([start.elapsed_time(end), (time.perf_counter() - t0) * 1e3])
+print("RING_MS " + json.dumps(times), flush=True)
+print("PEAK_GIB", torch.cuda.max_memory_allocated(dev) / 2**30, flush=True)
+torch.distributed.destroy_process_group()
+print("WORKER OK", flush=True)
+""" % RING_ITERS
+
+
+def sp_shard_phases(rng):
+    """B1-B4 at TimeSformer-B's sequence-parallel shard shapes, sp = 2 and
+    4: a rank holds the cls row and the tokens of 196 / sp patches, so
+    the temporal rows are (clips · 196 / sp, 8, 768), the spatial ones
+    after the all-to-all (clips · 8 / sp, 197, 768) and the FFN's rows
+    clips · (1 + 196 / sp · 8); train (8 clips, forward and backward) and
+    serving (8 clips x 3 crops, forward) rows, against their plain
+    versions; under "phases", outside the totals."""
+    fwd, bwd = [], []
+    for sp in SP_DEGREES:
+        for what, clips in (("train", TRAIN_CLIPS), ("serving",
+                                                     CLIPS * CROPS)):
+            tag = f", {what}, sp={sp}"
+            temporal = (clips * PATCHES // sp, FRAMES, D)
+            spatial = (clips * FRAMES // sp, 1 + PATCHES, D)
+            rows = (clips * (1 + PATCHES // sp * FRAMES), D)
+            cases = [("block-diagonal temporal", temporal, FRAMES),
+                     ("dense spatial", spatial, 0),
+                     (f"rows, hidden {4 * D}", rows, None)]
+            fwd += [("fused_prenorm_mhsa" if bd is not None
+                     else "fused_prenorm_ffn", f"{label} {shape}{tag}",
+                     shape, bd, 1e-5, False, 1)
+                    for label, shape, bd in cases]
+            if what == "train":
+                bwd += [("fused_prenorm_mhsa_bwd" if bd is not None
+                         else "fused_prenorm_ffn_bwd",
+                         f"{label} {shape}{tag}", shape, bd, 1e-5, False, 1)
+                        for label, shape, bd in cases]
+    with torch.inference_mode():
+        report = kernel_phases(rng, fwd, SHARD_ITERS)
+        report += backward_phases(rng, bwd, SHARD_ITERS)
+    for e in report:
+        if e["name"].startswith("fused_prenorm_mhsa"):
+            want = "packed" if "temporal" in e["phase"] else "dense"
+            assert e["variant"] == want, e
+    return report
+
+
+def check_worker_run(what, outs, ref_steps, ref_peak, want, card):
+    """Every rank's lines alike, its steps within the train phase's bounds
+    of the one-process run, its launches and attention variants ``want``;
+    logs each rank's peak beside the one process's. Returns the ranks'
+    summed launches and the step times."""
+    parsed = [parse_worker(o) for o in outs]
+    steps, same, _ = parsed[0]
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for rank, (_, same_r, launch) in enumerate(parsed):
+        assert same_r == same, (what, rank, same_r, same)  # ranks alike
+        counts, want_fwd, want_bwd = want
+        assert {n: launch[n] for n in KERNEL_NAMES} == counts, \
+            (what, rank, launch)
+        assert launch["attention"] == want_fwd, (what, launch)
+        assert launch["attention_bwd"] == saved_mode(want_bwd), (what, launch)
+        log(f"sequence parallel {what} rank {rank}: launches "
+            f"{ {n: launch[n] for n in KERNEL_NAMES} }, B1 "
+            f"{launch['attention']}, B3 {launch['attention_bwd']}; peak "
+            f"{launch['peak_gib']:.3f} GiB (one process {ref_peak:.3f} GiB)")
+        for n in KERNEL_NAMES:
+            launches[n] += launch[n]
+    assert steps and len(steps) == len(ref_steps), (what, steps)
+    for i, (k, p) in enumerate(zip(steps, ref_steps)):
+        dl = abs(k[0] - p[0]) / abs(p[0])
+        dn = abs(k[1] - p[1]) / abs(p[1])
+        log(f"sequence parallel {what} step {i}: loss {k[0]:.6f} (one "
+            f"process {p[0]:.6f}, rel {dl:.2e}, tol {LOSS_REL_TOL}), "
+            f"grad_norm {k[1]:.6f} (one process {p[1]:.6f}, rel {dn:.2e}, "
+            f"tol {NORM_REL_TOL}); {k[2]:.1f} ms on the clock, "
+            f"{len(outs)} ranks sharing the card over gloo (correctness "
+            f"only) on {card}")
+        assert np.isfinite(k[:2]).all() and dl <= LOSS_REL_TOL \
+            and dn <= NORM_REL_TOL, (what, i, dl, dn)
+    return launches, [s[2] for s in steps], \
+        [p[2]["peak_gib"] for p in parsed]
+
+
+def ring_inputs(rng):
+    """x, g and the weights of a prenorm MHSA at the ring's shape
+    (LONG_SHAPE), bf16 on the card."""
+    ln = [bf16_on_card(rng, (D,), 0.1, 1.0), bf16_on_card(rng, (D,), 0.1)]
+    return {"x": bf16_on_card(rng, LONG_SHAPE, 1.0),
+            "g": bf16_on_card(rng, LONG_SHAPE, 1.0),
+            **dict(zip(("ln_w", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj"),
+                       ln + mhsa_weights(rng, D))),
+            "weights": ["ln_w", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj"]}
+
+
+def ring_check(tmp, rng, card):
+    """``sp.ring_prenorm_mhsa`` at (8, 1569, 768), sp = 2, two ranks on
+    this card over gloo (JAX's layout: chunks of 785 tokens, the tail
+    padded), its output and the gradients of x and every weight against
+    one process's B1 + B3 long on the same bf16 inputs, each within
+    KERNEL_REL_TOL of max|ref|; its forward-and-backward time beside B1 +
+    B3 long's. Returns the numbers."""
+    inp = ring_inputs(rng)
+    torch.save(inp, os.path.join(tmp, "ring_in.pt"))
+    store = f"file://{os.path.join(tmp, 'ring_store')}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RING_RANK, str(r), store, tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    # meanwhile one process: B1 + B3, their long variant
+    leaves = [inp[k].clone().requires_grad_() for k in ["x"] + inp["weights"]]
+    cfg = (HEADS, (D // HEADS) ** -0.5, 1e-5, False, 0)
+
+    def ref_step():
+        for t in leaves:
+            t.grad = None
+        out = fused_mhsa.fused_prenorm_mhsa(*leaves, *cfg)
+        out.backward(inp["g"])
+        return out
+
+    fwd_before = dict(fused_mhsa.ATTENTION_LAUNCHES)
+    bwd_before = dict(fused_mhsa.ATTENTION_BWD_LAUNCHES)
+    ref_out = ref_step().detach()
+    assert fused_mhsa.ATTENTION_LAUNCHES["long"] == fwd_before["long"] + 1
+    assert fused_mhsa.ATTENTION_BWD_LAUNCHES["long"] == \
+        bwd_before["long"] + 1
+    ref_grads = [t.grad.float() for t in leaves]
+    ref_ms = timed_ms(ref_step, iters=5, warmup=1, queued=False)
+    outs = wait_workers(procs)
+    n_l = -(-LONG_SHAPE[1] // 2)
+    got = [torch.load(os.path.join(tmp, f"ring_out{r}.pt"),
+                      map_location="cuda") for r in range(2)]
+    out = torch.cat([g["out"] for g in got], 1)[:, :LONG_SHAPE[1]]
+    dx = torch.cat([g["dx"] for g in got], 1)[:, :LONG_SHAPE[1]]
+    errs = {}
+    for name, a, b in [("out", out, ref_out), ("dx", dx, ref_grads[0])] + [
+            (f"d_{k}", got[0]["grads"][i], ref_grads[1 + i])
+            for i, k in enumerate(inp["weights"])]:
+        assert torch.isfinite(a).all(), name
+        errs[name] = ((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()).item()
+        assert errs[name] <= KERNEL_REL_TOL, (name, errs[name])
+    ring_ms = [json.loads(ln[len("RING_MS "):]) for o in outs
+               for ln in o.splitlines() if ln.startswith("RING_MS ")]
+    peaks = [float(ln.split()[1]) for o in outs for ln in o.splitlines()
+             if ln.startswith("PEAK_GIB ")]
+    mean = lambda rows, i: sum(r[i] for r in rows) / len(rows)
+    log(f"ring attention at {LONG_SHAPE} over sp=2, chunks of {n_l} tokens "
+        f"(the tail padded), two ranks sharing the card over gloo: output "
+        f"and every gradient against one process's B1 + B3 long, worst "
+        f"max|ring-ref|/max|ref| {max(errs.values()):.3e} (tol "
+        f"{KERNEL_REL_TOL}): {json.dumps(errs)}; forward and backward "
+        f"{mean(ring_ms[0], 0):.2f} ms of CUDA events on rank 0, "
+        f"{mean(ring_ms[0], 1):.2f} ms on its clock (a gloo run: correctness "
+        f"only), against {ref_ms:.4f} ms for B1 + B3 long in one process; "
+        f"peak {max(peaks):.3f} GiB a rank, on {card}")
+    return {"ring_rel_err": errs, "ring_ms_rank0": ring_ms[0],
+            "b1_b3_long_ms": ref_ms, "ring_peak_gib": peaks}
+
+
+def sequence_parallel_phase(card, ref):
+    """Sequence parallelism on the card (its own generator, SEED + 8):
+    B1-B4 at the sp = 2 and 4 shard shapes (sp_shard_phases); then, all at
+    once on this card over gloo, tools/mp_train_worker.py's TimeSformer-B
+    (divided, 8 x 224, 8 clips, the parallel phase's run) over SP = 2 (two
+    ranks, three steps and the fit epoch) and SP = 2 x TP = 2 (four ranks,
+    one step), and ViViT-B fact_encoder at 16 x 224 over SP = 2 (one
+    step) while this process runs its one-process step; each rank's steps
+    held against the one-process run (``ref``: the parallel phase's steps
+    and peak) within the train phase's bounds, the ranks' lines identical,
+    each rank's launches and attention variants a one-process run's, its
+    peak GiB printed beside the one process's; then the ring alone
+    (ring_check). Returns (the workers' launches, the kernel rows)."""
+    ref_steps, ref_peak = ref
+    rng = np.random.default_rng(SEED + 8)
+    report = sp_shard_phases(rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a one-step worker: one TimeSformer-B forward and backward, no eval
+    one_step = ({"fused_prenorm_mhsa": 2 * DEPTH, "fused_prenorm_ffn": DEPTH,
+                 "fused_prenorm_mhsa_bwd": 2 * DEPTH,
+                 "fused_prenorm_ffn_bwd": DEPTH, "flash_attention": 0,
+                 "flash_attention_bwd": 0},
+                variants(packed=DEPTH, dense=DEPTH),
+                variants(packed=DEPTH, dense=DEPTH))
+    wants = {"sp2": parallel_want(1), "sp2-tp2": one_step,
+             "vivit-fact-sp2": VIVIT_WANT["fact_encoder"]}
+    vivit_args = mp_train_worker.parse_args(SP_VIVIT_ARGS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        runs = {"sp2": spawn_workers(tmp, "sp2", ["--sp", "2"]),
+                "sp2-tp2": spawn_workers(
+                    tmp, "sp2-tp2", ["--sp", "2", "--tp", "2", *SP_ONE_STEP],
+                    world=4),
+                "vivit-fact-sp2": spawn_workers(
+                    tmp, "vivit-fact-sp2", ["--sp", "2"],
+                    base=SP_VIVIT_ARGS)}
+        vivit_out, _, vivit_tr, vivit_peak = run_in_process(vivit_args)
+        del vivit_tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        outs = {what: wait_workers(procs) for what, procs in runs.items()}
+        refs = {"sp2": (ref_steps, ref_peak),
+                "sp2-tp2": (ref_steps[:1], ref_peak),
+                "vivit-fact-sp2": (parse_worker(vivit_out)[0], vivit_peak)}
+        launches = dict.fromkeys(KERNEL_NAMES, 0)
+        numbers = {}
+        for what, worker_outs in outs.items():
+            got, ms, peaks = check_worker_run(what, worker_outs, *refs[what],
+                                              wants[what], card)
+            for n in KERNEL_NAMES:
+                launches[n] += got[n]
+            numbers[f"{what}_steps_ms"] = ms
+            numbers[f"{what}_peak_gib"] = peaks
+            numbers[f"{what}_one_process_peak_gib"] = refs[what][1]
+        numbers.update(ring_check(tmp, rng, card))
+    log(f"sequence parallel numbers: {json.dumps(numbers)}")
     return launches, report
 
 
@@ -2950,9 +3236,16 @@ def main():
 
     # ---- data and tensor parallelism: counts from 0 before the
     # process-group run here; each worker's from its start (parallel_phase)
-    par_launches, par_report = parallel_phase(card)
+    par_launches, par_report, par_ref = parallel_phase(card)
     report += par_report
     t0 = lap("parallel", t0)
+    torch.cuda.empty_cache()
+
+    # ---- sequence parallelism: each worker's counts from its start
+    # (sequence_parallel_phase)
+    sp_launches, sp_report = sequence_parallel_phase(card, par_ref)
+    report += sp_report
+    t0 = lap("sequence parallel", t0)
     torch.cuda.empty_cache()
 
     # ---- the memory levers: counts from 0 before each step and before the
@@ -3000,6 +3293,7 @@ def main():
                    "data": data_launches[name],
                    "checkpoint": ckpt_launches[name],
                    "parallel": par_launches[name],
+                   "sequence_parallel": sp_launches[name],
                    "memory": mem_launches[name],
                    "tools": tools_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)

@@ -206,8 +206,10 @@ def test_parse_args_matches_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags,what", [
-    # -tp is ported (tests/test_torch_parallel*.py); beside it -sp is not
-    (["-sp", "2"], "A11"), (["-tp", "2", "-sp", "2"], "A11"),
+    # -tp and -sp are ported (tests/test_torch_parallel*.py,
+    # test_torch_sequence_parallel.py); beside them -pp is not
+    (["-sp", "2", "-pp", "2"], "A11"), (["-tp", "2", "-sp", "2", "-pp", "2"],
+                                        "A11"),
     (["-pp", "2"], "A11"),
     (["-scan_layers", "True"], "not ported")])
 def test_unported_flags_raise(tmp_path, flags, what):

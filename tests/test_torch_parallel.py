@@ -201,7 +201,7 @@ def test_parallel_flags_accepted_as_in_jax(extra):
     assert _both(extra) == [None, None]
 
 
-@pytest.mark.parametrize("flag", ["-sp", "-pp"])
+@pytest.mark.parametrize("flag", ["-pp"])
 def test_sequence_and_pipeline_parallelism_still_refused(flag):
     with pytest.raises(NotImplementedError, match="A11"):
         pcli.single_run(BASE + [flag, "2", "-device", "cpu"])
@@ -211,6 +211,34 @@ def test_tp_without_processes_refused(tmp_path):
     with pytest.raises(SystemExit, match="torchrun"):
         pcli.single_run([str(tmp_path) if a == "/tmp" else a for a in BASE]
                         + ["-tp", "2", "-device", "cpu"])
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["-sp", "2"], "-sp 2 needs 2 processes or more \\(torchrun"),
+    (["-sp", "2", "-attention_type", "joint_space_time"],
+     "divided attention rows"),
+    (["-sp", "3"], "must divide both"),
+])
+def test_sp_runs_under_torchrun_or_is_refused_as_in_jax(tmp_path, extra,
+                                                        match):
+    """``-sp`` is ported: one process is refused as ``-tp`` is (the CLI
+    needs torchrun), and the JAX CLI's refusals stay, with its
+    messages."""
+    argv = [str(tmp_path) if a == "/tmp" else a for a in BASE] + extra
+    with pytest.raises(SystemExit, match=match):
+        pcli.single_run(argv + ["-device", "cpu"])
+    jmsg, pmsg = _both(extra)
+    assert pmsg == jmsg
+
+
+def test_init_distributed_without_a_card_raises(monkeypatch):
+    """The default device is the card: with none visible it raises, and
+    nothing lands on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.init_distributed()
+    assert pmesh.init_distributed(device="cpu") == torch.device("cpu")
 
 
 # ---------------------------------------------------- data sharding

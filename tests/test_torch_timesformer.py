@@ -178,7 +178,8 @@ def test_port_never_imports_jax():
     port = os.path.join(REPO, "videotransformer_tpu_torch")
     for new in ("serving/export.py", "tools/export_serving.py",
                 "tools/demo_inference.py", "models/convert.py",
-                "parallel/mesh.py", "parallel/tp.py", "utils/helpers.py",
+                "parallel/mesh.py", "parallel/tp.py", "parallel/sp.py",
+                "utils/helpers.py",
                 "tools/mp_train_worker.py", "utils/__init__.py",
                 "utils/profiling.py", "tools/visualize_attention.py",
                 "tools/visualize_maskfeat.py", "benchmarks/__init__.py",

@@ -8,11 +8,13 @@
         [-device_augment True] [-device cpu]
 
 Under torchrun (``torchrun --nproc_per_node N -m
-videotransformer_tpu_torch.model_pretrain ... [-tp T]``) each process joins
-the process group (``parallel/mesh.init_distributed``: NCCL on
-``cuda:LOCAL_RANK``, gloo with ``-device cpu``) and trains on a (data =
-N / T, model = T) mesh: data parallelism over N / T ranks, Megatron tensor
-parallelism of the blocks over T (``-batch_size`` clips a data rank).
+videotransformer_tpu_torch.model_pretrain ... [-sp S] [-tp T]``) each
+process joins the process group (``parallel/mesh.init_distributed``: NCCL
+on ``cuda:LOCAL_RANK``, gloo with ``-device cpu``) and trains on a (data =
+N / (S · T), seq = S, model = T) mesh: data parallelism over N / (S · T)
+ranks, each clip's tokens split over S (``parallel/sp.py``), Megatron
+tensor parallelism of the blocks over T (``-batch_size`` clips a data
+rank).
 
 ``single_run`` validates ``-tp``/``-sp`` as the JAX CLI does
 (``validate_parallel_flags``), scales the LR by the global batch over 256
@@ -28,10 +30,10 @@ Differences from the JAX CLI, on purpose:
 - Flags of ``type=bool`` in the JAX CLI parse by value here: ``-use_fp16
   False`` is False. argparse's ``type=bool`` makes any non-empty string
   True, so the JAX CLI (and the reference) read ``False`` as True.
-- Flags the port cannot honour raise ``NotImplementedError``: ``-sp`` or
-  ``-pp`` above 1 (sequence and pipeline parallelism, the rest of ROADMAP
-  queue A item A11) and ``-scan_layers True`` (not ported: a lax.scan
-  layout). ``-remat True`` checkpoints every TimeSformer or ViViT block
+- Flags the port cannot honour raise ``NotImplementedError``: ``-pp``
+  above 1 (pipeline parallelism, the rest of ROADMAP queue A item A11)
+  and ``-scan_layers True`` (not ported: a lax.scan layout). ``-sp`` and
+  ``-tp`` above 1 need as many processes (torchrun). ``-remat True`` checkpoints every TimeSformer or ViViT block
   (MaskFeat ignores it, as in JAX). ``-fused_adamw`` only changes how the
   JAX optimizer lays out its small leaves, and ``-gpus`` and
   ``-multi_crop`` are read by neither trainer.
@@ -160,7 +162,8 @@ def parse_args(argv=None):
                         help="tensor-parallel size (Megatron over the "
                              "attention heads and FFN hidden units)")
     parser.add_argument("-sp", type=int, default=1,
-                        help="sequence-parallel size (not ported)")
+                        help="sequence-parallel size (a clip's tokens split "
+                             "over the seq ranks)")
     parser.add_argument("-pp", type=int, default=1,
                         help="pipeline-parallel stages (not ported)")
     parser.add_argument("-pp_microbatch", type=int, default=0,
@@ -177,37 +180,25 @@ def validate_parallel_flags(args):
     -tp, a -tp that does not divide the 12 heads of the B/16 builders, and
     a -sp that is not over divided attention rows or does not divide both
     the (effective) frame and the patch count."""
+    from videotransformer_tpu_torch.parallel import sp as _sp
     from videotransformer_tpu_torch.parallel import tp as _tp
 
     tp, sp = getattr(args, "tp", 1), getattr(args, "sp", 1)
     try:
         _tp.validate(args.arch, tp)
+        _sp.validate(args.arch, args.attention_type, args.num_frames,
+                     args.img_size, sp)
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
-    if sp > 1:
-        if args.attention_type not in ("divided_space_time", "fact_encoder"):
-            raise SystemExit(
-                f"-sp > 1 requires divided attention rows "
-                f"(attention_type divided_space_time/fact_encoder), got "
-                f"{args.attention_type}")
-        frames = args.num_frames // 2 if args.arch == "vivit" \
-            else args.num_frames
-        patches = (args.img_size // 16) ** 2
-        if frames % sp or patches % sp:
-            raise SystemExit(
-                f"-sp {sp} must divide both the (effective) frame count "
-                f"({frames}) and the patch count ({patches}); a "
-                f"non-divisible sp falls back to unsharded attention rows.")
 
 
 def refuse_unported(args):
     """Raise NotImplementedError for flags the port cannot honour."""
-    for flag, what in (("sp", "sequence"), ("pp", "pipeline")):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                f"-{flag} {getattr(args, flag)}: {what} parallelism is not "
-                "ported (the rest of ROADMAP queue A, item A11); the port "
-                "has data parallelism (torchrun) and -tp")
+    if args.pp > 1:
+        raise NotImplementedError(
+            f"-pp {args.pp}: pipeline parallelism is not ported (the rest "
+            "of ROADMAP queue A, item A11); the port has data parallelism "
+            "(torchrun), -sp and -tp")
     if args.scan_layers:
         raise NotImplementedError(
             "-scan_layers True: the lax.scan layer stack is not ported "
@@ -264,14 +255,18 @@ def single_run(argv=None):
     world = 1
     if torch.distributed.is_initialized():
         world = torch.distributed.get_world_size()
-        mesh = _mesh.create_mesh(model=args.tp, device=device)
-    elif args.tp > 1:
-        raise SystemExit(f"-tp {args.tp} needs {args.tp} processes or more "
-                         "(torchrun --nproc_per_node)")
+        mesh = _mesh.create_mesh(model=args.tp, seq=args.sp, device=device)
+    else:
+        for flag in ("sp", "tp"):
+            n = getattr(args, flag)
+            if n > 1:
+                raise SystemExit(f"-{flag} {n} needs {n} processes or more "
+                                 "(torchrun --nproc_per_node)")
     # linear LR scale by the global batch over 256 (model_pretrain.py:
-    # 158-164): the data-parallel ranks' batches only, as tensor-parallel
-    # ranks share one (JAX model_pretrain.py:237-241)
-    args.lr = args.lr * args.batch_size * (world // args.tp) / 256
+    # 158-164): the data-parallel ranks' batches only, as sequence- and
+    # tensor-parallel ranks share one (JAX model_pretrain.py:237-241)
+    args.lr = args.lr * args.batch_size * (world // (args.tp * args.sp)) \
+        / 256
     run_dir = os.path.join(args.root_dir, "results", exp_tag(args))
     ckpt_dir = os.path.join(run_dir, "ckpt")
     log_dir = os.path.join(run_dir, "log")

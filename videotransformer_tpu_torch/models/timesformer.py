@@ -27,7 +27,12 @@ last attention weights (timesformer.py:189-207; ``ops/blocks.py``).
 At another resolution than the native one the spatial table is resized by
 ``interpolate_pos_encoding``, as in the JAX package. ``mesh`` (a parallel
 run's, ``parallel/mesh.py``) goes to the blocks: with ``model`` > 1 ranks
-they hold this rank's shard (``ops/blocks.py``, ``parallel/tp.py``).
+they hold this rank's shard (``ops/blocks.py``, ``parallel/tp.py``). With
+``seq`` > 1 ranks (``parallel/sp.py``) the model embeds this rank's
+patches only, the cls row and the tokens of p / sp patches in every frame
+(divided and joint attention), or this rank's frames (space_only, whose
+frame mean then sums over the seq group); the cls readout is the same on
+every seq rank.
 """
 
 import functools
@@ -41,6 +46,8 @@ from torch import nn
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.ops.blocks import (
     PatchEmbed, TransformerContainer, last_selfattention)
+from videotransformer_tpu_torch.parallel import mesh as _mesh
+from videotransformer_tpu_torch.parallel import sp as _sp
 
 FINAL_LN_EPS = 1e-6
 ATTENTION_TYPES = ("divided_space_time", "space_only", "joint_space_time")
@@ -125,16 +132,23 @@ class TimeSformer(nn.Module):
         self.attention_type = attention_type
         self.num_frames = num_frames
         self.patch_size = patch_size
+        self.mesh = mesh
         self.patch_embed = PatchEmbed(img_size, patch_size, in_channels,
                                       embed_dims)
         num_patches = self.patch_embed.num_patches
+        if attention_type != "space_only":
+            _sp.check_divides("patches", num_patches, mesh)
+        if attention_type != "joint_space_time":
+            _sp.check_divides("frames", num_frames, mesh)
         self.transformer_layers = TransformerContainer(
             num_transformer_layers, embed_dims, num_heads, num_frames,
             hidden_channels=4 * embed_dims,
             operator_order=(("time_attn", "space_attn", "ffn")
                             if attention_type == "divided_space_time"
                             else ("self_attn", "ffn")),
-            drop_path_rate=drop_path_rate, mesh=mesh, remat=remat)
+            drop_path_rate=drop_path_rate, mesh=mesh, remat=remat,
+            seq_layout=("frames" if attention_type == "space_only"
+                        else "tokens"))
         self.norm = nn.LayerNorm(embed_dims, eps=FINAL_LN_EPS)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dims))
         # operator_order[-2] is 'space_attn' or 'self_attn': the cls slot is
@@ -160,16 +174,26 @@ class TimeSformer(nn.Module):
 
     def prepare_tokens(self, x):
         """(b, t, c, h, w) -> (b, 1 + p·t, d), or (b·t, 1 + p, d) for
-        space_only (timesformer.py:142-187)."""
+        space_only (timesformer.py:142-187); under sequence parallelism
+        this rank's p / sp patches, or t / sp frames."""
         b, t, c, h, w = x.shape
         dt = x.dtype
-        x = self.patch_embed(x)  # (b t, p, d)
+        npatch = (h // self.patch_size) * (w // self.patch_size)
+        keep = None
+        if self.attention_type == "space_only":
+            x = x[:, _sp.shard(t, self.mesh)]
+            t = x.shape[1]
+        elif _mesh.seq_ranks(self.mesh) > 1:
+            keep = _sp.shard(npatch, self.mesh)
+        x = self.patch_embed(x, keep)  # (b t, p, d)
         bt, p, d = x.shape
         cls_tok = self.cls_token.to(dt).expand(bt, 1, d)
         x = torch.cat([cls_tok, x], dim=1)
-        x = x + interpolate_pos_encoding(self.pos_embed.to(dt), p, w, h,
-                                         self.patch_size)
-        x = self.pos_drop(x)
+        pos = interpolate_pos_encoding(self.pos_embed.to(dt), npatch, w, h,
+                                       self.patch_size)
+        if keep is not None:
+            pos = torch.cat([pos[:, :1], pos[:, 1:][:, keep]], dim=1)
+        x = self.pos_drop(x + pos)
         if self.attention_type == "space_only":
             return x
         cls_tokens = x[:b, :1]  # every cls row is the same here
@@ -190,7 +214,7 @@ class TimeSformer(nn.Module):
         if return_attention:
             return x
         if self.attention_type == "space_only":  # the mean over frames
-            x = x.reshape(b, -1, *x.shape[1:]).mean(dim=1)
+            x = _sp.seq_mean(x.reshape(b, -1, *x.shape[1:]), self.mesh)[:, 0]
         # final LayerNorm outside the kernels: fp32 statistics, working type
         x = F.layer_norm(x.float(), x.shape[-1:], self.norm.weight.float(),
                          self.norm.bias.float(), FINAL_LN_EPS).to(x.dtype)

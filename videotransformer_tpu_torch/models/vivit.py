@@ -34,7 +34,12 @@ learnable, as the JAX trainer builds them. ``model.train()`` turns on
 DropPath and the dropouts as in ``models/timesformer.py``; the working
 type is the clip's dtype. ``mesh`` (a parallel run's, ``parallel/mesh.py``)
 goes to the blocks: with ``model`` > 1 ranks they hold this rank's shard
-(``ops/blocks.py``, ``parallel/tp.py``).
+(``ops/blocks.py``, ``parallel/tp.py``). With ``seq`` > 1 ranks
+(``parallel/sp.py``) joint and divided attention embed this rank's p / sp
+patches in every effective frame; fact_encoder's spatial stack runs this
+rank's T' / sp effective frames, whose cls rows and patch means are
+gathered over the seq group (``mesh.gather_seq``) for the temporal stack,
+which every seq rank runs whole.
 """
 
 import torch
@@ -45,6 +50,7 @@ from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.ops.blocks import (
     PatchEmbed, TransformerContainer, last_selfattention)
 from videotransformer_tpu_torch.parallel import mesh as _mesh
+from videotransformer_tpu_torch.parallel import sp as _sp
 
 FINAL_LN_EPS = 1e-6
 ATTENTION_TYPES = ("fact_encoder", "joint_space_time", "divided_space_time")
@@ -67,13 +73,18 @@ class ViViT(nn.Module):
         self.patch_embed = PatchEmbed(img_size, patch_size, in_channels,
                                       embed_dims, tube_size, "Conv3d")
         num_patches = self.patch_embed.num_patches
-        stack = lambda depth, order: TransformerContainer(
+        if attention_type != "fact_encoder":
+            _sp.check_divides("patches", num_patches, mesh)
+        if attention_type != "joint_space_time":
+            _sp.check_divides("effective frames", self.eff_frames, mesh)
+        stack = lambda depth, order, layout="tokens": TransformerContainer(
             depth, embed_dims, num_heads, self.eff_frames, 4 * embed_dims,
-            order, drop_path_rate, mesh, remat)
+            order, drop_path_rate, mesh, remat, layout)
         if attention_type == "fact_encoder":
             self.transformer_layers = nn.ModuleList([
-                stack(num_transformer_layers, ("self_attn", "ffn")),
-                stack(num_time_transformer_layers, ("self_attn", "ffn"))])
+                stack(num_transformer_layers, ("self_attn", "ffn"), "frames"),
+                stack(num_time_transformer_layers, ("self_attn", "ffn"),
+                      "replicated")])
         elif attention_type == "joint_space_time":
             self.transformer_layers = stack(num_transformer_layers,
                                             ("self_attn", "ffn"))
@@ -105,13 +116,20 @@ class ViViT(nn.Module):
 
     def prepare_tokens(self, x):
         """(b, t, c, h, w) -> (b·T', 1 + p, d) for fact_encoder, else
-        (b, 1 + p·T', d) (vivit.py:178-212)."""
-        b = x.shape[0]
+        (b, 1 + p·T', d) (vivit.py:178-212); under sequence parallelism
+        this rank's T' / sp frames, or p / sp patches."""
+        b, t = x.shape[:2]
         dt = x.dtype
-        x = self.patch_embed(x)  # (b T', p, d)
+        keep, pos = None, self.pos_embed.to(dt)
+        if self.attention_type == "fact_encoder":
+            x = x[:, _sp.shard(t, self.mesh)]  # whole tubes: sp divides T'
+        elif _mesh.seq_ranks(self.mesh) > 1:
+            keep = _sp.shard(self.patch_embed.num_patches, self.mesh)
+            pos = torch.cat([pos[:, :1], pos[:, 1:][:, keep]], dim=1)
+        x = self.patch_embed(x, keep)  # (b T', p, d)
         bt, p, d = x.shape
         x = torch.cat([self.cls_token.to(dt).expand(bt, 1, d), x], dim=1)
-        x = self.pos_drop(x + self.pos_embed.to(dt))
+        x = self.pos_drop(x + pos)
         if self.attention_type == "fact_encoder":
             return x
         t = self.eff_frames
@@ -134,11 +152,16 @@ class ViViT(nn.Module):
             spatial, temporal = self.transformer_layers
             x = spatial(x, generator)
             bt, p1, d = x.shape
+            # every effective frame's rows, from the seq ranks holding them
+            cls_rows = _mesh.gather_seq(x[:, 0].reshape(b, bt // b, d),
+                                        self.mesh, 1).reshape(-1, d)
             # the x[:b, 0] quirk (module doc), rows of the global batch
             r = 0 if self.mesh is None else self.mesh.data_rank
-            cls_tokens = _mesh.gather_data(x[:, 0], self.mesh)[
+            cls_tokens = _mesh.gather_data(cls_rows, self.mesh)[
                 r * b:(r + 1) * b, None]
-            patches = x[:, 1:].reshape(b, bt // b, p1 - 1, d).mean(dim=2)
+            patches = _mesh.gather_seq(
+                x[:, 1:].reshape(b, bt // b, p1 - 1, d).mean(dim=2),
+                self.mesh, 1)
             x = torch.cat([cls_tokens, patches], dim=1)
             x = self.time_drop(x + self.time_embed.to(x.dtype))
             x = temporal(x, generator, return_attention)

@@ -53,6 +53,19 @@ residual stays outside the kernel. Joint attention's unfused branch
 (flash attention over the rank's heads) is sharded the same way. A
 sharded block is initialised by sharding a full one (``reset_parameters``
 refuses).
+
+Sequence parallelism (a mesh of ``seq`` > 1 ranks, ``parallel/sp.py``):
+a block holds this rank's part of the activations in its stack's
+``seq_layout``. ``tokens`` (divided and joint attention): the cls row and
+this rank's patches' tokens; the temporal attention and the FFN run on
+them as one process runs them, the spatial attention moves to frames over
+seq and back (one all-to-all each way, JAX blocks.py:276, 427) with the
+cls row's frame mean summed over the seq group (blocks.py:430-440), and
+joint attention runs the ring (blocks.py:475-493). ``frames`` (ViViT's
+fact_encoder spatial stack, TimeSformer's space_only): this rank's frames'
+rows, each whole. ``replicated`` (the fact_encoder temporal stack): every
+seq rank runs the same rows. DropPath cuts this rank's rows from the
+global draw in every layout.
 """
 
 import numpy as np
@@ -66,6 +79,7 @@ from videotransformer_tpu_torch.kernels import (
 from videotransformer_tpu_torch.kernels._plain import layer_norm
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.parallel import mesh as _mesh
+from videotransformer_tpu_torch.parallel import sp as _sp
 from videotransformer_tpu_torch.parallel import tp as _tp
 
 LN_EPS = 1e-5  # LayerNorm eps inside the blocks (torch's default)
@@ -86,13 +100,14 @@ def get_sine_cosine_pos_emb(n_position, d_hid):
     return torch.tensor(table[None], dtype=torch.float32)
 
 
-def drop_path(x, rate, generator, mesh=None):
+def drop_path(x, rate, generator, mesh=None, clips=None):
     """Stochastic depth per leading-axis row (blocks.py:61-79):
     ``x / keep · floor(keep + U)``, U uniform in the working type, this
-    data rank's rows of the global draw under ``mesh``."""
+    rank's rows of the global draw under ``mesh`` (``clips``: rows of
+    (clip, k) with k split over the seq ranks, ``mesh.rand_rows``)."""
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    u = _mesh.rand_rows(shape, generator, x.dtype, x.device, mesh)
+    u = _mesh.rand_rows(shape, generator, x.dtype, x.device, mesh, clips)
     return x / keep * torch.floor(keep + u)
 
 
@@ -104,15 +119,20 @@ class DropPath(nn.Module):
         self.rate = float(rate)
         self.mesh = mesh
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, clips=None):
         if not self.training or self.rate == 0.0:
             return x
-        return drop_path(x, self.rate, generator, self.mesh)
+        if clips is None:  # a row a clip, the same on every seq rank
+            return drop_path(x, self.rate, generator, self.mesh)
+        return drop_path(x, self.rate, generator, self.mesh, clips)
 
 
 def _reset_layer_norm(norm):
     init.ones_(norm.weight)
     init.zeros_(norm.bias)
+
+
+SEQ_LAYOUTS = ("tokens", "frames", "replicated")
 
 
 def _refuse_sharded(module):
@@ -166,14 +186,37 @@ class Attention(nn.Module):
         return out, weights
 
 
-class _PrenormMHSA(nn.Module):
+class _SeqLayout:
+    """The seq ranks of the block's mesh and its stack's ``seq_layout``
+    (module doc)."""
+
+    def _set_layout(self, mesh, num_frames, seq_layout):
+        if seq_layout not in SEQ_LAYOUTS:
+            raise ValueError(f"seq_layout {seq_layout!r} not in "
+                             f"{SEQ_LAYOUTS}")
+        self.sp = _mesh.seq_ranks(mesh)
+        self.num_frames = num_frames
+        self.seq_layout = seq_layout
+        if self.sp > 1 and seq_layout == "frames":
+            _sp.check_divides("frames", num_frames, mesh)
+
+    def _clips(self, x):
+        """DropPath's ``clips`` for rows x of the ``frames`` layout (None:
+        one row a clip, the same draw on every seq rank)."""
+        if self.sp > 1 and self.seq_layout == "frames":
+            return x.shape[0] // (self.num_frames // self.sp)
+        return None
+
+
+class _PrenormMHSA(nn.Module, _SeqLayout):
     """LayerNorm + Attention, run as one fused prenorm-MHSA call, then
     DropPath on its output."""
 
     def __init__(self, embed_dims, num_heads, drop_path_rate=0.0,
-                 mesh=None):
+                 mesh=None, num_frames=None, seq_layout="tokens"):
         super().__init__()
         self.mesh = mesh
+        self._set_layout(mesh, num_frames, seq_layout)
         self.norm = nn.LayerNorm(embed_dims, eps=LN_EPS)
         self.attn = Attention(embed_dims, num_heads, _mesh.model_ranks(mesh))
         self.layer_drop = DropPath(drop_path_rate, mesh)
@@ -193,7 +236,9 @@ class _PrenormMHSA(nn.Module):
             self.norm.bias.to(ln), a.qkv.weight.to(dt), a.qkv.bias.to(dt),
             a.proj.weight.to(dt), a.proj.bias.to(dt))
 
-    def _prenorm_mhsa(self, x, generator, block_diag=0):
+    def _prenorm_mhsa(self, x, generator, block_diag=0, clips=None):
+        """B1 over x's rows, then DropPath (``clips``: the rows' clips
+        under sequence parallelism, ``_clips`` by default)."""
         hd = self.attn.head_dim
 
         def mhsa(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):
@@ -203,11 +248,16 @@ class _PrenormMHSA(nn.Module):
                 w_qkv.shape[0] // (3 * hd), hd ** -0.5, LN_EPS, False,
                 block_diag)
 
-        return self.layer_drop(self._sharded(mhsa, x), generator)
+        return self.layer_drop(self._sharded(mhsa, x), generator,
+                               self._clips(x) if clips is None else clips)
 
     def _weights(self, x):
         """The attention weights of x's rows: LayerNorm (fp32 statistics,
         the working type), then ``Attention.forward``."""
+        if self.sp > 1:
+            raise NotImplementedError(
+                f"attention weights of a sequence-parallel shard (sp="
+                f"{self.sp}): this rank holds part of the tokens")
         return self.attn(layer_norm(x, self.norm.weight, self.norm.bias,
                                     LN_EPS))[1]
 
@@ -222,15 +272,27 @@ class JointAttention(_PrenormMHSA):
     where the JAX package takes a VPU path that is not ported. Above it,
     the JAX package's unfused ``Attention``: LayerNorm (fp32 statistics),
     the qkv product, flash attention (B5 forward, B6 backward) on (B, H,
-    N, hd), the projection."""
+    N, hd), the projection. Under sequence parallelism in the ``tokens``
+    layout, ``sp.ring_prenorm_mhsa`` over the rank's tokens, the cls row
+    shared (blocks.py:475-493); in the others each rank's rows are
+    whole."""
 
     def forward(self, query, generator=None, return_attention=False):
         if return_attention:
             return self._weights(query)
+        if self.sp > 1 and self.seq_layout == "tokens":
+            out = self._sharded(self._ring, query)
+            return query + self.layer_drop(out, generator)
         if query.shape[1] <= FUSED_MHSA_MAX_N:
             return query + self._prenorm_mhsa(query, generator)
         out = self._sharded(self._unfused, query, self.norm.weight.dtype)
-        return query + self.layer_drop(out, generator)
+        return query + self.layer_drop(out, generator, self._clips(query))
+
+    def _ring(self, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):
+        hd = self.attn.head_dim
+        return _sp.ring_prenorm_mhsa(x, ln_w, ln_b, w_qkv, b_qkv, w_proj,
+                                     b_proj, hd, hd ** -0.5, LN_EPS,
+                                     self.mesh, shared=1)
 
     def _unfused(self, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):
         B, N, _ = x.shape
@@ -253,12 +315,14 @@ class DividedTemporalAttention(_PrenormMHSA):
     per row, then ``temporal_fc`` (zero-initialised) when the cls token is
     absent, the residual, and the cls token re-attached. Each length-t row
     is its own sequence: the kernel's ``block_diag`` mode with T = the row
-    length."""
+    length. Under sequence parallelism the rows are this rank's patches',
+    whole, and a cls mean over patches sums over the seq group."""
 
     def __init__(self, embed_dims, num_heads, num_frames, use_cls_token,
-                 drop_path_rate=0.0, mesh=None):
-        super().__init__(embed_dims, num_heads, drop_path_rate, mesh)
-        self.num_frames = num_frames
+                 drop_path_rate=0.0, mesh=None, seq_layout="tokens"):
+        super().__init__(embed_dims, num_heads, drop_path_rate, mesh,
+                         num_frames, seq_layout)
+        _refuse_layout(self)
         self.use_cls_token = use_cls_token
         if not use_cls_token:
             self.temporal_fc = nn.Linear(embed_dims, embed_dims)
@@ -281,9 +345,11 @@ class DividedTemporalAttention(_PrenormMHSA):
             x = torch.cat([cls_rep, x], dim=1)
         if return_attention:
             return self._weights(x)
-        attn_out = self._prenorm_mhsa(x, generator, block_diag=x.shape[1])
+        attn_out = self._prenorm_mhsa(x, generator, block_diag=x.shape[1],
+                                      clips=b if self.sp > 1 else None)
         if self.use_cls_token:
-            new_cls = attn_out[:, 0].reshape(b, p, d).mean(dim=1, keepdim=True)
+            new_cls = _sp.seq_mean(attn_out[:, 0].reshape(b, p, d),
+                                   self.mesh)
             out = torch.cat([new_cls, attn_out[:, 1:].reshape(b, p * t, d)],
                             dim=1)
             return query + out
@@ -298,12 +364,16 @@ class DividedSpatialAttention(_PrenormMHSA):
     """Spatial half of divided space-time attention (blocks.py:347-450):
     fold ``b (p t) d -> (b t) p d``; the cls token, when present, is
     replicated per frame, attends with the patches, and is averaged back
-    over frames. DropPath is per length-p (or p + 1) row."""
+    over frames. DropPath is per length-p (or p + 1) row. Under sequence
+    parallelism the fold goes through the all-to-all to this rank's frames
+    and back (``sp.to_frames``, ``sp.to_patches``), and the cls mean over
+    frames sums over the seq group."""
 
     def __init__(self, embed_dims, num_heads, num_frames, use_cls_token,
-                 drop_path_rate=0.0, mesh=None):
-        super().__init__(embed_dims, num_heads, drop_path_rate, mesh)
-        self.num_frames = num_frames
+                 drop_path_rate=0.0, mesh=None, seq_layout="tokens"):
+        super().__init__(embed_dims, num_heads, drop_path_rate, mesh,
+                         num_frames, seq_layout)
+        _refuse_layout(self)
         self.use_cls_token = use_cls_token
 
     def forward(self, query, generator=None, return_attention=False):
@@ -312,36 +382,51 @@ class DividedSpatialAttention(_PrenormMHSA):
         b, n, d = patches.shape
         t = self.num_frames
         p = n // t
-        x = patches.reshape(b, p, t, d).transpose(1, 2).reshape(b * t, p, d)
+        x = _sp.to_frames(patches.reshape(b, p, t, d), self.mesh)
+        p, t = x.shape[1], x.shape[2]  # every patch, this rank's frames
+        x = x.transpose(1, 2).reshape(b * t, p, d)
         if self.use_cls_token:
             cls_rep = cls_token[:, None].expand(b, t, 1, d).reshape(b * t, 1, d)
             x = torch.cat([cls_rep, x], dim=1)
         if return_attention:
             return self._weights(x)
-        attn_out = self._prenorm_mhsa(x, generator)
+        attn_out = self._prenorm_mhsa(x, generator,
+                                      clips=b if self.sp > 1 else None)
         if self.use_cls_token:
-            new_cls = attn_out[:, 0].reshape(b, t, d).mean(dim=1, keepdim=True)
+            new_cls = _sp.seq_mean(attn_out[:, 0].reshape(b, t, d),
+                                   self.mesh)
             attn_out = attn_out[:, 1:]
-        out = attn_out.reshape(b, t, p, d).transpose(1, 2).reshape(b, p * t, d)
+        out = _sp.to_patches(attn_out.reshape(b, t, p, d).transpose(1, 2),
+                             self.mesh)
+        out = out.reshape(b, -1, d)
         if self.use_cls_token:
             return query + torch.cat([new_cls, out], dim=1)
         return torch.cat([cls_token, patches + out], dim=1)
 
 
-class FFN(nn.Module):
+def _refuse_layout(module):
+    if module.sp > 1 and module.seq_layout != "tokens":
+        raise ValueError(f"{type(module).__name__} runs sequence-parallel "
+                         f"in the tokens layout only, not "
+                         f"{module.seq_layout!r}")
+
+
+class FFN(nn.Module, _SeqLayout):
     """Prenorm MLP with residual (blocks.py:525-603), two layers, run as one
     fused prenorm-FFN call, DropPath per sample on its output. ``layers``
     keeps the reference's layout: ``Sequential(Linear)`` then a bare
-    ``Linear``."""
+    ``Linear``. Under sequence parallelism it runs on this rank's tokens
+    (or rows), the cls row among them."""
 
     def __init__(self, embed_dims, hidden_channels, drop_path_rate=0.0,
-                 mesh=None):
+                 mesh=None, num_frames=None, seq_layout="tokens"):
         super().__init__()
         tp = _mesh.model_ranks(mesh)
         if hidden_channels % tp:
             raise ValueError(f"tp={tp} does not divide hidden "
                              f"{hidden_channels}")
         self.tp, self.mesh = tp, mesh
+        self._set_layout(mesh, num_frames, seq_layout)
         self.norm = nn.LayerNorm(embed_dims, eps=LN_EPS)
         self.layers = nn.ModuleList([
             nn.Sequential(nn.Linear(embed_dims, hidden_channels // tp)),
@@ -363,17 +448,20 @@ class FFN(nn.Module):
             x.contiguous(), self.norm.weight.to(dt), self.norm.bias.to(dt),
             fc1.weight.to(dt), fc1.bias.to(dt), fc2.weight.to(dt),
             fc2.bias.to(dt))
-        return x + self.layer_drop(out, generator)
+        return x + self.layer_drop(out, generator, self._clips(x))
 
 
 class BasicTransformerBlock(nn.Module):
     """One block assembled from ``operator_order`` (blocks.py:606-691):
     ``self_attn`` (joint), ``time_attn`` and ``space_attn`` (divided),
     ``ffn``, with ``use_cls_token = (i == len(operator_order) - 2)``: only
-    the divided attention just before the FFN carries the cls token."""
+    the divided attention just before the FFN carries the cls token.
+    ``seq_layout``: the stack's, under sequence parallelism (module
+    doc)."""
 
     def __init__(self, embed_dims, num_heads, num_frames, hidden_channels,
-                 operator_order, drop_path_rate=0.0, mesh=None):
+                 operator_order, drop_path_rate=0.0, mesh=None,
+                 seq_layout="tokens"):
         super().__init__()
         attentions, ffns = [], []
         order = tuple(operator_order)
@@ -384,13 +472,15 @@ class BasicTransformerBlock(nn.Module):
                 attentions.append(kinds[op](
                     embed_dims, num_heads, num_frames,
                     use_cls_token=(i == len(order) - 2),
-                    drop_path_rate=drop_path_rate, mesh=mesh))
+                    drop_path_rate=drop_path_rate, mesh=mesh,
+                    seq_layout=seq_layout))
             elif op == "self_attn":
-                attentions.append(JointAttention(embed_dims, num_heads,
-                                                 drop_path_rate, mesh))
+                attentions.append(JointAttention(
+                    embed_dims, num_heads, drop_path_rate, mesh, num_frames,
+                    seq_layout))
             elif op == "ffn":
                 ffns.append(FFN(embed_dims, hidden_channels, drop_path_rate,
-                                mesh))
+                                mesh, num_frames, seq_layout))
             else:
                 raise TypeError(f"Unsupported operator type {op}")
         self.attentions = nn.ModuleList(attentions)
@@ -437,18 +527,20 @@ def checkpointed(block, x, generator):
 class TransformerContainer(nn.Module):
     """Stack of BasicTransformerBlocks (blocks.py:694-740) with the DropPath
     rate of layer i at ``linspace(0, drop_path_rate, depth)[i]``; ``remat``
-    checkpoints each block while autograd records (module doc)."""
+    checkpoints each block while autograd records (module doc);
+    ``seq_layout`` is the stack's under sequence parallelism."""
 
     def __init__(self, num_transformer_layers, embed_dims, num_heads,
                  num_frames, hidden_channels, operator_order,
-                 drop_path_rate=0.0, mesh=None, remat=False):
+                 drop_path_rate=0.0, mesh=None, remat=False,
+                 seq_layout="tokens"):
         super().__init__()
         self.remat = remat
         dpr = np.linspace(0, drop_path_rate, num_transformer_layers)
         self.layers = nn.ModuleList([
             BasicTransformerBlock(embed_dims, num_heads, num_frames,
                                   hidden_channels, operator_order,
-                                  float(dpr[i]), mesh)
+                                  float(dpr[i]), mesh, seq_layout)
             for i in range(num_transformer_layers)])
 
     def reset_parameters(self, generator):
@@ -527,7 +619,9 @@ class PatchEmbed(nn.Module):
     def reset_parameters(self, generator):
         self.projection.reset_parameters(generator)
 
-    def forward(self, x):
+    def forward(self, x, keep=None):
+        """``keep``: the slice of the (raster-order) patches to embed, all
+        of them by default (a sequence-parallel rank's, ``sp.shard``)."""
         b, t, c, h, w = x.shape
         ps, tt = self.patch_size, self.tube_size
         gh, gw, gt = h // ps, w // ps, t // tt
@@ -535,7 +629,8 @@ class PatchEmbed(nn.Module):
         # flattening order of the conv weight's (in, [kt,] kh, kw)
         x = x.reshape(b * gt, tt, c, gh, ps, gw, ps).permute(
             0, 3, 5, 2, 1, 4, 6)
-        return self.projection(x.reshape(b * gt, gh * gw, c * tt * ps * ps))
+        x = x.reshape(b * gt, gh * gw, c * tt * ps * ps)
+        return self.projection(x if keep is None else x[:, keep])
 
 
 class ClassificationHead(nn.Module):

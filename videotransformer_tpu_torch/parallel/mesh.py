@@ -1,40 +1,49 @@
-"""Process groups for data and tensor parallelism, and the collectives the
-trainer and the blocks run over them.
+"""Process groups for data, sequence and tensor parallelism, and the
+collectives the trainer and the blocks run over them.
 
 Port of ``videotransformer_tpu/parallel/mesh.py`` in PyTorch's idiom: one
 process a card (``torchrun`` sets ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK``; the process trains on ``cuda:LOCAL_RANK``), and a
-``torch.distributed`` group for each axis of the JAX mesh that the port
-runs, ``data`` and ``model``:
+``torch.distributed`` group for each axis of the JAX mesh, ``data``,
+``seq`` and ``model``:
 
-- ``create_mesh(data, model)`` keeps the JAX axis order (data slowest): the
-  ``model`` ranks of one data slot are consecutive, so on a node of several
-  cards tensor parallelism stays inside the node's NVLink domain, and the
-  gradient sums over ``data`` take the longer path;
+- ``create_mesh(data, model, seq)`` keeps the JAX axis order (data
+  slowest, model fastest, mesh.py:23-44): the ``model`` ranks of one
+  (data, seq) slot are consecutive, then the ``seq`` ranks of a data slot,
+  so on a node of several cards tensor and sequence parallelism stay
+  inside the node's NVLink domain, and the gradient sums over ``data``
+  take the longer path;
 - ``shard_batch`` is ``shard_local_batch``'s counterpart for a caller that
-  holds a global batch: this data rank's rows;
+  holds a global batch: this data rank's rows (the same on every seq and
+  model rank of it);
 - ``broadcast_state`` sends rank 0's initial parameters to every rank
   (``replicate``'s role);
 - ``even_eval_batches`` gives every data rank the same number of eval
   batches of the same size, padded with label -1 (``pad_eval_batch``, the
   JAX trainer's padding), whatever its ``Loader`` shard held;
 - ``partner_rows`` exchanges a rank's rows with the data rank that holds
-  their mixup partners, and that rank alone.
+  their mixup partners, and that rank alone;
+- ``all_to_all`` and ``ring_shift`` move activations between the seq ranks
+  (``parallel/sp.py``), each an autograd Function whose backward is the
+  inverse move; ``sum_over_seq`` and ``gather_seq`` are an all-reduce and
+  an all-gather over them whose backward is an all-reduce.
 
 The backend is NCCL when each rank has a card of its own. A caller may name
 gloo instead (the CPU tests, two processes sharing one card); gloo takes
-CUDA tensors in ``all_reduce`` and ``broadcast`` only, so every collective
-here is built on those two, and tensors stay on the rank's device whatever
-the backend.
+CUDA tensors in ``all_reduce`` and ``broadcast`` only. So every collective
+here has a form built on those two, and the seq moves also have the NCCL
+form (``all_to_all_single``, ``batch_isend_irecv``): the backend of the
+group picks one (``p2p_form``), and neither gives way to the other. Tensors
+stay on the rank's device whatever the backend.
 
 A model is built with its mesh (``models/timesformer.py``, ``vivit.py``,
 ``maskfeat.py``), which its blocks keep: a block's model group for tensor
-parallelism, and the data rank for the random draws. A step draws every
-random number for the global batch and takes its data rank's rows
-(``rand_rows``, ``shard_batch``), so DropPath masks, mixup and the device
-augment's draws are those of one process on the global batch. A model
-built without a mesh (serving, a single-process trainer) runs as one
-process.
+parallelism, its seq group for sequence parallelism, and the data and seq
+ranks for the random draws. A step draws every random number for the
+global batch and takes its rank's rows (``rand_rows``, ``shard_batch``),
+so DropPath masks, mixup and the device augment's draws are those of one
+process on the global batch. A model built without a mesh (serving, a
+single-process trainer) runs as one process.
 """
 
 import datetime
@@ -45,26 +54,42 @@ import torch.distributed as dist
 
 
 class Mesh:
-    """This process's place in a (data, model) grid of ``data · model``
-    ranks: global rank = data_rank · model + model_rank. ``pair_group``
-    joins this rank to the one of data rank ``data - 1 - data_rank`` (None
-    where that is this rank): mixup's partner (``partner_rows``)."""
+    """This process's place in a (data, seq, model) grid of ``data · seq ·
+    model`` ranks: global rank = (data_rank · seq + seq_rank) · model +
+    model_rank, the JAX mesh's order. The groups: ``data_group`` (the data
+    ranks at this seq and model rank), ``seq_group`` (the seq ranks at this
+    data and model rank), ``model_group`` (the model ranks at this data and
+    seq rank) and ``replica_group`` (the data and seq ranks at this model
+    rank: the gradient sum of a sequence-parallel model). ``pair_group``
+    joins this rank to the one of data rank ``data - 1 - data_rank`` at the
+    same seq and model rank (None where that is this rank): mixup's partner
+    (``partner_rows``)."""
 
     def __init__(self, data, model, rank, data_group, model_group,
-                 device="cpu", pair_group=None):
-        self.data, self.model = data, model
+                 device="cpu", pair_group=None, seq=1, seq_group=None,
+                 replica_group=None):
+        self.data, self.seq, self.model = data, seq, model
         self.device = torch.device(device)
         self.rank = rank
-        self.data_rank, self.model_rank = divmod(rank, model)
+        slot, self.model_rank = divmod(rank, model)
+        self.data_rank, self.seq_rank = divmod(slot, seq)
         self.data_group, self.model_group = data_group, model_group
+        self.seq_group = seq_group
+        self.replica_group = replica_group
         self.pair_group = pair_group
-        # global ranks of this rank's data group and of its model group
-        self.data_ranks = [d * model + self.model_rank for d in range(data)]
-        self.model_ranks = [self.data_rank * model + m for m in range(model)]
+        # global ranks of this rank's data, seq and model groups
+        at = lambda d, s, m: (d * seq + s) * model + m
+        self.data_ranks = [at(d, self.seq_rank, self.model_rank)
+                           for d in range(data)]
+        self.seq_ranks = [at(self.data_rank, s, self.model_rank)
+                          for s in range(seq)]
+        self.model_ranks = [at(self.data_rank, self.seq_rank, m)
+                            for m in range(model)]
 
     def __repr__(self):
-        return (f"Mesh(data={self.data}, model={self.model}, rank={self.rank}"
-                f", data_rank={self.data_rank}, model_rank={self.model_rank})")
+        return (f"Mesh(data={self.data}, seq={self.seq}, model={self.model}, "
+                f"rank={self.rank}, data_rank={self.data_rank}, seq_rank="
+                f"{self.seq_rank}, model_rank={self.model_rank})")
 
 
 def model_ranks(mesh):
@@ -72,8 +97,13 @@ def model_ranks(mesh):
     return 1 if mesh is None else mesh.model
 
 
+def seq_ranks(mesh):
+    """The sequence-parallel degree of ``mesh`` (1 without one)."""
+    return 1 if mesh is None else mesh.seq
+
+
 def init_distributed(backend=None, init_method=None, rank=None,
-                     world_size=None, device=None, timeout_s=600):
+                     world_size=None, device="cuda", timeout_s=600):
     """Join the process group of a multi-process run and return this
     process's device.
 
@@ -81,15 +111,18 @@ def init_distributed(backend=None, init_method=None, rank=None,
     ``WORLD_SIZE``, ``LOCAL_RANK``, and ``MASTER_ADDR``/``MASTER_PORT`` for
     the ``env://`` rendezvous) and does nothing in a single process (no
     ``WORLD_SIZE`` above 1), returning ``device``. ``device`` "cuda" (the
-    default where a card is visible) becomes ``cuda:LOCAL_RANK``; the
-    backend is then NCCL, else gloo, unless ``backend`` names one."""
+    default) needs a visible card (``utils/helpers.resolve_device``: no
+    card raises, nothing lands on the CPU unasked) and becomes
+    ``cuda:LOCAL_RANK``; the backend is then NCCL, else gloo, unless
+    ``backend`` names one."""
+    # helpers imports the optimizer, which imports this module
+    from videotransformer_tpu_torch.utils.helpers import resolve_device
+
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
     if rank is None:
         rank = int(os.environ.get("RANK", "0"))
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if init_method is None and world_size <= 1:
@@ -105,46 +138,77 @@ def init_distributed(backend=None, init_method=None, rank=None,
     return device
 
 
-def create_mesh(data=-1, model=1, device="cpu"):
-    """The data, model and mixup-pair groups of this rank over the
-    initialised process group (``data=-1``: the world over ``model``), its
-    tensors on ``device``. Every rank calls it, in the same order, as
-    ``torch.distributed.new_group`` requires."""
+def create_mesh(data=-1, model=1, device="cpu", seq=1):
+    """The data, seq, model, replica and mixup-pair groups of this rank
+    over the initialised process group (``data=-1``: the world over ``seq
+    · model``), its tensors on ``device``. Every rank calls it, in the same
+    order, as ``torch.distributed.new_group`` requires."""
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs torch.distributed initialised "
                            "(init_distributed)")
     world, rank = dist.get_world_size(), dist.get_rank()
     if data == -1:
-        if world % model:
-            raise ValueError(f"world {world} is not a multiple of model "
-                             f"{model}")
-        data = world // model
-    if data * model != world:
-        raise ValueError(f"data {data} x model {model} != world {world}")
-    model_groups = [dist.new_group([d * model + m for m in range(model)])
-                    for d in range(data)]
-    data_groups = [dist.new_group([d * model + m for d in range(data)])
-                   for m in range(model)]
-    pair_groups = {}
-    for m in range(model):
-        for d in range(data // 2):
-            pair = [d * model + m, (data - 1 - d) * model + m]
-            group = dist.new_group(pair)
-            pair_groups.update(dict.fromkeys(pair, group))
-    return Mesh(data, model, rank, data_groups[rank % model],
-                model_groups[rank // model], device, pair_groups.get(rank))
+        if world % (seq * model):
+            raise ValueError(f"world {world} is not a multiple of seq {seq} "
+                             f"x model {model}")
+        data = world // (seq * model)
+    if data * seq * model != world:
+        raise ValueError(f"data {data} x seq {seq} x model {model} != world "
+                         f"{world}")
+    at = lambda d, s, m: (d * seq + s) * model + m
+    grid = [(d, s, m) for d in range(data) for s in range(seq)
+            for m in range(model)]
+    d0, s0, m0 = grid[rank]
+
+    def groups(key):
+        """One group for each value of ``key`` (every rank builds every
+        group, in the same order); this rank's."""
+        mine = None
+        for k in dict.fromkeys(key(*c) for c in grid):
+            ranks = [at(*c) for c in grid if key(*c) == k]
+            group = dist.new_group(ranks)
+            if k == key(d0, s0, m0):
+                mine = group
+        return mine
+
+    model_group = groups(lambda d, s, m: (d, s))
+    data_group = groups(lambda d, s, m: (s, m))
+    seq_group = groups(lambda d, s, m: (d, m)) if seq > 1 else None
+    replica_group = groups(lambda d, s, m: m) if seq > 1 else data_group
+    pair_group = None
+    for s in range(seq):
+        for m in range(model):
+            for d in range(data // 2):
+                pair = [at(d, s, m), at(data - 1 - d, s, m)]
+                group = dist.new_group(pair)
+                if rank in pair:
+                    pair_group = group
+    return Mesh(data, model, rank, data_group, model_group, device,
+                pair_group, seq=seq, seq_group=seq_group,
+                replica_group=replica_group)
 
 
-def rand_rows(shape, generator, dtype, device, mesh=None):
-    """``torch.rand(shape)`` of this data rank's rows of the global draw:
-    the draw is made for ``shape[0] · data ranks`` rows and cut, so every
-    rank draws what one process draws for the global batch."""
-    if mesh is None or mesh.data == 1:
+def rand_rows(shape, generator, dtype, device, mesh=None, clips=None):
+    """``torch.rand(shape)`` of this rank's rows of the global draw: the
+    draw is made for the global batch and cut, so every rank draws what one
+    process draws for the global batch. The rows are this data rank's
+    (``shape[0]`` of them, the same on each of its seq ranks) or, with
+    ``clips``, rows (clip, k) whose k is split over the seq ranks:
+    ``shape[0] = clips · k``, this data rank's clips and this seq rank's k
+    (temporal rows over patches, spatial rows over frames). Those are not
+    a contiguous slice of the flat draw."""
+    data = 1 if mesh is None else mesh.data
+    seq = 1 if mesh is None or clips is None else mesh.seq
+    if data * seq == 1:
         return torch.rand(shape, generator=generator, dtype=dtype,
                           device=device)
-    u = torch.rand((shape[0] * mesh.data,) + tuple(shape[1:]),
-                   generator=generator, dtype=dtype, device=device)
-    return shard_batch(mesh, u)
+    rest = tuple(shape[1:])
+    u = torch.rand((shape[0] * data * seq,) + rest, generator=generator,
+                   dtype=dtype, device=device)
+    if seq == 1:
+        return shard_batch(mesh, u)
+    u = u.reshape((data, clips, seq, shape[0] // clips) + rest)
+    return u[mesh.data_rank, :, mesh.seq_rank].reshape(shape)
 
 
 def shard_batch(mesh, batch):
@@ -262,13 +326,165 @@ def partner_rows(x, mesh):
     batch). ``x`` itself on the middle rank of an odd data group."""
     if mesh.pair_group is None:
         return x
-    other = (mesh.data - 1 - mesh.data_rank) * mesh.model + mesh.model_rank
+    other = mesh.data_ranks[mesh.data - 1 - mesh.data_rank]
     x = x.contiguous()
     out = torch.empty_like(x)
     for src in sorted((mesh.rank, other)):
         dist.broadcast(x if src == mesh.rank else out, src=src,
                        group=mesh.pair_group)
     return out
+
+
+def p2p_form(group):
+    """Whether the seq moves over ``group`` take the NCCL form
+    (``all_to_all_single``, ``batch_isend_irecv``); else the form built on
+    broadcasts, which gloo takes with CUDA tensors."""
+    return dist.get_backend(group) == "nccl"
+
+
+def _stacked(parts):
+    return torch.stack([p.contiguous() for p in parts])
+
+
+def _exchange(parts, mesh):
+    """All-to-all of ``parts`` (one equally shaped tensor for each seq
+    rank, in order) over the seq group: the parts addressed to this rank,
+    from each seq rank in order."""
+    send = _stacked(parts)
+    if p2p_form(mesh.seq_group):
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=mesh.seq_group)
+        return recv.unbind(0)
+    got = all_gather(send[None], mesh.seq_ranks, mesh.seq_group)
+    return got[:, mesh.seq_rank].unbind(0)
+
+
+def _all_to_all(x, mesh, split_dim, cat_dim):
+    parts = _exchange(x.chunk(mesh.seq, split_dim), mesh)
+    return torch.cat(parts, cat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``x`` split along ``split_dim`` into one part for each seq rank, the
+    parts exchanged, those received concatenated along ``cat_dim``; the
+    backward is the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, split_dim, cat_dim):
+        ctx.mesh, ctx.dims = mesh, (split_dim, cat_dim)
+        return _all_to_all(x, mesh, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return _all_to_all(g, ctx.mesh, cat_dim, split_dim), None, None, None
+
+
+def all_to_all(x, mesh, split_dim, cat_dim):
+    """``x`` cut into ``mesh.seq`` equal parts along ``split_dim``, part j
+    sent to seq rank j, and the parts this rank receives concatenated
+    along ``cat_dim`` in seq-rank order: between the temporal layout
+    (patches over seq) and the spatial one (frames over seq). Gradients
+    take the inverse move."""
+    if seq_ranks(mesh) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, split_dim, cat_dim)
+
+
+def _shift(x, mesh, step):
+    """The ``x`` of seq rank ``seq_rank - step`` (mod seq): each rank sends
+    to the rank ``step`` after it."""
+    dst = mesh.seq_ranks[(mesh.seq_rank + step) % mesh.seq]
+    src = mesh.seq_ranks[(mesh.seq_rank - step) % mesh.seq]
+    x = x.contiguous()
+    if p2p_form(mesh.seq_group):
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, dst, mesh.seq_group),
+               dist.P2POp(dist.irecv, out, src, mesh.seq_group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+    got = all_gather(x[None], mesh.seq_ranks, mesh.seq_group)
+    return got[mesh.seq_ranks.index(src)]
+
+
+class _RingShift(torch.autograd.Function):
+    """The previous seq rank's ``x`` forward (each rank sends to the next);
+    the gradient sent back to the previous rank backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _shift(x, mesh, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.mesh, -1), None
+
+
+def ring_shift(x, mesh):
+    """The ``x`` of seq rank ``seq_rank - 1`` (mod seq): one step of the
+    ring of ``parallel/sp.py::ring_prenorm_mhsa`` (JAX's ``ppermute`` to
+    the next rank). Gradients go round the other way."""
+    if seq_ranks(mesh) == 1:
+        return x
+    return _RingShift.apply(x, mesh)
+
+
+class _SumOverSeq(torch.autograd.Function):
+    """All-reduce (sum) over the seq group forward and backward: every seq
+    rank holds the sum, and each rank's gradient of it reaches every
+    term."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        x = x.clone()
+        dist.all_reduce(x, group=mesh.seq_group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.seq_group)
+        return g, None
+
+
+def sum_over_seq(x, mesh):
+    """``x`` summed over the seq group of ``mesh``, on every seq rank, with
+    its gradient summed the same way (the replicated rows' share of each
+    rank, ``parallel/sp.py``); ``x`` itself without one."""
+    if seq_ranks(mesh) == 1:
+        return x
+    return _SumOverSeq.apply(x, mesh)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather over the seq group along ``dim`` forward; the gradient
+    summed over the seq group and cut to this rank's part backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        parts = all_gather(x.movedim(dim, 0)[None], mesh.seq_ranks,
+                           mesh.seq_group)
+        return torch.cat(parts.unbind(0), 0).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.seq_group)
+        r, n = ctx.mesh.seq_rank, ctx.n
+        return g.narrow(ctx.dim, r * n, n), None, None
+
+
+def gather_seq(x, mesh, dim):
+    """``x``'s parts from every seq rank of ``mesh``, concatenated along
+    ``dim`` in seq-rank order, on every seq rank; ``x`` itself without
+    one. Gradients flow back to the rank that holds each part."""
+    if seq_ranks(mesh) == 1:
+        return x
+    return _GatherSeq.apply(x, mesh, dim)
 
 
 def even_eval_batches(batches, mesh, device, n_crops=1):

@@ -1,13 +1,15 @@
-"""One rank of a data- or tensor-parallel training run of a few steps.
+"""One rank of a data-, sequence- or tensor-parallel training run of a few
+steps.
 
     python -m videotransformer_tpu_torch.tools.mp_train_worker \\
-        --rank R --world W --init file:///path/to/store [--tp T] \\
+        --rank R --world W --init file:///path/to/store [--sp S] [--tp T] \\
         [--model b16|tiny] [--device cuda|cpu] [--backend nccl|gloo] ...
 
 (or under torchrun, which sets the rank and world). TimeSformer-B on the
 rank's card by default. Each rank builds the same trainer on a (data =
-W / T, model = T) mesh, takes its rows of a global batch made from a seed
-with numpy (``mesh.shard_batch``), and trains ``--steps`` steps; then it
+W / (S · T), seq = S, model = T) mesh, takes its data rank's rows of a
+global batch made from a seed with numpy (``mesh.shard_batch``), and
+trains ``--steps`` steps; then it
 runs the trainer's ``fit`` for one epoch over a data module of one more
 step on the same batch and of ``--eval_clips`` validation and three-crop
 test clips, read by ``Loader``s of the rank's data shard in batches of
@@ -20,6 +22,7 @@ the parameters. It prints, for the caller to hold against the same
     VAL top1 A top5 B
     TEST top1 A top5 B
     DIGEST <sha256 of the gathered parameters' bytes>
+    PEAK_GIB <the card's peak allocated memory> (on a card)
     LAUNCHES {"fused_prenorm_mhsa": n, ..., "attention": {...}, ...}
 
 (a step's host-clock and CUDA-event ms on the card, the host clock's on
@@ -28,13 +31,14 @@ attention variant) and, with ``--ckpt PREFIX``, rank 0 writes the gathered
 checkpoint after step i to PREFIX.i (``save_checkpoint``'s format). The twin of the JAX package's
 tests/mp_train_worker.py.
 
-Models: ``b16``, TimeSformer-B/16 (8 x 224, 12 layers, 400 classes), the
-trainer's own build; ``tiny``, a TimeSformer of 2 layers, width 64, 4
-heads, 2 frames at 32² (the CPU tests, with ``--device cpu``; ``--arch
-vivit``: a ViViT of the same width at 4 frames, tube 2, with 2 temporal
-layers for ``fact_encoder``; ``--objective mim``: a MaskFeat of depth 4 at
-4 frames of 32², DP only, no eval); ``--attention_type`` as the trainer
-takes it. ``--remat`` checkpoints every block (``-remat True``); under
+Models: ``b16``, TimeSformer-B/16 (8 x 224, 12 layers, 400 classes; with
+``--arch vivit`` ViViT-B/16), the trainer's own build, at ``--frames``
+(8 by default); ``tiny``, a TimeSformer of 2 layers, width 64, 4 heads, 2
+frames at 32² (the CPU tests, with ``--device cpu``; ``--arch vivit``: a
+ViViT of the same width at 4 frames, tube 2, with 2 temporal layers for
+``fact_encoder``; ``--objective mim``: a MaskFeat of depth 4 at 4 frames
+of 32², no tensor parallelism, no eval; its seq ranks are replicas);
+``--attention_type`` as the trainer takes it. ``--remat`` checkpoints every block (``-remat True``); under
 ``--tp`` each block's second forward in the backward runs its model-group
 all-reduces again.
 """
@@ -108,7 +112,8 @@ def configs(args):
     return SimpleNamespace(
         objective=args.objective, arch="mvit" if mim else args.arch,
         attention_type=args.attention_type,
-        num_class=400 if b16 else 10, num_frames=8 if b16 else frames,
+        num_class=400 if b16 else 10,
+        num_frames=args.frames or (8 if b16 else frames),
         img_size=224 if b16 else 32, optim_type=args.optim, clip_grad=1.0,
         seed=SEED, mixup=args.mixup, eval_metrics="finetune",
         use_fp16=b16, drop_path_rate=args.drop_path, layer_decay=1.0,
@@ -231,12 +236,15 @@ def parse_args(argv=None):
     p.add_argument("--backend", default=None, help="gloo or nccl")
     p.add_argument("--device", default="cuda")
     p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1)
     p.add_argument("--model", choices=("b16", "tiny"), default="b16")
     p.add_argument("--objective", choices=("supervised", "mim"),
                    default="supervised")
     p.add_argument("--arch", choices=("timesformer", "vivit"),
                    default="timesformer")
     p.add_argument("--attention_type", default="divided_space_time")
+    p.add_argument("--frames", type=int, default=None,
+                   help="frames a clip (b16: 8 by default)")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--clips", type=int, default=4,
                    help="clips of the global train batch")
@@ -262,7 +270,7 @@ def main(argv=None):
     device = _mesh.init_distributed(
         backend=args.backend, init_method=args.init, rank=args.rank,
         world_size=args.world, device=args.device)
-    mesh = _mesh.create_mesh(model=args.tp, device=device)
+    mesh = _mesh.create_mesh(model=args.tp, seq=args.sp, device=device)
     save = None if args.ckpt is None else \
         lambda i, tr: tr.save_checkpoint(f"{args.ckpt}.{i}")
     try:
@@ -270,6 +278,8 @@ def main(argv=None):
             on_step=save)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+            print(f"PEAK_GIB {torch.cuda.max_memory_allocated(device) / 2**30}",
+                  flush=True)
         print(f"LAUNCHES {json.dumps(launches())}", flush=True)
         print("WORKER OK", flush=True)
     finally:

@@ -20,9 +20,11 @@ per-tensor form (optimizer.py:350-400):
 
 Under data and tensor parallelism (a ``mesh``, ``parallel/mesh.py``):
 
-- ``reduce_gradients`` sums every gradient over the data group in one
-  coalesced all-reduce, in the parameters' order (so a step repeats to the
-  bit); the trainer makes each rank's loss its share of the global one;
+- ``reduce_gradients`` sums every gradient over the data group (or the
+  group it is given: the data and seq ranks of a sequence-parallel
+  model) in one coalesced all-reduce, in the parameters' order (so a
+  step repeats to the bit); the trainer makes each rank's loss its share
+  of the global one;
 - a parameter split over the model ranks (``sharded``) is clipped by the
   norm of the whole tensor, its shards' squared norms summed over the
   model group (the per-shard norm would clip it wrongly), and the logged
@@ -104,15 +106,15 @@ class RefOptimizer:
         for p in self.params.values():
             p.grad = None
 
-    def reduce_gradients(self, extra=()):
+    def reduce_gradients(self, extra=(), group=None):
         """Sum every gradient (zero where the loss did not reach a
-        parameter) and the tensors ``extra`` over the mesh's data group, in
-        place, in one all-reduce per dtype."""
+        parameter) and the tensors ``extra`` over ``group`` (the mesh's
+        data group by default), in place, in one all-reduce per dtype."""
         for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         all_reduce_coalesced([p.grad for p in self.params.values()]
-                             + list(extra), self.mesh.data_group)
+                             + list(extra), group or self.mesh.data_group)
 
     def _clipped_grads(self, names):
         """Per-parameter clip (each gradient scaled by min(1, clip / (its

@@ -52,23 +52,25 @@ the global step (as the JAX trainer folds the step into its key,
 trainer.py:520), so a resumed run draws what an uninterrupted one would
 have drawn.
 
-Data and tensor parallelism take a ``mesh`` (``parallel/mesh.py``; the JAX
-trainer's, trainer.py:104-137): one process a rank, ``mesh.data`` ranks
-that each take their rows of the global batch and ``mesh.model`` ranks
-that each hold a Megatron shard of the transformer blocks
-(``parallel/tp.py``; TimeSformer and ViViT only, as in the JAX package).
-A step over the mesh computes what one process computes on the global
-batch:
+Data, sequence and tensor parallelism take a ``mesh``
+(``parallel/mesh.py``; the JAX trainer's, trainer.py:104-137): one process
+a rank, ``mesh.data`` ranks that each take their rows of the global batch,
+``mesh.seq`` ranks that each hold part of every clip's tokens
+(``parallel/sp.py``) and ``mesh.model`` ranks that each hold a Megatron
+shard of the transformer blocks (``parallel/tp.py``; TimeSformer and
+ViViT only, as in the JAX package). A step over the mesh computes what one
+process computes on the global batch:
 
 - the model is built with the mesh (``build_model``), and under tensor
   parallelism as this rank's shard of the full model that the seed
   initialises;
 - every draw is made for the global batch and cut to the data rank's rows
   (the augment's, DropPath's); mixup pairs global row i with row B - 1 - i
-  (JAX mixup.py:76), which for data rank r lies on rank W - 1 - r, so each
-  rank exchanges its rows with that rank alone and mixes its own; the
-  ranks of a model group are handed the same batch (the first one's,
-  broadcast), whatever their loaders drew;
+  (JAX mixup.py:76), which for data rank r lies on rank W - 1 - r (at the
+  same seq and model rank), so each rank exchanges its rows with that rank
+  alone and mixes its own; the seq and model ranks of a data rank are
+  handed the same batch (the first one's, broadcast), whatever their
+  loaders drew;
 - each rank's loss is its share of the global loss (the supervised mean
   over the data ranks, MaskFeat's masked sum over the global batch's mask
   count, maskfeat.py:151), and one coalesced all-reduce after the backward
@@ -76,6 +78,14 @@ batch:
   group, in a fixed order, so that steps repeat to the bit (DDP's buckets
   would fill in the order the backward reaches them); with one data rank
   there is nothing to sum, and no all-reduce;
+- under sequence parallelism (TimeSformer and ViViT) every seq rank
+  computes the same logits from the replicated cls row and back-propagates
+  its share loss / (data · seq), and the gradients and the loss are summed
+  over the data and seq ranks (``Mesh.replica_group``), the top-k counts
+  counted once (``parallel/sp.py``). MaskFeat and ``arch=mvit`` call
+  nothing of it, as in the JAX package, whose seq ranks then repeat their
+  data rank's work: here they are replicas, each the one process of its
+  data rank, summed over the data group alone;
 - the initial parameters are rank 0's (a broadcast), imported and loaded
   weights are full canonical states sharded after reading, and a
   checkpoint is the gathered canonical state in the single-process
@@ -189,7 +199,7 @@ class VideoTransformerTrainer:
         self.do_test = do_test
         self.n_crops = n_crops
         self.mesh = mesh
-        self.tp = 1 if mesh is None else mesh.model
+        self.tp = _mesh.model_ranks(mesh)
         self.is_main = mesh is None or mesh.rank == 0
         self._sharded = False  # self.model holds a model rank's shard
         self._log_fh = None
@@ -211,6 +221,10 @@ class VideoTransformerTrainer:
             else build_model(configs, mesh)
         self.num_heads = next((m.num_heads for m in self.model.modules()
                                if isinstance(m, Attention)), None)
+        # the seq ranks a clip's tokens are split over (MaskFeat's seq
+        # ranks are replicas)
+        self.seq_shards = 1 if isinstance(self.model, MaskFeat) \
+            else _mesh.seq_ranks(mesh)
         if self.tp > 1:
             _tp.validate("mvit" if isinstance(self.model, MaskFeat)
                       else configs.arch, self.tp, self.num_heads)
@@ -407,27 +421,35 @@ class VideoTransformerTrainer:
                                       _mesh.partner_rows(labels, mesh)))
 
     def _model_group_batch(self, batch):
-        """The batch on the device, under tensor parallelism the model
-        group's first rank's: its ranks must run the same clips, and host
-        draws made by loader threads need not agree."""
+        """The batch on the device, under tensor and sequence parallelism
+        the first rank's of its data rank (over the model group, then over
+        the seq group): its ranks must run the same clips, and host draws
+        made by loader threads need not agree."""
         batch = {k: v if v is None else _as_tensor(v, self.device)
                  .contiguous() for k, v in batch.items()}
+        tensors = [v for v in batch.values() if v is not None]
         if self.tp > 1:
-            _mesh.broadcast_(
-                [v for v in batch.values() if v is not None],
-                src=self.mesh.model_ranks[0], group=self.mesh.model_group)
+            _mesh.broadcast_(tensors, src=self.mesh.model_ranks[0],
+                             group=self.mesh.model_group)
+        if self.mesh.seq > 1:
+            _mesh.broadcast_(tensors, src=self.mesh.seq_ranks[0],
+                             group=self.mesh.seq_group)
         return batch
 
     def _reduce_step(self, loss, extra=()):
         """After the backward: sum the gradients, the loss shares and
-        ``extra`` (counts) over the data group in one all-reduce; returns
-        the global loss and ``extra``. One data rank holds them already."""
-        if self.mesh.data == 1:
+        ``extra`` (counts) over the data group (the data and seq ranks
+        under sequence parallelism, the counts then divided by the seq
+        ranks that each counted them) in one all-reduce; returns the
+        global loss and ``extra``. One rank holds them already."""
+        seq = self.seq_shards
+        if self.mesh.data * seq == 1:
             return loss.detach(), list(extra)
         stats = torch.stack([loss.detach().float()]
                             + [e.float() for e in extra])
-        self.optimizer.reduce_gradients([stats])
-        return stats[0], list(stats[1:])
+        self.optimizer.reduce_gradients(
+            [stats], self.mesh.replica_group if seq > 1 else None)
+        return stats[0], [e / seq for e in stats[1:]]
 
     def train_step(self, batch, lr, wd):
         """One step: forward, backward, clip, update; counts one global step.
@@ -471,7 +493,7 @@ class VideoTransformerTrainer:
             acc_labels = labels
         bs = logits.shape[0]
         if self.mesh is not None:  # this rank's share of the global mean
-            loss = loss / self.mesh.data
+            loss = loss / (self.mesh.data * self.seq_shards)
             bs *= self.mesh.data
         loss.backward()
         correct = topk_correct(logits.detach(), acc_labels)

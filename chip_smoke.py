@@ -84,6 +84,23 @@ weights from a seed:
   memory beside the one process's; then parallel/sp.py's ring at (8,
   1569, 768) over two gloo ranks, its output and every gradient against
   one process's B1 + B3 long (1e-2 of max|ref|), timed beside them;
+- pipeline parallel (a generator of its own, SEED + 9): B1-B4 at the
+  microbatches' shapes (a microbatch of c clips: temporal rows (c · 196,
+  8, 768), spatial (c · 8, 197, 768), FFN rows c · 1569; forward and
+  backward at c = 4 and 2, forward at the eval microbatches' 3 and 1; B1
+  and B3 long at (4, 1569, 768)), against their plain versions, rows
+  under "phases"; then, on this card over gloo, the worker's
+  TimeSformer-B run over PP = 2 (two ranks, M = 2 microbatches of 4
+  clips: three steps and the fit) and over PP = 2 at M = 4 (one step),
+  and ViViT-B joint at 16x224 over PP = 2 (one step,
+  B1/B3 long at (4, 1569, 768)) against this process's one-process step,
+  each rank's steps within the train phase's bounds of one process, the
+  ranks' lines identical, each rank's launches those of its stage's
+  blocks once a microbatch, its peak device memory and its step ms by
+  CUDA events and the clock; graft_entry.dryrun_multichip(4) on the card
+  (dp2 x tp2 and dp2 x pp2 against one process); a stage move of (4,
+  1569, 768) bf16 timed over gloo. Two ranks share the card, so these
+  times are no pipeline speed and no bubble;
 - memory (a generator of its own, SEED + 6): B3's recompute mode (qkv
   rebuilt from x, RECOMPUTE_QKV) at the train shapes (64, 197, 768) and
   (1568, 8, 768), the long (8, 1569, 768) and the CUDA-core (8, 9, 768)
@@ -156,7 +173,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from videotransformer_tpu_torch import model_pretrain
+from videotransformer_tpu_torch import graft_entry, model_pretrain
 from videotransformer_tpu_torch.benchmarks import (
     profile_train, run_all, serve_bench, trace_infer, trace_step)
 from videotransformer_tpu_torch.data import device_augment, pipeline
@@ -2341,7 +2358,8 @@ def sp_shard_phases(rng):
     return report
 
 
-def check_worker_run(what, outs, ref_steps, ref_peak, want, card):
+def check_worker_run(what, outs, ref_steps, ref_peak, want, card,
+                     label="sequence parallel"):
     """Every rank's lines alike, its steps within the train phase's bounds
     of the one-process run, its launches and attention variants ``want``;
     logs each rank's peak beside the one process's. Returns the ranks'
@@ -2356,7 +2374,7 @@ def check_worker_run(what, outs, ref_steps, ref_peak, want, card):
             (what, rank, launch)
         assert launch["attention"] == want_fwd, (what, launch)
         assert launch["attention_bwd"] == saved_mode(want_bwd), (what, launch)
-        log(f"sequence parallel {what} rank {rank}: launches "
+        log(f"{label} {what} rank {rank}: launches "
             f"{ {n: launch[n] for n in KERNEL_NAMES} }, B1 "
             f"{launch['attention']}, B3 {launch['attention_bwd']}; peak "
             f"{launch['peak_gib']:.3f} GiB (one process {ref_peak:.3f} GiB)")
@@ -2366,7 +2384,7 @@ def check_worker_run(what, outs, ref_steps, ref_peak, want, card):
     for i, (k, p) in enumerate(zip(steps, ref_steps)):
         dl = abs(k[0] - p[0]) / abs(p[0])
         dn = abs(k[1] - p[1]) / abs(p[1])
-        log(f"sequence parallel {what} step {i}: loss {k[0]:.6f} (one "
+        log(f"{label} {what} step {i}: loss {k[0]:.6f} (one "
             f"process {p[0]:.6f}, rel {dl:.2e}, tol {LOSS_REL_TOL}), "
             f"grad_norm {k[1]:.6f} (one process {p[1]:.6f}, rel {dn:.2e}, "
             f"tol {NORM_REL_TOL}); {k[2]:.1f} ms on the clock, "
@@ -2510,6 +2528,224 @@ def sequence_parallel_phase(card, ref):
             numbers[f"{what}_one_process_peak_gib"] = refs[what][1]
         numbers.update(ring_check(tmp, rng, card))
     log(f"sequence parallel numbers: {json.dumps(numbers)}")
+    return launches, report
+
+
+# ---------------------------------------------------------------- pipeline
+
+PP_STAGES = 2
+# ViViT-B joint at 16x224 over PP = 2, one step (B1/B3 long on each
+# stage's microbatches of 4 clips, (4, 1569, 768))
+PP_VIVIT_ARGS = ["--model", "b16", "--device", "cuda", "--clips",
+                 str(TRAIN_CLIPS), "--drop_path", "0.1", "--lr",
+                 str(TRAIN_LR), "--arch", "vivit", "--attention_type",
+                 "joint_space_time", "--frames", str(VIVIT_FRAMES),
+                 *SP_ONE_STEP]
+# the parallel phase's eval: 3 clips in batches of 2 (one data rank), a
+# test batch's rows 3 crops a clip
+PP_EVAL_ROWS = (2, 1, 2 * CROPS, 1 * CROPS)
+MOVE_SHAPE = (TRAIN_CLIPS // PP_STAGES, LONG_SHAPE[1], D)
+MOVE_ITERS = 10
+# one rank of the stage-move timing: MOVE_ITERS moves of a microbatch's
+# activations from stage 0 to stage 1 over gloo, each timed by CUDA events
+# on both ends and the host clock, the bits checked
+MOVE_RANK = """
+import json, sys, time, torch
+from videotransformer_tpu_torch.parallel import mesh
+rank, store = int(sys.argv[1]), sys.argv[2]
+shape, seed = tuple(json.loads(sys.argv[3])), int(sys.argv[4])
+dev = mesh.init_distributed("gloo", store, rank, 2, "cuda")
+m = mesh.create_mesh(pipe=2, device=dev)
+g = torch.Generator(device=dev).manual_seed(seed)
+x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+times = []
+for i in range(%d + 1):
+    mesh.barrier(m)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    t0 = time.perf_counter()
+    start.record()
+    if rank == 0:
+        mesh.send_stage(x, m, 1)
+    else:
+        y = mesh.recv_stage(shape, torch.bfloat16, m, 0)
+    end.record()
+    end.synchronize()
+    if i:
+        times.append([start.elapsed_time(end),
+                      (time.perf_counter() - t0) * 1e3])
+if rank == 1:
+    assert torch.equal(y, x)
+print("MOVE_MS " + json.dumps(times), flush=True)
+torch.distributed.destroy_process_group()
+print("WORKER OK", flush=True)
+""" % MOVE_ITERS
+
+
+def pipeline_want(steps, microbatches, eval_rows=(), joint=False):
+    """One pipe rank's launches over ``steps`` train steps and the eval
+    batches of ``eval_rows`` rows: each of its DEPTH / PP_STAGES blocks
+    runs once a microbatch (an eval batch of fewer rows than microbatches
+    runs fewer); a divided block 2 B1 (packed temporal, dense spatial) and
+    1 B2, a joint one 1 B1 (long) and 1 B2, and the backward B3 and B4
+    alike. (kernel counts, B1's variants, B3's variants)."""
+    per = DEPTH // PP_STAGES
+    fwd = (steps * microbatches
+           + sum(min(r, microbatches) for r in eval_rows)) * per
+    bwd = steps * microbatches * per
+    attn = 1 if joint else 2
+    by = (lambda n: variants(long=n)) if joint else \
+        (lambda n: variants(packed=n, dense=n))
+    return ({"fused_prenorm_mhsa": attn * fwd, "fused_prenorm_ffn": fwd,
+             "fused_prenorm_mhsa_bwd": attn * bwd,
+             "fused_prenorm_ffn_bwd": bwd, "flash_attention": 0,
+             "flash_attention_bwd": 0}, by(fwd), by(bwd))
+
+
+def time_stage_move(tmp, rng, card):
+    """A microbatch's activations (MOVE_SHAPE, bf16, normal from a seed of
+    ``rng``) from stage 0 to stage 1 over gloo, two ranks on this card,
+    MOVE_ITERS times: each end's CUDA-event and host ms."""
+    store = f"file://{os.path.join(tmp, 'move_store')}"
+    seed = str(int(rng.integers(0, 2**31)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MOVE_RANK, str(r), store,
+         json.dumps(MOVE_SHAPE), seed], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = wait_workers(procs)
+    times = [json.loads(ln[len("MOVE_MS "):]) for o in outs
+             for ln in o.splitlines() if ln.startswith("MOVE_MS ")]
+    mb = np.prod(MOVE_SHAPE) * 2 / 1e6
+    mean = lambda rows, i: sum(r[i] for r in rows) / len(rows)
+    log(f"pipeline stage move of {MOVE_SHAPE} bf16 ({mb:.2f} MB) over gloo, "
+        f"two ranks on one card: sender {mean(times[0], 0):.3f} ms of CUDA "
+        f"events / {mean(times[0], 1):.3f} ms on its clock, receiver "
+        f"{mean(times[1], 0):.3f} / {mean(times[1], 1):.3f} ms (mean of "
+        f"{MOVE_ITERS}; gloo stages the bytes through the host, so this is "
+        f"no card-to-card rate) on {card}")
+    return {"move_mb": mb, "move_ms_sender": times[0],
+            "move_ms_receiver": times[1]}
+
+
+def pp_microbatch_phases(rng):
+    """B1-B4 at the pipeline phase's microbatch shapes, against their plain
+    versions: TimeSformer-B divided a microbatch of c clips, temporal rows
+    (c · 196, 8, 768), spatial (c · 8, 197, 768), the FFN's c · 1569 rows
+    (ViViT-B joint's too), forward and backward at c = 4 (M = 2) and 2
+    (M = 4), forward at the eval microbatches' 3 and 1; B1 and B3 long at
+    ViViT-B joint's (4, 1569, 768). Under "phases", outside the totals."""
+    fwd, bwd = [], []
+    for c, what in ((TRAIN_CLIPS // 2, "train, M = 2"),
+                    (TRAIN_CLIPS // 4, "train, M = 4"),
+                    (CROPS, "eval, 3 rows"), (1, "eval, 1 row")):
+        cases = [("block-diagonal temporal", (c * PATCHES, FRAMES, D),
+                  FRAMES),
+                 ("dense spatial", (c * FRAMES, 1 + PATCHES, D), 0),
+                 (f"rows, hidden {4 * D}", (c * (1 + PATCHES * FRAMES), D),
+                  None)]
+        for kernels, rows in ((("fused_prenorm_mhsa", "fused_prenorm_ffn"),
+                               fwd),
+                              (("fused_prenorm_mhsa_bwd",
+                                "fused_prenorm_ffn_bwd"), bwd)):
+            if rows is bwd and what.startswith("eval"):
+                continue
+            rows += [(kernels[bd is None],
+                      f"{label} {shape}, pipeline microbatch, {what}",
+                      shape, bd, 1e-5, False, 1)
+                     for label, shape, bd in cases]
+    long_shape = (TRAIN_CLIPS // 2,) + LONG_SHAPE[1:]
+    long_label = (f"long joint space-time {long_shape}, pipeline "
+                  f"microbatch, ViViT-B joint M = 2")
+    fwd.append(("fused_prenorm_mhsa", long_label, long_shape, 0, 1e-5,
+                False, 1))
+    bwd.append(("fused_prenorm_mhsa_bwd", long_label, long_shape, 0, 1e-5,
+                False, 1))
+    with torch.inference_mode():
+        report = kernel_phases(rng, fwd, SHARD_ITERS)
+        report += backward_phases(rng, bwd, SHARD_ITERS)
+    for e in report:
+        if e["name"].startswith("fused_prenorm_mhsa"):
+            want = ("packed" if "temporal" in e["phase"] else
+                    "long" if "long" in e["phase"] else "dense")
+            assert e["variant"] == want, e
+    return report
+
+
+def pipeline_parallel_phase(card, ref):
+    """Pipeline parallelism on the card (its own generator, SEED + 9, for
+    the kernel rows' inputs and the moved tensor): B1-B4 first, alone, at
+    the microbatches' shapes (pp_microbatch_phases); then, all at once on
+    this card over gloo, tools/mp_train_worker.py's TimeSformer-B
+    (divided, 8 x 224, 8 clips, the parallel phase's run) over PP = 2 (two
+    ranks, M = 2: three steps and the fit epoch) and over PP = 2 at M = 4
+    (one step), and ViViT-B joint at 16 x 224 over PP = 2 (one step, B1/B3
+    long on microbatches of 4 clips) while this process runs its
+    one-process step; each rank's steps held against the one-process run
+    (``ref``: the parallel phase's steps and peak) within the train
+    phase's bounds, the ranks' lines identical, each rank's launches (its
+    stage's blocks, once a microbatch) and attention variants asserted,
+    its peak GiB, step ms by CUDA events and the host clock printed; then
+    graft_entry's dryrun_multichip(4) on the card, and a stage move timed
+    alone. Two ranks share one card: the times are no pipeline speed and
+    no bubble. Returns (the workers' launches, the kernel rows)."""
+    ref_steps, ref_peak = ref
+    rng = np.random.default_rng(SEED + 9)
+    report = pp_microbatch_phases(rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wants = {"pp2": pipeline_want(PARALLEL_STEPS, 2, PP_EVAL_ROWS),
+             "pp2-m4": pipeline_want(1, 4),
+             "vivit-joint-pp2": pipeline_want(1, 2, joint=True)}
+    pp_flags = ["--pp", str(PP_STAGES)]
+    vivit_args = mp_train_worker.parse_args(PP_VIVIT_ARGS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        runs = {"pp2": spawn_workers(tmp, "pp2", pp_flags),
+                "pp2-m4": spawn_workers(
+                    tmp, "pp2-m4", pp_flags + ["--pp_microbatch", "4",
+                                               *SP_ONE_STEP]),
+                "vivit-joint-pp2": spawn_workers(
+                    tmp, "vivit-joint-pp2", pp_flags, base=PP_VIVIT_ARGS)}
+        vivit_out, _, vivit_tr, vivit_peak = run_in_process(vivit_args)
+        del vivit_tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            graft_entry.dryrun_multichip(4, device="cuda")
+        dryrun = out.getvalue().strip()
+        log(f"pipeline dryrun_multichip(4) on {card}, four gloo ranks on one "
+            f"card, bf16 at width 128: {dryrun} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        outs = {what: wait_workers(procs) for what, procs in runs.items()}
+        refs = {"pp2": (ref_steps, ref_peak),
+                "pp2-m4": (ref_steps[:1], ref_peak),
+                "vivit-joint-pp2": (parse_worker(vivit_out)[0], vivit_peak)}
+        launches = dict.fromkeys(KERNEL_NAMES, 0)
+        numbers = {"dryrun": dryrun}
+        for what, worker_outs in outs.items():
+            got, _, peaks = check_worker_run(
+                what, worker_outs, *refs[what], wants[what], card,
+                label="pipeline parallel")
+            for n in KERNEL_NAMES:
+                launches[n] += got[n]
+            ms = [[(s[2], s[3]) for s in parse_worker(o)[0]]
+                  for o in worker_outs]
+            for rank, rank_ms in enumerate(ms):
+                log(f"pipeline parallel {what} rank {rank} steps (host ms, "
+                    f"CUDA-event ms): {rank_ms}; peak {peaks[rank]:.3f} GiB "
+                    f"(one process {refs[what][1]:.3f} GiB); two ranks "
+                    f"sharing the card: no pipeline speed, no bubble")
+            numbers[f"{what}_steps_ms"] = ms
+            numbers[f"{what}_peak_gib"] = peaks
+            numbers[f"{what}_one_process_peak_gib"] = refs[what][1]
+        numbers.update(time_stage_move(tmp, rng, card))
+    per_boundary = 2 * 2 * np.prod(MOVE_SHAPE) * 2 / 1e6
+    log(f"pipeline parallel: each step moves {per_boundary:.1f} MB across "
+        f"the stage boundary at M = 2 (2 microbatches of {MOVE_SHAPE} bf16 "
+        f"forward, their gradients back)")
+    numbers["boundary_mb_per_step_m2"] = per_boundary
+    log(f"pipeline parallel numbers: {json.dumps(numbers)}")
     return launches, report
 
 
@@ -3248,6 +3484,13 @@ def main():
     t0 = lap("sequence parallel", t0)
     torch.cuda.empty_cache()
 
+    # ---- pipeline parallelism: each worker's counts from its start
+    # (pipeline_parallel_phase)
+    pp_launches, pp_report = pipeline_parallel_phase(card, par_ref)
+    report += pp_report
+    t0 = lap("pipeline parallel", t0)
+    torch.cuda.empty_cache()
+
     # ---- the memory levers: counts from 0 before each step and before the
     # attention-weights forward (memory_phase)
     mem_launches, mem_recomputed, mem_report = memory_phase(card)
@@ -3294,6 +3537,7 @@ def main():
                    "checkpoint": ckpt_launches[name],
                    "parallel": par_launches[name],
                    "sequence_parallel": sp_launches[name],
+                   "pipeline_parallel": pp_launches[name],
                    "memory": mem_launches[name],
                    "tools": tools_launches[name]}
         assert sum(by_path.values()) > 0, (name, by_path)

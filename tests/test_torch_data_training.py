@@ -205,17 +205,22 @@ def test_parse_args_matches_the_jax_cli():
         cli.parse_args(REQUIRED + ["-use_fp16", "maybe"])
 
 
-@pytest.mark.parametrize("flags,what", [
-    # -tp and -sp are ported (tests/test_torch_parallel*.py,
-    # test_torch_sequence_parallel.py); beside them -pp is not
-    (["-sp", "2", "-pp", "2"], "A11"), (["-tp", "2", "-sp", "2", "-pp", "2"],
-                                        "A11"),
-    (["-pp", "2"], "A11"),
-    (["-scan_layers", "True"], "not ported")])
-def test_unported_flags_raise(tmp_path, flags, what):
+@pytest.mark.parametrize("flags,error,what", [
+    # -tp, -sp and -pp are ported (tests/test_torch_parallel*.py,
+    # test_torch_sequence_parallel.py, test_torch_pipeline_parallel.py);
+    # -pp goes with data parallelism alone, as in the JAX trainer
+    # (pp_trainer.py:60-62), and needs torchrun
+    (["-sp", "2", "-pp", "2"], SystemExit,
+     "pp composes with data parallelism only"),
+    (["-tp", "2", "-sp", "2", "-pp", "2"], SystemExit,
+     "pp composes with data parallelism only"),
+    (["-pp", "2", "-objective", "supervised", "-device", "cpu"], SystemExit,
+     "-pp 2 needs 2 processes or more \\(torchrun"),
+    (["-scan_layers", "True"], NotImplementedError, "not ported")])
+def test_unported_flags_raise(tmp_path, flags, error, what):
     argv = REQUIRED[:-4] + ["-root_dir", str(tmp_path), "-train_data_path",
                             "t.txt"] + flags
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(error, match=what):
         cli.single_run(argv)
     assert not os.listdir(tmp_path)  # refused before anything is written
 

@@ -23,6 +23,7 @@ tests/test_torch_parallel_mp.py):
   (exact gradient 0: AdamW follows the rounding noise) within 6·lr.
 """
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -202,9 +203,14 @@ def test_parallel_flags_accepted_as_in_jax(extra):
 
 
 @pytest.mark.parametrize("flag", ["-pp"])
-def test_sequence_and_pipeline_parallelism_still_refused(flag):
-    with pytest.raises(NotImplementedError, match="A11"):
-        pcli.single_run(BASE + [flag, "2", "-device", "cpu"])
+def test_sequence_and_pipeline_parallelism_still_refused(flag, tmp_path):
+    """``-pp`` is ported: in one process it is refused as ``-tp`` and
+    ``-sp`` are (the CLI needs torchrun), before anything is written."""
+    argv = [str(tmp_path) if a == "/tmp" else a for a in BASE]
+    with pytest.raises(SystemExit,
+                       match="-pp 2 needs 2 processes or more \\(torchrun"):
+        pcli.single_run(argv + [flag, "2", "-device", "cpu"])
+    assert not os.listdir(tmp_path)
 
 
 def test_tp_without_processes_refused(tmp_path):

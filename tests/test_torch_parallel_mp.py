@@ -148,7 +148,7 @@ def _one_process(argv):
     lines, params = [], []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ptrainer, "build_model", ptrainer.build_model)
-        worker.use_tiny_models(args.objective)
+        worker.use_tiny_models(args.objective, args.layers)
         tr = worker.run(args, "cpu", out=lines.append, on_step=lambda i, t:
                         params.append({k: np.array(v) for k, v in
                                        flatten_tree(t.params_tree()).items()}))
@@ -211,7 +211,7 @@ def _check(outs, argv, ckpt, adamw=True, first=(1e-4, 1e-6), data=1):
     for step, (rtol, atol) in ((0, first), (last, (5e-4, 5e-5))):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(ptrainer, "build_model", ptrainer.build_model)
-            worker.use_tiny_models(args.objective)
+            worker.use_tiny_models(args.objective, args.layers)
             tr = ptrainer.VideoTransformerTrainer(worker.configs(args),
                                                   "cpu")
             tr.load_checkpoint(f"{ckpt}.{step}")

@@ -185,7 +185,9 @@ def test_port_never_imports_jax():
                 "tools/visualize_maskfeat.py", "benchmarks/__init__.py",
                 "benchmarks/common.py", "benchmarks/trace_step.py",
                 "benchmarks/trace_infer.py", "benchmarks/profile_train.py",
-                "benchmarks/serve_bench.py", "benchmarks/run_all.py"):
+                "benchmarks/serve_bench.py", "benchmarks/run_all.py",
+                "parallel/pp.py", "training/stacked_trainer.py",
+                "training/pp_trainer.py", "graft_entry.py"):
         assert os.path.join(port, new) in files, new
     banned = ("jax", "flax")
     for path in files:

@@ -8,17 +8,22 @@
         [-device_augment True] [-device cpu]
 
 Under torchrun (``torchrun --nproc_per_node N -m
-videotransformer_tpu_torch.model_pretrain ... [-sp S] [-tp T]``) each
-process joins the process group (``parallel/mesh.init_distributed``: NCCL
-on ``cuda:LOCAL_RANK``, gloo with ``-device cpu``) and trains on a (data =
-N / (S · T), seq = S, model = T) mesh: data parallelism over N / (S · T)
-ranks, each clip's tokens split over S (``parallel/sp.py``), Megatron
-tensor parallelism of the blocks over T (``-batch_size`` clips a data
-rank).
+videotransformer_tpu_torch.model_pretrain ... [-sp S] [-tp T] [-pp P
+[-pp_microbatch M]]``) each process joins the process group
+(``parallel/mesh.init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo with
+``-device cpu``) and trains on a (data = N / (S · T · P), seq = S, model =
+T, pipe = P) mesh: data parallelism over N / (S · T · P) ranks, each
+clip's tokens split over S (``parallel/sp.py``), Megatron tensor
+parallelism of the blocks over T, the blocks split by depth over P stages
+run as a GPipe schedule of M microbatches (``training/pp_trainer.py``; 0:
+one a stage) (``-batch_size`` clips a data rank). ``-pp`` goes with data
+parallelism alone, as in the JAX package.
 
-``single_run`` validates ``-tp``/``-sp`` as the JAX CLI does
-(``validate_parallel_flags``), scales the LR by the global batch over 256
-(the data ranks' batches only, JAX model_pretrain.py:237-241), names the
+``single_run`` validates ``-tp``/``-sp`` as the JAX CLI does, and ``-pp``
+as the JAX trainer does (``validate_parallel_flags``; the rows a data rank
+must split into microbatches once the mesh is known), all before anything
+is written, scales the LR by the global batch over 256 (the data ranks'
+batches only, JAX model_pretrain.py:237-241), names the
 run's results/{tag}/{ckpt,log} directories by the same tag (a long tag is
 cut with a hash), seeds numpy, ``random``, the transforms' generator and
 torch, builds the ``KineticsDataModule`` over the data rank's shard,
@@ -30,10 +35,10 @@ Differences from the JAX CLI, on purpose:
 - Flags of ``type=bool`` in the JAX CLI parse by value here: ``-use_fp16
   False`` is False. argparse's ``type=bool`` makes any non-empty string
   True, so the JAX CLI (and the reference) read ``False`` as True.
-- Flags the port cannot honour raise ``NotImplementedError``: ``-pp``
-  above 1 (pipeline parallelism, the rest of ROADMAP queue A item A11)
-  and ``-scan_layers True`` (not ported: a lax.scan layout). ``-sp`` and
-  ``-tp`` above 1 need as many processes (torchrun). ``-remat True`` checkpoints every TimeSformer or ViViT block
+- ``-scan_layers True`` raises ``NotImplementedError`` (not ported: a
+  lax.scan layout). ``-sp``, ``-tp`` and ``-pp`` above 1 need as many
+  processes (torchrun). ``-remat True`` checkpoints every TimeSformer or
+  ViViT block
   (MaskFeat ignores it, as in JAX). ``-fused_adamw`` only changes how the
   JAX optimizer lays out its small leaves, and ``-gpus`` and
   ``-multi_crop`` are read by neither trainer.
@@ -165,13 +170,18 @@ def parse_args(argv=None):
                         help="sequence-parallel size (a clip's tokens split "
                              "over the seq ranks)")
     parser.add_argument("-pp", type=int, default=1,
-                        help="pipeline-parallel stages (not ported)")
+                        help="pipeline-parallel stages (the blocks split "
+                             "by depth, a GPipe schedule)")
     parser.add_argument("-pp_microbatch", type=int, default=0,
-                        help="GPipe microbatches per step (not ported)")
+                        help="GPipe microbatches per step (0 = pp stage "
+                             "count)")
     parser.add_argument("-scan_layers", type=str_to_bool, default=False,
                         help="the JAX package's lax.scan layer stack (not "
                              "ported)")
     return parser.parse_args(argv)
+
+
+B16_LAYERS = 12  # the trainer's TimeSformer-B and ViViT-B builds
 
 
 def validate_parallel_flags(args):
@@ -179,26 +189,26 @@ def validate_parallel_flags(args):
     model_pretrain.py:170-195, the same checks and messages): MViT under
     -tp, a -tp that does not divide the 12 heads of the B/16 builders, and
     a -sp that is not over divided attention rows or does not divide both
-    the (effective) frame and the patch count."""
+    the (effective) frame and the patch count; then a -pp that the JAX
+    trainer refuses (pp_trainer.py:55-71): beside -tp or -sp, outside its
+    scope, or not dividing the B/16 builds' 12 layers."""
     from videotransformer_tpu_torch.parallel import sp as _sp
     from videotransformer_tpu_torch.parallel import tp as _tp
+    from videotransformer_tpu_torch.training import pp_trainer
 
     tp, sp = getattr(args, "tp", 1), getattr(args, "sp", 1)
     try:
         _tp.validate(args.arch, tp)
         _sp.validate(args.arch, args.attention_type, args.num_frames,
                      args.img_size, sp)
+        if getattr(args, "pp", 1) > 1:
+            pp_trainer.check_flags(args, B16_LAYERS)
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
 
 
 def refuse_unported(args):
     """Raise NotImplementedError for flags the port cannot honour."""
-    if args.pp > 1:
-        raise NotImplementedError(
-            f"-pp {args.pp}: pipeline parallelism is not ported (the rest "
-            "of ROADMAP queue A, item A11); the port has data parallelism "
-            "(torchrun), -sp and -tp")
     if args.scan_layers:
         raise NotImplementedError(
             "-scan_layers True: the lax.scan layer stack is not ported "
@@ -244,6 +254,7 @@ def single_run(argv=None):
 
     from videotransformer_tpu_torch.data import transforms as T
     from videotransformer_tpu_torch.parallel import mesh as _mesh
+    from videotransformer_tpu_torch.training import pp_trainer
     from videotransformer_tpu_torch.training.data_module import (
         KineticsDataModule)
     from videotransformer_tpu_torch.training.trainer import (
@@ -255,18 +266,31 @@ def single_run(argv=None):
     world = 1
     if torch.distributed.is_initialized():
         world = torch.distributed.get_world_size()
-        mesh = _mesh.create_mesh(model=args.tp, seq=args.sp, device=device)
+        mesh = _mesh.create_mesh(model=args.tp, seq=args.sp, pipe=args.pp,
+                                 device=device)
     else:
-        for flag in ("sp", "tp"):
+        for flag in ("sp", "tp", "pp"):
             n = getattr(args, flag)
             if n > 1:
                 raise SystemExit(f"-{flag} {n} needs {n} processes or more "
                                  "(torchrun --nproc_per_node)")
+    trainer_cls = VideoTransformerTrainer
+    if args.pp > 1:  # a data rank's token rows into the microbatches
+        rows = args.batch_size * (args.num_frames if args.attention_type
+                                  == "space_only" else 1)
+        try:
+            pp_trainer.check_rows(rows * mesh.data,
+                                  pp_trainer.microbatch_count(args),
+                                  mesh.data)
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from None
+        trainer_cls = pp_trainer.PipelineTrainer
     # linear LR scale by the global batch over 256 (model_pretrain.py:
-    # 158-164): the data-parallel ranks' batches only, as sequence- and
-    # tensor-parallel ranks share one (JAX model_pretrain.py:237-241)
-    args.lr = args.lr * args.batch_size * (world // (args.tp * args.sp)) \
-        / 256
+    # 158-164): the data-parallel ranks' batches only, as sequence-,
+    # tensor- and pipeline-parallel ranks share one (JAX
+    # model_pretrain.py:237-241)
+    args.lr = args.lr * args.batch_size * (
+        world // (args.tp * args.sp * args.pp)) / 256
     run_dir = os.path.join(args.root_dir, "results", exp_tag(args))
     ckpt_dir = os.path.join(run_dir, "ckpt")
     log_dir = os.path.join(run_dir, "log")
@@ -286,7 +310,7 @@ def single_run(argv=None):
         num_processes=1 if mesh is None else mesh.data)
     if args.resume and not args.resume_from_checkpoint:
         args.resume_from_checkpoint = resolve_resume_checkpoint(ckpt_dir)
-    trainer = VideoTransformerTrainer(
+    trainer = trainer_cls(
         configs=args, device=device, ckpt_dir=ckpt_dir,
         do_eval=args.val_data_path is not None,
         do_test=args.test_data_path is not None, log_dir=log_dir, mesh=mesh)

@@ -213,8 +213,16 @@ class TimeSformer(nn.Module):
                                     return_attention)
         if return_attention:
             return x
+        return self.finish(x, b)
+
+    def finish(self, x, clips):
+        """The blocks' output ``x`` of a batch of ``clips`` clips -> (clips,
+        d) features: space_only's mean over a clip's frames, the final
+        LayerNorm, the cls row (the pipeline's last stage runs it too,
+        ``parallel/pp.py``)."""
         if self.attention_type == "space_only":  # the mean over frames
-            x = _sp.seq_mean(x.reshape(b, -1, *x.shape[1:]), self.mesh)[:, 0]
+            x = _sp.seq_mean(x.reshape(clips, -1, *x.shape[1:]),
+                             self.mesh)[:, 0]
         # final LayerNorm outside the kernels: fp32 statistics, working type
         x = F.layer_norm(x.float(), x.shape[-1:], self.norm.weight.float(),
                          self.norm.bias.float(), FINAL_LN_EPS).to(x.dtype)

@@ -167,6 +167,13 @@ class ViViT(nn.Module):
             x = temporal(x, generator, return_attention)
         if return_attention:
             return x
+        return self.finish(x, b)
+
+    def finish(self, x, clips):
+        """The last stack's output ``x`` of a batch of ``clips`` clips ->
+        (clips, d) features: the final LayerNorm, then the cls row or the
+        mean of the other rows (the pipeline's last stage runs it too,
+        ``parallel/pp.py``)."""
         # final LayerNorm outside the kernels: fp32 statistics, working type
         x = F.layer_norm(x.float(), x.shape[-1:], self.norm.weight.float(),
                          self.norm.bias.float(), FINAL_LN_EPS).to(x.dtype)

@@ -29,9 +29,9 @@ drawn for the global batch under data parallelism (``mesh.rand_rows``).
 per block (blocks.py:698-736): while autograd records, each block runs
 under ``torch.utils.checkpoint`` and keeps only its input, and the backward
 runs its forward again, kernels included. DropPath's draws in that second
-forward come from a copy of the generator at its state before the block, so
-they are the first forward's, and the live generator is left where the
-first forward left it: the steps are those without remat, to the bit.
+forward come from the generator set back to its state before the block, so
+they are the first forward's, and the generator then goes back to where it
+was: the steps are those without remat, to the bit.
 
 ``return_attention`` (the JAX modules' keyword) returns the softmax
 weights of the last block's last attention and runs nothing after it:
@@ -504,21 +504,25 @@ class BasicTransformerBlock(nn.Module):
 
 def checkpointed(block, x, generator):
     """``block(x, generator)`` under ``torch.utils.checkpoint`` (module
-    doc): the backward's second forward draws from a copy of ``generator``
-    at its state before the block. ``torch.utils.checkpoint`` restores only
-    the default generators, and DropPath draws from the explicit one; with
-    no generator it draws from the default one, whose state the
+    doc): the backward's second forward draws from ``generator`` set back
+    to its state before the block (``get_state``/``set_state``), which is
+    then returned to the state it had. ``torch.utils.checkpoint`` restores
+    only the default generators, and DropPath draws from the explicit one;
+    with no generator it draws from the default one, whose state the
     checkpoint then keeps."""
     state = None if generator is None else generator.get_state()
     calls = []
 
     def run(x):
-        g = generator
-        if calls and generator is not None:  # the backward's second forward
-            g = torch.Generator(device=generator.device)
-            g.set_state(state)
-        calls.append(True)
-        return block(x, g)
+        if not calls or generator is None:
+            calls.append(True)
+            return block(x, generator)
+        now = generator.get_state()  # the backward's second forward
+        generator.set_state(state)
+        try:
+            return block(x, generator)
+        finally:
+            generator.set_state(now)
 
     return checkpoint(run, x, use_reentrant=False,
                       preserve_rng_state=generator is None)

@@ -1,18 +1,20 @@
-"""Process groups for data, sequence and tensor parallelism, and the
-collectives the trainer and the blocks run over them.
+"""Process groups for data, sequence, tensor and pipeline parallelism, and
+the collectives the trainer and the blocks run over them.
 
 Port of ``videotransformer_tpu/parallel/mesh.py`` in PyTorch's idiom: one
 process a card (``torchrun`` sets ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK``; the process trains on ``cuda:LOCAL_RANK``), and a
 ``torch.distributed`` group for each axis of the JAX mesh, ``data``,
-``seq`` and ``model``:
+``seq``, ``model`` and ``pipe``:
 
-- ``create_mesh(data, model, seq)`` keeps the JAX axis order (data
-  slowest, model fastest, mesh.py:23-44): the ``model`` ranks of one
-  (data, seq) slot are consecutive, then the ``seq`` ranks of a data slot,
-  so on a node of several cards tensor and sequence parallelism stay
-  inside the node's NVLink domain, and the gradient sums over ``data``
-  take the longer path;
+- ``create_mesh(data, model, seq, pipe)`` keeps the JAX axis order (data
+  slowest, pipe fastest, mesh.py:23-44): the ``pipe`` ranks of one (data,
+  seq, model) slot are consecutive, then the ``model`` ranks, then the
+  ``seq`` ranks of a data slot, so on a node of several cards the stage
+  moves, tensor and sequence parallelism stay inside the node's NVLink
+  domain, and the gradient sums over ``data`` take the longer path. The
+  pipe axis is there only when ``pipe`` > 1; at 1 every rank and group is
+  what it was without it;
 - ``shard_batch`` is ``shard_local_batch``'s counterpart for a caller that
   holds a global batch: this data rank's rows (the same on every seq and
   model rank of it);
@@ -26,14 +28,18 @@ process a card (``torchrun`` sets ``RANK``, ``WORLD_SIZE`` and
 - ``all_to_all`` and ``ring_shift`` move activations between the seq ranks
   (``parallel/sp.py``), each an autograd Function whose backward is the
   inverse move; ``sum_over_seq`` and ``gather_seq`` are an all-reduce and
-  an all-gather over them whose backward is an all-reduce.
+  an all-gather over them whose backward is an all-reduce;
+- ``send_stage`` and ``recv_stage`` move a microbatch's activations, or
+  their gradient, between adjacent pipeline stages (``parallel/pp.py``),
+  in the working dtype, over the two-rank group of the pair.
 
 The backend is NCCL when each rank has a card of its own. A caller may name
 gloo instead (the CPU tests, two processes sharing one card); gloo takes
 CUDA tensors in ``all_reduce`` and ``broadcast`` only. So every collective
 here has a form built on those two, and the seq moves also have the NCCL
-form (``all_to_all_single``, ``batch_isend_irecv``): the backend of the
-group picks one (``p2p_form``), and neither gives way to the other. Tensors
+form (``all_to_all_single``, ``batch_isend_irecv``), as do the stage
+moves (``send``/``recv``): the backend of the group picks one
+(``p2p_form``), and neither gives way to the other. Tensors
 stay on the rank's device whatever the backend.
 
 A model is built with its mesh (``models/timesformer.py``, ``vivit.py``,
@@ -54,42 +60,54 @@ import torch.distributed as dist
 
 
 class Mesh:
-    """This process's place in a (data, seq, model) grid of ``data · seq ·
-    model`` ranks: global rank = (data_rank · seq + seq_rank) · model +
-    model_rank, the JAX mesh's order. The groups: ``data_group`` (the data
-    ranks at this seq and model rank), ``seq_group`` (the seq ranks at this
-    data and model rank), ``model_group`` (the model ranks at this data and
-    seq rank) and ``replica_group`` (the data and seq ranks at this model
-    rank: the gradient sum of a sequence-parallel model). ``pair_group``
-    joins this rank to the one of data rank ``data - 1 - data_rank`` at the
-    same seq and model rank (None where that is this rank): mixup's partner
-    (``partner_rows``)."""
+    """This process's place in a (data, seq, model, pipe) grid of ``data ·
+    seq · model · pipe`` ranks: global rank = ((data_rank · seq + seq_rank)
+    · model + model_rank) · pipe + pipe_rank, the JAX mesh's order. The
+    groups: ``data_group`` (the data ranks at this seq, model and pipe
+    rank), ``seq_group`` (the seq ranks at this data, model and pipe rank),
+    ``model_group`` (the model ranks at this data, seq and pipe rank),
+    ``replica_group`` (the data and seq ranks at this model and pipe rank:
+    the gradient sum of a sequence-parallel model) and ``pipe_group`` (the
+    pipe ranks at this data, seq and model rank). ``pair_group`` joins
+    this rank to the one of data rank ``data - 1 - data_rank`` at the same
+    seq, model and pipe rank (None where that is this rank): mixup's
+    partner (``partner_rows``). ``stage_groups`` maps each adjacent pipe
+    rank (``pipe_rank`` ± 1) to the two-rank group of the pair, which
+    carries the stage moves (``send_stage``, ``recv_stage``)."""
 
     def __init__(self, data, model, rank, data_group, model_group,
                  device="cpu", pair_group=None, seq=1, seq_group=None,
-                 replica_group=None):
-        self.data, self.seq, self.model = data, seq, model
+                 replica_group=None, pipe=1, pipe_group=None,
+                 stage_groups=None):
+        self.data, self.seq, self.model, self.pipe = data, seq, model, pipe
         self.device = torch.device(device)
         self.rank = rank
-        slot, self.model_rank = divmod(rank, model)
+        slot, self.pipe_rank = divmod(rank, pipe)
+        slot, self.model_rank = divmod(slot, model)
         self.data_rank, self.seq_rank = divmod(slot, seq)
         self.data_group, self.model_group = data_group, model_group
         self.seq_group = seq_group
         self.replica_group = replica_group
         self.pair_group = pair_group
-        # global ranks of this rank's data, seq and model groups
-        at = lambda d, s, m: (d * seq + s) * model + m
+        self.pipe_group = pipe_group
+        self.stage_groups = stage_groups or {}
+        # global ranks of this rank's data, seq, model and pipe groups
+        at = lambda d, s, m, p=self.pipe_rank: ((d * seq + s) * model + m) \
+            * pipe + p
         self.data_ranks = [at(d, self.seq_rank, self.model_rank)
                            for d in range(data)]
         self.seq_ranks = [at(self.data_rank, s, self.model_rank)
                           for s in range(seq)]
         self.model_ranks = [at(self.data_rank, self.seq_rank, m)
                             for m in range(model)]
+        self.pipe_ranks = [at(self.data_rank, self.seq_rank,
+                              self.model_rank, p) for p in range(pipe)]
 
     def __repr__(self):
         return (f"Mesh(data={self.data}, seq={self.seq}, model={self.model}, "
-                f"rank={self.rank}, data_rank={self.data_rank}, seq_rank="
-                f"{self.seq_rank}, model_rank={self.model_rank})")
+                f"pipe={self.pipe}, rank={self.rank}, data_rank="
+                f"{self.data_rank}, seq_rank={self.seq_rank}, model_rank="
+                f"{self.model_rank}, pipe_rank={self.pipe_rank})")
 
 
 def model_ranks(mesh):
@@ -138,27 +156,30 @@ def init_distributed(backend=None, init_method=None, rank=None,
     return device
 
 
-def create_mesh(data=-1, model=1, device="cpu", seq=1):
-    """The data, seq, model, replica and mixup-pair groups of this rank
-    over the initialised process group (``data=-1``: the world over ``seq
-    · model``), its tensors on ``device``. Every rank calls it, in the same
-    order, as ``torch.distributed.new_group`` requires."""
+def create_mesh(data=-1, model=1, device="cpu", seq=1, pipe=1):
+    """The data, seq, model, pipe, replica, mixup-pair and stage-pair
+    groups of this rank over the initialised process group (``data=-1``:
+    the world over ``seq · model · pipe``), its tensors on ``device``.
+    Every rank calls it, in the same order, as
+    ``torch.distributed.new_group`` requires; the pipe axis adds its groups
+    after the others, so with ``pipe`` = 1 the groups are made as they
+    were without it."""
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs torch.distributed initialised "
                            "(init_distributed)")
     world, rank = dist.get_world_size(), dist.get_rank()
     if data == -1:
-        if world % (seq * model):
+        if world % (seq * model * pipe):
             raise ValueError(f"world {world} is not a multiple of seq {seq} "
-                             f"x model {model}")
-        data = world // (seq * model)
-    if data * seq * model != world:
-        raise ValueError(f"data {data} x seq {seq} x model {model} != world "
-                         f"{world}")
-    at = lambda d, s, m: (d * seq + s) * model + m
-    grid = [(d, s, m) for d in range(data) for s in range(seq)
-            for m in range(model)]
-    d0, s0, m0 = grid[rank]
+                             f"x model {model} x pipe {pipe}")
+        data = world // (seq * model * pipe)
+    if data * seq * model * pipe != world:
+        raise ValueError(f"data {data} x seq {seq} x model {model} x pipe "
+                         f"{pipe} != world {world}")
+    at = lambda d, s, m, p: ((d * seq + s) * model + m) * pipe + p
+    grid = [(d, s, m, p) for d in range(data) for s in range(seq)
+            for m in range(model) for p in range(pipe)]
+    d0, s0, m0, p0 = grid[rank]
 
     def groups(key):
         """One group for each value of ``key`` (every rank builds every
@@ -167,25 +188,40 @@ def create_mesh(data=-1, model=1, device="cpu", seq=1):
         for k in dict.fromkeys(key(*c) for c in grid):
             ranks = [at(*c) for c in grid if key(*c) == k]
             group = dist.new_group(ranks)
-            if k == key(d0, s0, m0):
+            if k == key(d0, s0, m0, p0):
                 mine = group
         return mine
 
-    model_group = groups(lambda d, s, m: (d, s))
-    data_group = groups(lambda d, s, m: (s, m))
-    seq_group = groups(lambda d, s, m: (d, m)) if seq > 1 else None
-    replica_group = groups(lambda d, s, m: m) if seq > 1 else data_group
-    pair_group = None
-    for s in range(seq):
-        for m in range(model):
-            for d in range(data // 2):
-                pair = [at(d, s, m), at(data - 1 - d, s, m)]
-                group = dist.new_group(pair)
-                if rank in pair:
-                    pair_group = group
+    def pairs(pairs_of):
+        """A two-rank group for each pair of ``pairs_of`` (in order);
+        {the other rank: the group} of this rank's."""
+        mine = {}
+        for a, b in pairs_of:
+            group = dist.new_group([a, b])
+            if rank in (a, b):
+                mine[b if rank == a else a] = group
+        return mine
+
+    model_group = groups(lambda d, s, m, p: (d, s, p))
+    data_group = groups(lambda d, s, m, p: (s, m, p))
+    seq_group = groups(lambda d, s, m, p: (d, m, p)) if seq > 1 else None
+    replica_group = groups(lambda d, s, m, p: (m, p)) if seq > 1 \
+        else data_group
+    pair_group = next(iter(pairs(
+        (at(d, s, m, p), at(data - 1 - d, s, m, p)) for p in range(pipe)
+        for s in range(seq) for m in range(model)
+        for d in range(data // 2)).values()), None)
+    pipe_group, stage_groups = None, {}
+    if pipe > 1:
+        pipe_group = groups(lambda d, s, m, p: (d, s, m))
+        stage_groups = {q % pipe: g for q, g in pairs(
+            (at(d, s, m, p), at(d, s, m, p + 1)) for d in range(data)
+            for s in range(seq) for m in range(model)
+            for p in range(pipe - 1)).items()}
     return Mesh(data, model, rank, data_group, model_group, device,
                 pair_group, seq=seq, seq_group=seq_group,
-                replica_group=replica_group)
+                replica_group=replica_group, pipe=pipe, pipe_group=pipe_group,
+                stage_groups=stage_groups)
 
 
 def rand_rows(shape, generator, dtype, device, mesh=None, clips=None):
@@ -196,7 +232,12 @@ def rand_rows(shape, generator, dtype, device, mesh=None, clips=None):
     ``clips``, rows (clip, k) whose k is split over the seq ranks:
     ``shape[0] = clips · k``, this data rank's clips and this seq rank's k
     (temporal rows over patches, spatial rows over frames). Those are not
-    a contiguous slice of the flat draw."""
+    a contiguous slice of the flat draw. ``generator`` is a
+    ``torch.Generator``, None (the default one), or a source of uniforms
+    drawn before that cuts them itself: ``generator.rand_rows(shape, dtype,
+    device)`` (a pipeline stage's, ``parallel/pp.py::RowDraws``)."""
+    if not (generator is None or isinstance(generator, torch.Generator)):
+        return generator.rand_rows(shape, dtype, device)
     data = 1 if mesh is None else mesh.data
     seq = 1 if mesh is None or clips is None else mesh.seq
     if data * seq == 1:
@@ -336,9 +377,9 @@ def partner_rows(x, mesh):
 
 
 def p2p_form(group):
-    """Whether the seq moves over ``group`` take the NCCL form
-    (``all_to_all_single``, ``batch_isend_irecv``); else the form built on
-    broadcasts, which gloo takes with CUDA tensors."""
+    """Whether the seq and stage moves over ``group`` take the NCCL form
+    (``all_to_all_single``, ``batch_isend_irecv``, ``send``/``recv``); else
+    the form built on broadcasts, which gloo takes with CUDA tensors."""
     return dist.get_backend(group) == "nccl"
 
 
@@ -429,6 +470,32 @@ def ring_shift(x, mesh):
     if seq_ranks(mesh) == 1:
         return x
     return _RingShift.apply(x, mesh)
+
+
+def send_stage(x, mesh, stage):
+    """Send ``x`` to pipe rank ``stage`` (``pipe_rank`` ± 1) of this rank's
+    pipe group, in its dtype; the receiver calls ``recv_stage`` with x's
+    shape and dtype. NCCL: ``send``; else a broadcast from this rank in the
+    pair's two-rank group."""
+    group = mesh.stage_groups[stage]
+    x = x.contiguous()
+    if p2p_form(group):
+        dist.send(x, mesh.pipe_ranks[stage], group=group)
+    else:
+        dist.broadcast(x, src=mesh.rank, group=group)
+
+
+def recv_stage(shape, dtype, mesh, stage):
+    """The tensor of ``shape`` and ``dtype`` that pipe rank ``stage``
+    (``pipe_rank`` ± 1) sends with ``send_stage``, on this rank's
+    device."""
+    group = mesh.stage_groups[stage]
+    out = torch.empty(shape, dtype=dtype, device=mesh.device)
+    if p2p_form(group):
+        dist.recv(out, mesh.pipe_ranks[stage], group=group)
+    else:
+        dist.broadcast(out, src=mesh.pipe_ranks[stage], group=group)
+    return out
 
 
 class _SumOverSeq(torch.autograd.Function):

@@ -1,13 +1,16 @@
-"""One rank of a data-, sequence- or tensor-parallel training run of a few
-steps.
+"""One rank of a data-, sequence-, tensor- or pipeline-parallel training run
+of a few steps.
 
     python -m videotransformer_tpu_torch.tools.mp_train_worker \\
         --rank R --world W --init file:///path/to/store [--sp S] [--tp T] \\
-        [--model b16|tiny] [--device cuda|cpu] [--backend nccl|gloo] ...
+        [--pp P [--pp_microbatch M]] [--model b16|tiny] \\
+        [--device cuda|cpu] [--backend nccl|gloo] ...
 
 (or under torchrun, which sets the rank and world). TimeSformer-B on the
 rank's card by default. Each rank builds the same trainer on a (data =
-W / (S · T), seq = S, model = T) mesh, takes its data rank's rows of a
+W / (S · T · P), seq = S, model = T, pipe = P) mesh (under ``--pp`` the
+pipeline trainer, ``training/pp_trainer.py``, which holds one stage of
+the model a rank), takes its data rank's rows of a
 global batch made from a seed with numpy (``mesh.shard_batch``), and
 trains ``--steps`` steps; then it
 runs the trainer's ``fit`` for one epoch over a data module of one more
@@ -34,10 +37,11 @@ tests/mp_train_worker.py.
 Models: ``b16``, TimeSformer-B/16 (8 x 224, 12 layers, 400 classes; with
 ``--arch vivit`` ViViT-B/16), the trainer's own build, at ``--frames``
 (8 by default); ``tiny``, a TimeSformer of 2 layers, width 64, 4 heads, 2
-frames at 32² (the CPU tests, with ``--device cpu``; ``--arch vivit``: a
-ViViT of the same width at 4 frames, tube 2, with 2 temporal layers for
-``fact_encoder``; ``--objective mim``: a MaskFeat of depth 4 at 4 frames
-of 32², no tensor parallelism, no eval; its seq ranks are replicas);
+frames at 32² (the CPU tests, with ``--device cpu``; ``--layers`` sets
+its depth; ``--arch vivit``: a ViViT of the same width at 4 frames, tube
+2, with 2 temporal layers for ``fact_encoder``; ``--objective mim``: a
+MaskFeat of depth 4 at 4 frames of 32², no tensor parallelism, no eval;
+its seq ranks are replicas);
 ``--attention_type`` as the trainer takes it. ``--remat`` checkpoints every block (``-remat True``); under
 ``--tp`` each block's second forward in the backward runs its model-group
 all-reduces again.
@@ -58,6 +62,7 @@ from videotransformer_tpu_torch.kernels import (
     flash_attention, fused_ffn, fused_mhsa)
 from videotransformer_tpu_torch.models.convert import flatten_tree
 from videotransformer_tpu_torch.parallel import mesh as _mesh
+from videotransformer_tpu_torch.training import pp_trainer
 from videotransformer_tpu_torch.training import trainer as trainer_mod
 from videotransformer_tpu_torch.training.data_module import ThreeCropCollate
 
@@ -105,7 +110,7 @@ def configs(args):
     """The JAX trainer's defaults for the run: AdamW (or ``--optim sgd``),
     per-parameter clip 1.0; ``b16`` in bf16 compute with fp32
     parameters; ``fit``'s one epoch at ``--lr`` (its one warmup epoch
-    ends there)."""
+    ends there); the parallel degrees."""
     b16 = args.model == "b16"
     mim = args.objective == "mim"
     frames = 4 if mim or args.arch == "vivit" else 2  # tiny: ViViT's tube 2
@@ -117,11 +122,13 @@ def configs(args):
         img_size=224 if b16 else 32, optim_type=args.optim, clip_grad=1.0,
         seed=SEED, mixup=args.mixup, eval_metrics="finetune",
         use_fp16=b16, drop_path_rate=args.drop_path, layer_decay=1.0,
-        weight_decay=WD, lr=args.lr, warmup_epochs=1, remat=args.remat)
+        weight_decay=WD, lr=args.lr, warmup_epochs=1, remat=args.remat,
+        tp=args.tp, sp=args.sp, pp=args.pp, pp_microbatch=args.pp_microbatch)
 
 
-def use_tiny_models(objective):
-    """Point the trainer's ``build_model`` at the tiny models."""
+def use_tiny_models(objective, layers=None):
+    """Point the trainer's ``build_model`` at the tiny models (``layers``
+    blocks, 2 by default)."""
     from videotransformer_tpu_torch.models.maskfeat import MaskFeat
     from videotransformer_tpu_torch.models.timesformer import TimeSformer
     from videotransformer_tpu_torch.models.vivit import ViViT
@@ -135,7 +142,8 @@ def use_tiny_models(objective):
         return {"timesformer": TimeSformer, "vivit": ViViT}[c.arch](
             num_frames=c.num_frames, attention_type=c.attention_type,
             drop_path_rate=c.drop_path_rate, mesh=mesh, remat=c.remat,
-            **TINY, **extra)
+            **dict(TINY, **({} if layers is None else
+                            {"num_transformer_layers": layers})), **extra)
 
     trainer_mod.build_model = build
 
@@ -204,8 +212,10 @@ def run(args, device, mesh=None, out=print, params=None, on_step=None):
     trainer's tree to start from (the seed's initialisation otherwise).
     Returns the trainer."""
     cfg = configs(args)
-    tr = trainer_mod.VideoTransformerTrainer(
-        cfg, device, do_eval=True, do_test=True, mesh=mesh, params=params)
+    trainer_cls = pp_trainer.PipelineTrainer if args.pp > 1 \
+        else trainer_mod.VideoTransformerTrainer
+    tr = trainer_cls(cfg, device, do_eval=True, do_test=True, mesh=mesh,
+                     params=params)
     rows = _mesh.shard_batch(mesh, global_batch(cfg, args.clips, SEED))
     local = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in rows.items()}
@@ -237,6 +247,12 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages (the pipeline trainer above 1)")
+    p.add_argument("--pp_microbatch", type=int, default=0,
+                   help="GPipe microbatches a step (0: one a stage)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="tiny: the blocks of the model (2 by default)")
     p.add_argument("--model", choices=("b16", "tiny"), default="b16")
     p.add_argument("--objective", choices=("supervised", "mim"),
                    default="supervised")
@@ -266,11 +282,12 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     if args.model == "tiny":
-        use_tiny_models(args.objective)
+        use_tiny_models(args.objective, args.layers)
     device = _mesh.init_distributed(
         backend=args.backend, init_method=args.init, rank=args.rank,
         world_size=args.world, device=args.device)
-    mesh = _mesh.create_mesh(model=args.tp, seq=args.sp, device=device)
+    mesh = _mesh.create_mesh(model=args.tp, seq=args.sp, pipe=args.pp,
+                             device=device)
     save = None if args.ckpt is None else \
         lambda i, tr: tr.save_checkpoint(f"{args.ckpt}.{i}")
     try:

@@ -28,7 +28,11 @@ Under data and tensor parallelism (a ``mesh``, ``parallel/mesh.py``):
 - a parameter split over the model ranks (``sharded``) is clipped by the
   norm of the whole tensor, its shards' squared norms summed over the
   model group (the per-shard norm would clip it wrongly), and the logged
-  total norm counts every element once.
+  total norm counts every element once;
+- under pipeline parallelism each stage's optimizer holds its stage's
+  parameters (it may hold none: a linear probe's blocks), their clip stays
+  per parameter, and the logged total norm sums the squared norms over the
+  pipe group.
 
 ``lr`` and ``wd`` arrive per step from the epoch schedules. State is plain
 tensors keyed by parameter name (``state_dict``/``load_state_dict`` for
@@ -123,13 +127,17 @@ class RefOptimizer:
         run) has a zero gradient, as jax.grad gives it."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in (self.params[n] for n in names)]
-        norms = torch.stack(torch._foreach_norm(grads))
+        norms = torch.stack(torch._foreach_norm(grads)) if grads else \
+            torch.zeros(0, device=self.mesh.device)
         if self.sharded is not None:  # the whole tensor's norm
             part = torch.where(self.sharded, norms * norms, 0.0)
             dist.all_reduce(part, group=self.mesh.model_group)
             norms = torch.where(self.sharded, part.sqrt(), norms)
-        total = torch.sqrt((norms * norms).sum())
-        if self.clip_grad and self.clip_grad > 0:
+        total = (norms * norms).sum()
+        if self.mesh is not None and self.mesh.pipe > 1:  # every stage's
+            dist.all_reduce(total, group=self.mesh.pipe_group)
+        total = torch.sqrt(total)
+        if self.clip_grad and self.clip_grad > 0 and grads:
             coef = (self.clip_grad / (norms + 1e-6)).clamp(max=1.0)
             grads = torch._foreach_mul(grads, list(coef.unbind()))
         return grads, total
@@ -139,6 +147,8 @@ class RefOptimizer:
         names = list(self.params)
         grads, total = self._clipped_grads(names)
         self.step_count += 1
+        if not names:
+            return total
         params = [self.params[n] for n in names]
         mu = [self.mu[n] for n in names]
         if self.optim_type == "adamw":

@@ -96,7 +96,12 @@ process computes on the global batch:
   to the mesh, trainer.py:472-499), and sums the top-k counts over the
   data group at the end of a pass.
 
-Without a mesh every step is the single-process one, unchanged.
+Without a mesh every step is the single-process one, unchanged. Pipeline
+parallelism is a subclass (``training/pp_trainer.py``), whose ranks each
+hold one stage of the model; the hooks it overrides are ``_place``,
+``_set_model_state``, ``import_pretrained``, ``model_state_dict``,
+``head_state_dict``, the moments' ``_gather_moments``/``_local_moments``,
+``_supervised_step`` and ``_eval_step``.
 
 ``pretrain_pth`` imports weights after the initialisation, by the JAX
 trainer's routes (trainer.py:184-213; ``import_pretrained``): a checkpoint
@@ -245,18 +250,12 @@ class VideoTransformerTrainer:
         self.pretrained_keys = None  # (missing, unexpected) of the import
         if getattr(configs, "pretrain_pth", None):
             self.pretrained_keys = self.import_pretrained(configs.pretrain_pth)
-        self.model.to(self.device)
-        if self.cls_head is not None:
-            self.cls_head.to(self.device)
-        if mesh is not None:
-            self._distribute()
+        self._place()
         self.mixup_fn = None
-        named = []
-        if self.cls_head is not None:
-            if getattr(configs, "mixup", False):
-                self.mixup_fn = Mixup(num_classes=configs.num_class)
-            named = [(f"cls_head.{n}", p)
-                     for n, p in self.cls_head.named_parameters()]
+        if self.supervised and getattr(configs, "mixup", False):
+            self.mixup_fn = Mixup(num_classes=configs.num_class)
+        named = [] if self.cls_head is None else [
+            (f"cls_head.{n}", p) for n, p in self.cls_head.named_parameters()]
         if not self.linear_prob:
             # supervised MViT: decoder_pred is frozen (trainer.py:218-222)
             named = [(f"model.{n}", p)
@@ -281,6 +280,15 @@ class VideoTransformerTrainer:
         self.test_meter = AccuracyMeter()
 
     # ------------------------------------------------------------------
+    def _place(self):
+        """The model and the head on the device; under a mesh, rank 0's
+        parameters on every rank (``_distribute``)."""
+        self.model.to(self.device)
+        if self.cls_head is not None:
+            self.cls_head.to(self.device)
+        if self.mesh is not None:
+            self._distribute()
+
     def _distribute(self):
         """Rank 0's parameters to every rank, then this rank's shard of the
         blocks in place of the full model."""
@@ -309,6 +317,30 @@ class VideoTransformerTrainer:
         if not self._sharded:
             return state
         return _tp.gather_over_model(state, self.mesh, self.num_heads)
+
+    def head_state_dict(self):
+        """The classification head's state (None without a head)."""
+        return None if self.cls_head is None else self.cls_head.state_dict()
+
+    def _gather_moments(self, opt_state):
+        """The optimizer state with the whole model's moments (gathered
+        over the model group under tensor parallelism: every model rank
+        must call it)."""
+        if self._sharded:
+            for k in ("mu", "nu"):
+                opt_state[k] = _tp.gather_over_model(opt_state[k], self.mesh,
+                                                     self.num_heads)
+        return opt_state
+
+    def _local_moments(self, opt_state):
+        """``_gather_moments``'s inverse: this rank's part of a whole
+        optimizer state."""
+        if self._sharded:
+            opt_state = dict(opt_state, **{
+                k: _tp.shard_state_dict(opt_state[k], self.tp,
+                                        self.mesh.model_rank, self.num_heads)
+                for k in ("mu", "nu")})
+        return opt_state
 
     def load_params(self, tree):
         """Load the JAX trainer's parameter tree (numpy leaves): {"model",
@@ -342,6 +374,11 @@ class VideoTransformerTrainer:
         shards gathered), which is then sharded again."""
         if not self._sharded:
             return self._import_into(self.model, path)
+        return self._import_into_whole(path)
+
+    def _import_into_whole(self, path):
+        """``import_pretrained`` into the whole model put together from
+        the ranks' parts, then this rank's part of it taken again."""
         full = build_model(self.configs).to(self.device)
         full.load_state_dict(self.model_state_dict())
         keys = self._import_into(full, path)
@@ -368,9 +405,8 @@ class VideoTransformerTrainer:
     def params_tree(self):
         """The parameters as the JAX trainer's tree (fp32 numpy leaves), the
         full model's under tensor parallelism."""
-        return state_dicts_to_trainer_tree(
-            self.model_state_dict(),
-            None if self.cls_head is None else self.cls_head.state_dict())
+        return state_dicts_to_trainer_tree(self.model_state_dict(),
+                                           self.head_state_dict())
 
     def _features(self, video, generator=None):
         """The head's input: ``forward_features(x)[:, 0]`` for MViT
@@ -421,10 +457,11 @@ class VideoTransformerTrainer:
                                       _mesh.partner_rows(labels, mesh)))
 
     def _model_group_batch(self, batch):
-        """The batch on the device, under tensor and sequence parallelism
-        the first rank's of its data rank (over the model group, then over
-        the seq group): its ranks must run the same clips, and host draws
-        made by loader threads need not agree."""
+        """The batch on the device, under tensor, sequence and pipeline
+        parallelism the first rank's of its data rank (over the model
+        group, then the seq group, then the pipe group): its ranks must run
+        the same clips, and host draws made by loader threads need not
+        agree."""
         batch = {k: v if v is None else _as_tensor(v, self.device)
                  .contiguous() for k, v in batch.items()}
         tensors = [v for v in batch.values() if v is not None]
@@ -434,6 +471,9 @@ class VideoTransformerTrainer:
         if self.mesh.seq > 1:
             _mesh.broadcast_(tensors, src=self.mesh.seq_ranks[0],
                              group=self.mesh.seq_group)
+        if self.mesh.pipe > 1:
+            _mesh.broadcast_(tensors, src=self.mesh.pipe_ranks[0],
+                             group=self.mesh.pipe_group)
         return batch
 
     def _reduce_step(self, loss, extra=()):
@@ -466,7 +506,10 @@ class VideoTransformerTrainer:
             return self._mim_step(batch, lr, wd)
         return self._supervised_step(batch, lr, wd)
 
-    def _supervised_step(self, batch, lr, wd):
+    def _train_inputs(self, batch):
+        """(clips in the working type, labels, mixup's soft targets or
+        None) of a supervised batch: the augment and mixup, drawing from
+        ``self.generator`` in that order."""
         labels = _as_tensor(batch["label"], self.device)
         if "raw_video" in batch:
             video = self._augment(_as_tensor(batch["raw_video"], self.device))
@@ -475,7 +518,10 @@ class VideoTransformerTrainer:
         soft = None
         if self.mixup_fn is not None:
             video, soft = self._mixup(video, labels)
-        video = video.to(self.dtype)
+        return video.to(self.dtype), labels, soft
+
+    def _supervised_step(self, batch, lr, wd):
+        video, labels, soft = self._train_inputs(batch)
         self.optimizer.zero_grad()
         if self.linear_prob:
             self.model.eval()
@@ -564,25 +610,34 @@ class VideoTransformerTrainer:
             batch = self._model_group_batch(batch)
         return self._eval_step(batch, n_crops)
 
-    def _eval_step(self, batch, n_crops):
-        self.model.eval()
-        if "raw_video" in batch:
-            cfg = self.configs
-            mean, std = dataset_statistics(getattr(cfg, "data_statics",
-                                                   "kinetics"))
-            video = eval_preprocess_batch(
-                _as_tensor(batch["raw_video"], self.device),
-                img_size=cfg.img_size, three_crop=n_crops > 1, mean=mean,
-                std=std).to(self.dtype)
-        else:
-            video = _as_tensor(batch["video"], self.device, self.dtype)
-        labels = _as_tensor(batch["label"], self.device)
-        logits = self.cls_head(self._features(video))
+    def _eval_video(self, batch, n_crops):
+        """The clips of an eval batch in the working type: ``video`` as it
+        is, ``raw_video`` through the eval recipe (trainer.py:443-455)."""
+        if "raw_video" not in batch:
+            return _as_tensor(batch["video"], self.device, self.dtype)
+        cfg = self.configs
+        mean, std = dataset_statistics(getattr(cfg, "data_statics",
+                                               "kinetics"))
+        return eval_preprocess_batch(
+            _as_tensor(batch["raw_video"], self.device),
+            img_size=cfg.img_size, three_crop=n_crops > 1, mean=mean,
+            std=std).to(self.dtype)
+
+    def _eval_counts(self, logits, labels, n_crops):
+        """(top-1, top-5, counted rows) of ``logits`` (B·n_crops, C),
+        averaged over the crops."""
         if n_crops > 1:
             logits = logits.reshape(-1, n_crops, logits.shape[-1]).mean(dim=1)
         correct = topk_correct(logits, labels)
-        return {"top1": correct[1], "top5": correct[5],
-                "bs": (labels >= 0).sum()}
+        return correct[1], correct[5], (labels >= 0).sum()
+
+    def _eval_step(self, batch, n_crops):
+        self.model.eval()
+        video = self._eval_video(batch, n_crops)
+        labels = _as_tensor(batch["label"], self.device)
+        top1, top5, bs = self._eval_counts(
+            self.cls_head(self._features(video)), labels, n_crops)
+        return {"top1": top1, "top5": top5, "bs": bs}
 
     # ------------------------------------------------------------------
     def current_lr(self, max_epochs):
@@ -690,17 +745,13 @@ class VideoTransformerTrainer:
     def save_checkpoint(self, path):
         """Parameters, optimizer moments and progress to one file (the keys
         of ``CHECKPOINT_KEYS``). Under a mesh every rank calls it: the
-        model group gathers the full state, rank 0 writes it, and every
-        rank waits for the file."""
-        opt_state = self.optimizer.state_dict()
-        if self._sharded:
-            for k in ("mu", "nu"):
-                opt_state[k] = _tp.gather_over_model(opt_state[k], self.mesh,
-                                                     self.num_heads)
+        model group (the pipe group under pipeline parallelism) gathers
+        the full state, rank 0 writes it, and every rank waits for the
+        file."""
         payload = {"model": self.model_state_dict(),
-                   "cls_head": (None if self.cls_head is None
-                                else self.cls_head.state_dict()),
-                   "opt_state": opt_state,
+                   "cls_head": self.head_state_dict(),
+                   "opt_state": self._gather_moments(
+                       self.optimizer.state_dict()),
                    "epoch": self.epoch + 1,
                    "global_step": self.global_step,
                    "max_top1_acc": self.max_top1_acc}
@@ -711,19 +762,14 @@ class VideoTransformerTrainer:
 
     def load_checkpoint(self, path):
         """A checkpoint of ``save_checkpoint`` (the full state), this rank's
-        shard of it under tensor parallelism."""
+        shard (or stage) of it under tensor (or pipeline) parallelism."""
         payload = torch.load(path, map_location=self.device,
                              weights_only=True)
         self._set_model_state(payload["model"])
         if self.cls_head is not None:
             self.cls_head.load_state_dict(payload["cls_head"], strict=True)
-        opt_state = payload["opt_state"]
-        if self._sharded:
-            opt_state = dict(opt_state, **{
-                k: _tp.shard_state_dict(opt_state[k], self.tp,
-                                        self.mesh.model_rank, self.num_heads)
-                for k in ("mu", "nu")})
-        self.optimizer.load_state_dict(opt_state)
+        self.optimizer.load_state_dict(
+            self._local_moments(payload["opt_state"]))
         self.epoch = int(payload["epoch"])
         self.global_step = int(payload["global_step"])
         self.max_top1_acc = float(payload["max_top1_acc"])

@@ -142,8 +142,10 @@ kernels, of their 16 calls in one mim step, each shape's line also giving
 its TFLOP/s, its share of the bound and the host time to issue a call (the
 wrapper's and scaled_dot_product_attention's). B1 and B3 are also held and
 timed at ViViT-B's joint shape (8, 1569, 768), their long variant, and B5
-and B6 at the 16-frame joint shape (96, 3137, 3137), head dim 64: those
-rows are under "phases" and outside the totals. The last line is
+and B6 at the head-dim-64 long shapes (flash_bench.LONG_SHAPES: the
+16-frame joint shape (96, 3137, 3137), ViViT-B's joint (96, 1569, 1569)
+and the 448² spatial rows (2304, 785, 785)): those rows are under
+"phases" and outside the totals. The last line is
 {"ok": true, "device": {...}}. Its phases took 178-221 s on an H100 (the
 six builds included; the data phase 22-28 s) before the checkpoint phase
 was added. B3's backward phases also
@@ -151,7 +153,9 @@ time its whole call (with the projection products) beside its bound.
 Before the serving path it prints B1's, B2's, B3's and B4's stages
 (device ms a call) beside torch.matmul at each product's shape (and
 scaled_dot_product_attention beside the long attention stage), and B2's
-fc1 with and without its GELU epilogue.
+fc1 with and without its GELU epilogue; beside B1's and B3's long
+attention stage, the stage alone by CUDA events and
+scaled_dot_product_attention on q, k, v of its size, in turns.
 """
 
 import contextlib
@@ -194,13 +198,13 @@ from videotransformer_tpu_torch.serving.server import InferenceServer
 from videotransformer_tpu_torch.tools import (
     export_serving, mp_train_worker, visualize_attention, visualize_maskfeat)
 from videotransformer_tpu_torch.tools.flash_bench import (
-    FLASH_SHAPES, HD as MVIT_HD, JOINT_HD, JOINT_SHAPE, bound, flash_bounds,
+    FLASH_SHAPES, HD as MVIT_HD, JOINT_HD, LONG_SHAPES, bound, flash_bounds,
     issue_us, sdpa_times, timed_ms)
 from videotransformer_tpu_torch.tools.fused_bench import (
     FFN_FWD_PRODUCTS, FFN_PRODUCTS, MHSA_BWD_PRODUCTS, MHSA_PRODUCTS,
     fc1_epilogue_ms, ffn_bwd_bound, ffn_fwd_case, ffn_fwd_products,
     ffn_products, format_stages, matmul_ms, mhsa_bwd_bound, mhsa_bwd_case,
-    mhsa_bwd_products, mhsa_products, sdpa_long_ms, stage_times)
+    long_stage_ms, mhsa_bwd_products, mhsa_products, stage_times)
 from videotransformer_tpu_torch.training import trainer as trainer_mod
 from videotransformer_tpu_torch.utils import profiling
 
@@ -590,23 +594,40 @@ def stage_phases(rng, cases=None):
 
 
 def long_attention_yardstick(rng, shape, backward):
-    """scaled_dot_product_attention's device ms (forward, or backward) on q,
-    k, v of the long stage at x's ``shape`` (B, L, D): (1, B·H, L, D/H), the
-    library yardstick beside B1's and B3's long attention stage
-    (fused_bench.sdpa_long_ms)."""
-    ms = sdpa_long_ms(rng, shape)[int(backward)]
+    """B1's or B3's long attention stage alone at x's ``shape`` (B, L, D)
+    by CUDA events, and scaled_dot_product_attention on q, k, v of its size
+    (1, B·H, L, D/H) beside it, in turns (fused_bench.long_stage_ms): the
+    stage's own reading and the library's yardstick (the port never calls
+    it)."""
+    stage, lib = long_stage_ms(rng, shape, backward)
     bh, L = shape[0] * HEADS, shape[1]
-    return (f"; scaled_dot_product_attention "
-            f"{'backward' if backward else 'forward'} on the attention "
-            f"stage's q, k, v (1, {bh}, {L}, {D // HEADS}): {ms:.4f} ms")
+    return (f"; the long attention stage alone {stage:.4f} ms (CUDA "
+            f"events), scaled_dot_product_attention "
+            f"{'backward' if backward else 'forward'} on q, k, v of its "
+            f"size (1, {bh}, {L}, {D // HEADS}): {lib:.4f} ms (in turns)")
+
+
+def by_slices(fn, *args, n=576):
+    """``fn`` (a plain flash attention version) over its (1, B·H, ...)
+    tensor arguments ``n`` slices at a time, its outputs put together along
+    B·H: at the 448² rows (2304 slices of 785) the fp32 scores of all
+    slices at once would take 5.7 GB a tensor."""
+    bh = args[0].shape[1]
+    if bh <= n:
+        return fn(*args)
+    parts = [fn(*[a[:, i:i + n] if torch.is_tensor(a) else a for a in args])
+             for i in range(0, bh, n)]
+    return tuple(torch.cat(p, 1) for p in zip(*parts))
 
 
 def flash_phases(rng, cases=None):
     """B5 and B6 at each (B·H, Nq, Nkv) of a batch-8 mim step, head dim 96,
-    and at TimeSformer-B's 16-frame joint attention on 8 clips (96, 3137,
-    3137), head dim 64 (not in the mim step's totals; ``cases``): each
+    and at the head-dim-64 long shapes (``cases``: TimeSformer-B's 16-frame
+    joint attention (96, 3137, 3137), ViViT-B's joint (96, 1569, 1569), the
+    448² spatial rows (2304, 785, 785); not in the mim step's totals): each
     against its plain version run in fp32 from the same bf16 inputs
-    (B6 from the kernel's own o and lse, every gradient); times in turns
+    (B6 from the kernel's own o and lse, every gradient; by_slices); B6
+    twice to the bit; times in turns
     (plain, kernel, kernel, plain), and scaled_dot_product_attention's as
     the library's (the backward's: its forward and backward less its
     forward); the host time to issue a call, the wrapper's and the
@@ -626,12 +647,13 @@ def flash_phases(rng, cases=None):
         o, lse = fa._launch(q, k, v, scale)
         got_b = fa._launch_backward(q, k, v, o, lse, do, scale)
         torch.cuda.synchronize()
-        want_o, _ = fa._forward_reference(q.float(), k.float(), v.float(),
-                                          scale)
+        want_o, _ = by_slices(fa._forward_reference, q.float(), k.float(),
+                              v.float(), scale)
         fwd_err = worst_error([o], [want_o])
         del want_o
-        want_b = fa.flash_attention_backward_reference(
-            q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale)
+        want_b = by_slices(fa.flash_attention_backward_reference, q.float(),
+                           k.float(), v.float(), o.float(), lse, do.float(),
+                           scale)
         bwd_err = worst_error(got_b, want_b)
         del want_b, got_b
         for what, (abs_err, rel_err) in (("forward", fwd_err),
@@ -644,11 +666,12 @@ def flash_phases(rng, cases=None):
         assert all(torch.equal(a, b) for a, b in zip(
             again, fa._launch_backward(q, k, v, o, lse, do, scale)))
 
-        ms, plain_ms = in_turns(lambda: fa._forward_reference(q, k, v, scale),
-                                lambda: fa._launch(q, k, v, scale))
+        ms, plain_ms = in_turns(
+            lambda: by_slices(fa._forward_reference, q, k, v, scale),
+            lambda: fa._launch(q, k, v, scale))
         b_ms, b_plain_ms = in_turns(
-            lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do,
-                                                          scale),
+            lambda: by_slices(fa.flash_attention_backward_reference, q, k, v,
+                              o, lse, do, scale),
             lambda: fa._launch_backward(q, k, v, o, lse, do, scale))
         lib_ms, lib_b_ms, *lib_issued = sdpa_times(q, k, v, do, scale)
         issued = (issue_us(lambda: fa._launch(q, k, v, scale)),
@@ -3330,8 +3353,13 @@ def main():
     long_rng = np.random.default_rng(SEED + 2)
     t0 = time.perf_counter()
     report = flash_phases(rng)  # autograd on (the library's backward)
-    report += flash_phases(long_rng, [(JOINT_SHAPE, JOINT_HD,
-                                       "TimeSformer-B joint at 16 frames")])
+    # the 16-frame joint shape from the long generator (its draws come
+    # before the ViViT phases'), the other hd-64 shapes from one of their own
+    (joint, joint_where), *others = LONG_SHAPES
+    report += flash_phases(long_rng, [((*joint[:3], 0), JOINT_HD,
+                                       joint_where)])
+    report += flash_phases(np.random.default_rng(SEED + 10), [
+        ((*shape[:3], 0), JOINT_HD, where) for shape, where in others])
     with torch.inference_mode():
         report += kernel_phases(rng) + backward_phases(rng)
         report += kernel_phases(long_rng, LONG_FWD_PHASES)

@@ -278,7 +278,8 @@ def test_mhsa_backward_kernel_matches_plain(cuda_device, B, N, D, H,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,D,H", [(300, 128, 2), (1569, 768, 12)])
+@pytest.mark.parametrize("N,D,H", [(300, 128, 2), (1569, 768, 12),
+                                   (785, 768, 12)])
 def test_long_rows_never_take_a_plain_version(cuda_device, monkeypatch, N, D,
                                               H):
     """A CUDA tensor at L > 256, head dim 64, goes through B1's and B3's
@@ -623,6 +624,11 @@ def _flash_case(rng, BH, Nq, Nkv, hd):
     (2, 100, 129, 128),
     (3, 300, 250, 96),      # ragged against both tiles, three slices
     (12, 3137, 3137, 64),   # joint space-time TimeSformer-B, 16 frames
+    (4, 785, 785, 64),      # TimeSformer-B's spatial rows at 448²
+    (8, 1569, 1569, 64),    # joint space-time, 8 frames
+    (3, 700, 1100, 64),     # hd 64 ragged, Nq < Nkv
+    (2, 1000, 300, 64),     # hd 64 ragged, Nq > Nkv
+    (1, 100, 2000, 64),     # hd 64, two query tiles: the dk/dv pass split
 ])
 def test_flash_attention_kernels_match_plain(cuda_device, BH, Nq, Nkv, hd):
     """B5 against the plain forward, and B6 (every gradient) against the
@@ -651,6 +657,25 @@ def test_flash_attention_kernels_match_plain(cuda_device, BH, Nq, Nkv, hd):
     again = fa._launch_backward(q, k, v, o, lse, do, scale)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
     assert (fa.LAUNCHES - n0, fa.BWD_LAUNCHES - b0) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Nq,Nkv,hd", [
+    (96, 3137, 3137, 64), (2304, 785, 785, 64), (3, 70, 50, 64),
+    (1, 100, 2000, 64), (8, 25088, 393, 96), (32, 1568, 393, 96),
+    (1, 6272, 1569, 96), (3, 300, 250, 32)])
+def test_flash_bwd_scratch_is_the_plan(cuda_device, BH, Nq, Nkv, hd):
+    """The backward library sizes its row arrays and scratch as the
+    wrapper module's mirror does (flash_attention.bwd_row_floats,
+    bwd_scratch_floats: the dk/dv pass's split partials), which the CPU
+    tests check."""
+    from videotransformer_tpu_torch.kernels import _build
+    from videotransformer_tpu_torch.kernels import flash_attention as fa
+
+    lib = _build.load("flash_attention_bwd", fa._BWD_SIGNATURES)
+    assert lib.vt_flash_bwd_row_floats(BH, Nq) == fa.bwd_row_floats(BH, Nq)
+    assert lib.vt_flash_bwd_scratch_floats(BH, Nq, Nkv, hd) == \
+        fa.bwd_scratch_floats(BH, Nq, Nkv, hd)
 
 
 @pytest.mark.cuda

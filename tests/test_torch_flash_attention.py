@@ -6,7 +6,9 @@ The same numpy q, k, v and output gradient go through
 under ``pltpu.force_tpu_interpret_mode()`` (forward, and ``jax.vjp`` through
 its custom VJP with the Pallas backward kernel) and through the port's
 ``flash_attention`` on CPU tensors, whose autograd.Function runs the plain
-versions. Nq and Nkv ragged and unequal, head dims 32 and 96.
+versions. Nq and Nkv ragged and unequal, head dims 32, 64 (joint
+space-time attention's; (197, 197) is above one 128-key tile of the card's
+hd-64 design) and 96.
 
 Tolerances, as max|port - jax| / max|jax| of the output and of each
 gradient:
@@ -68,7 +70,7 @@ def _port(q, k, v, do, scale, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [32, 96])
+@pytest.mark.parametrize("hd", [32, 64, 96])
 @pytest.mark.parametrize("Nq,Nkv", [(64, 64), (200, 50), (130, 260),
                                     (197, 197)])
 def test_plain_flash_attention_matches_pallas(Nq, Nkv, hd, dtype):

@@ -1,13 +1,14 @@
 """Host-side logic of the fused kernels' wrappers, on the CPU: the row slices
 of B4's and B3's split weight gradients, the choice of B1's and B3's
-attention kernels, B3's refusals, and B1's output with a gradient wanted
-and without."""
+attention kernels, B3's refusals, B1's output with a gradient wanted and
+without, and B6's query splits, row arrays and scratch."""
 
 import numpy as np
 import pytest
 import torch
 
-from videotransformer_tpu_torch.kernels import fused_ffn, fused_mhsa
+from videotransformer_tpu_torch.kernels import (
+    flash_attention, fused_ffn, fused_mhsa)
 
 # (M, N, K): B4's weight gradients dW2 (Do, hidden) and dW1 (hidden, D),
 # K = rows, at MViT-B's and TimeSformer-B's widths, and ragged row counts
@@ -208,3 +209,61 @@ def test_backward_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="expected cuda"):
         fused_mhsa._attn_bwd_launch(x, qkv, attn, None, ln_w, w_qkv, 1,
                                     0.125, 1e-5, 8)
+
+
+# (BH, Nq, Nkv) of B6: the hd-64 long shapes (joint at 16 and 8 frames, the
+# 448² spatial rows), MViT's (one split, and the blocks short of the card:
+# split), ragged and unequal lengths, one tile
+BWD_SHAPES = [(96, 3137, 3137), (96, 1569, 1569), (2304, 785, 785),
+              (32, 1568, 393), (8, 25088, 393), (1, 6272, 1569),
+              (3, 130, 260), (2, 1000, 300), (1, 64, 64), (1, 70, 1100)]
+
+
+@pytest.mark.parametrize("BH,Nq,Nkv", BWD_SHAPES)
+def test_bwd_splits_cover_every_query_tile_once(BH, Nq, Nkv):
+    """The dk/dv pass's splits walk every 64-query tile of a slice once, no
+    split empty; each 64-key block is one block of the grid per split, so
+    every key sums every query tile once; the row arrays cover the query
+    tiles."""
+    fa = flash_attention
+    splits, per = fa.bwd_splits(BH, Nq, Nkv)
+    nqt = -(-Nq // 64)
+    covered = np.zeros(nqt, int)
+    for z in range(splits):
+        tiles = range(z * per, min(nqt, (z + 1) * per))
+        assert len(tiles) > 0
+        covered[list(tiles)] += 1
+    assert (covered == 1).all()
+    assert fa.bwd_row_floats(BH, Nq) >= 2 * BH * nqt * 64
+    assert fa.bwd_row_floats(BH, Nq) % (2 * BH * 128) == 0
+
+
+@pytest.mark.parametrize("BH,Nq,Nkv", BWD_SHAPES)
+def test_bwd_splits_depend_on_the_shape_alone(BH, Nq, Nkv):
+    """The same shape gives the same splits (so the same order of the dk and
+    dv sums, the same bits) on every call, whatever the head dim; the grid
+    of key blocks and splits stays within two blocks a SM of an H100
+    wherever the key blocks alone fall short of it."""
+    fa = flash_attention
+    splits, per = fa.bwd_splits(BH, Nq, Nkv)
+    assert fa.bwd_splits(BH, Nq, Nkv) == (splits, per)
+    blocks = -(-Nkv // 64) * BH
+    if blocks >= 264:
+        assert splits == 1
+    else:
+        assert blocks * splits <= 264 or per == 1
+    for hd in (32, 64, 96):
+        assert (fa.bwd_scratch_floats(BH, Nq, Nkv, hd) == 0) == (splits == 1)
+
+
+@pytest.mark.parametrize("BH,Nq,Nkv,hd,floats", [
+    (96, 3137, 3137, 64, 0),
+    (2304, 785, 785, 64, 0),
+    (1, 100, 2000, 64, 2 * 2 * 2000 * 64),      # two query tiles, split
+    (32, 1568, 393, 96, 0),                     # MViT blocks 4-13
+    (8, 25088, 393, 96, 2 * 4 * 8 * 393 * 96),  # block 1: four splits
+    (1, 6272, 1569, 96, 2 * 10 * 1569 * 96),    # ten query splits
+])
+def test_bwd_scratch_floats(BH, Nq, Nkv, hd, floats):
+    fa = flash_attention
+    assert fa.bwd_scratch_floats(BH, Nq, Nkv, hd) == floats

@@ -10,10 +10,11 @@ template <int HD>
 cudaError_t launch_plain_fwd(const bf16* q, const bf16* k, const bf16* v,
                              bf16* o, float* lse, int BH, int Nq, int Nkv,
                              float scale, cudaStream_t st) {
+  using C = FwdCfg<HD>;
   CUtensorMap qm, km, vm;
-  if (!flash_map<HD>(&qm, q, BH, Nq, kFlashBM) ||
-      !flash_map<HD>(&km, k, BH, Nkv, kFlashBN) ||
-      !flash_map<HD>(&vm, v, BH, Nkv, kFlashBN))
+  if (!flash_map<HD>(&qm, q, BH, Nq, C::kBM) ||
+      !flash_map<HD>(&km, k, BH, Nkv, C::kBN) ||
+      !flash_map<HD>(&vm, v, BH, Nkv, C::kBN))
     return cudaErrorInvalidValue;
   return launch_flash_fwd<HD>(qm, km, vm, o, lse, BH, Nq, Nkv, scale,
                               plain_layout(HD), st);

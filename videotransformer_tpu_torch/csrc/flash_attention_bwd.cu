@@ -12,17 +12,13 @@ cudaError_t launch_plain_bwd(const bf16* q, const bf16* k, const bf16* v,
                              float* rows, float* scratch, bf16* dq, bf16* dk,
                              bf16* dv, int BH, int Nq, int Nkv, float scale,
                              cudaStream_t st) {
+  const void* ops[5] = {q, k, v, o, dout};  // in BwdOperand order
   FlashBwdMaps m;
-  if (!flash_map<HD>(&m.q128, q, BH, Nq, kFlashBM) ||
-      !flash_map<HD>(&m.do128, dout, BH, Nq, kFlashBM) ||
-      !flash_map<HD>(&m.o128, o, BH, Nq, kFlashBM) ||
-      !flash_map<HD>(&m.k80, k, BH, Nkv, kFlashBN) ||
-      !flash_map<HD>(&m.v80, v, BH, Nkv, kFlashBN) ||
-      !flash_map<HD>(&m.q64, q, BH, Nq, kFlashBQ) ||
-      !flash_map<HD>(&m.do64, dout, BH, Nq, kFlashBQ) ||
-      !flash_map<HD>(&m.k64, k, BH, Nkv, 64) ||
-      !flash_map<HD>(&m.v64, v, BH, Nkv, 64))
-    return cudaErrorInvalidValue;
+  auto mk = [&](CUtensorMap* map, int which, int rows) {
+    const bool keys = which == kBwdK || which == kBwdV;
+    return flash_map<HD>(map, ops[which], BH, keys ? Nkv : Nq, rows);
+  };
+  if (!flash_bwd_maps<HD>(m, mk)) return cudaErrorInvalidValue;
   return launch_flash_bwd<HD>(m, lse, rows, scratch, dq, dk, dv, BH, Nq, Nkv,
                               scale, plain_layout(HD), st);
 }

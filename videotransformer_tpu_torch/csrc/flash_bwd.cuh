@@ -23,19 +23,23 @@
 // order.
 //
 // Bound: 10·Nq·Nkv·hd FLOPs for the five products against
-// (4·Nq + 6·Nkv)·hd·2 bytes: the tensor cores bound it at the MViT shapes,
-// then the exponentials (one ex2 a score in each of the two passes below).
+// (4·Nq + 6·Nkv)·hd·2 bytes: the tensor cores bound it at the main shapes
+// (MViT's at hd 96; joint space-time and the 448² rows at hd 64), then the
+// exponentials (one ex2 a score in each of the two passes below; at hd 64
+// an ex2 takes as long at the special function units as 2·hd FLOPs do at
+// the tensor cores, where a pass issues 6·hd or 8·hd a score).
 // The TPU grid ran its query blocks in order and added dk/dv into resident
 // fp32 blocks; on the card blocks run in no order, and every sum here keeps
 // a fixed order (no atomics: two runs give the same bits). Two passes:
 //
 //   1. dq: as the forward, a block of 128 queries (two consumer warpgroups
-//      of 64, one producer thread streaming 80-key K and V tiles through a
-//      three-stage TMA ring): S = Q·Kᵀ and dP = dO·Vᵀ by wgmma from shared
-//      memory, dS in registers as the A operand of dQ += dS·K (K read
-//      MN-major from the same tile). The products of key tile j are issued
-//      with dQ of tile j - 1, so the exponentials of one run under the
-//      other, and the two warpgroups take turns at the tensor cores. The
+//      of 64, one producer thread streaming K and V tiles through a
+//      three-stage TMA ring; 80 keys a tile, 96 at hd 64: DqCfg): S = Q·Kᵀ
+//      and dP = dO·Vᵀ by wgmma from shared memory, dS in registers as the A
+//      operand of dQ += dS·K (K read MN-major from the same tile). The
+//      products of key tile j are issued with dQ of tile j - 1, so the
+//      exponentials of one run under the other, and the two warpgroups take
+//      turns at the tensor cores. The
 //      block also loads its O tile, and under its first products forms
 //      delta = rowsum(dO · O) and lse·log2e for its rows, which it writes
 //      to row arrays padded to a multiple of 128 rows (padding: delta 0,
@@ -54,7 +58,28 @@
 // The two passes each compute Q·Kᵀ and dO·Vᵀ, 14·Nq·Nkv·hd FLOPs issued
 // against 10: fusing them needs dq summed across key blocks, which without
 // atomics means fp32 dq partials per key tile, more traffic at the MViT
-// shapes than the products they save.
+// shapes than the products they save. At hd 64 a one-pass design was built
+// and measured on an H100 (128-key blocks walking every 64-query tile, dS
+// through shared memory into dQ = dS·K, each dq tile added into an fp32
+// accumulator by a 16 KB bulk reduction, key blocks admitted in a fixed
+// order by a counter per tile): 5 products and one ex2 a score, but
+// Nkv / 128 reductions of every dq row, 1.9 GB of L2 reductions a call at
+// (96, 3137, 3137). It ran slower than these two passes at every hd-64
+// shape, and the reductions alone (ordered or not) cost more than the
+// recomputed products: two passes stay, with hd-64 tiles of their own.
+//
+// Tiles per head dim. hd 32, 96 and 128 keep the MViT design above. hd 64
+// has its own: the dq pass at 96-key tiles (3137 keys: 33 tiles, 1%
+// padding), and the dk/dv pass holding each warp's K and V rows as wgmma
+// A fragments in registers, loaded once (load_a_frags): Sᵀ = K·Qᵀ and
+// dPᵀ = V·dOᵀ at n = 64 with both operands in shared memory read the SM's
+// whole 128 bytes a clock, with K and V in registers half of it. Tried on
+// an H100 and left out (tools/flash_bench.py --variant, PERF.md §6): the
+// dq pass at 80-key tiles, or with Q and dO in registers; the dk/dv pass
+// with two warpgroups of 64 keys a block (with and without turns at the
+// tensor cores), with three at 32-query tiles, with a tile's Sᵀ and dPᵀ
+// issued beside the previous tile's dV and dK, and with three or four
+// stages.
 
 #pragma once
 
@@ -90,7 +115,7 @@ __host__ __device__ inline int bwd_splits(int BH, int Nq, int Nkv) {
 
 template <int HD>
 struct DqCfg {
-  static constexpr int kBN = kFlashBN;
+  static constexpr int kBN = HD == 64 ? 96 : kFlashBN;  // keys a tile
   static constexpr int kStages = kFlashStages;
   static constexpr uint32_t kQBytes = kFlashBM * HD * 2;  // Q, dO, O alike
   static constexpr uint32_t kKVBytes = kBN * HD * 2;
@@ -132,7 +157,7 @@ __device__ __forceinline__ float tile_row_dot(const bf16* a, const bf16* b,
 
 template <int HD>
 struct DqRows {
-  static constexpr int kBN = kFlashBN;
+  static constexpr int kBN = DqCfg<HD>::kBN;
   float s[kBN / 2];      // scores, then ds in fp32
   float dp[kBN / 2];
   uint32_t ds[kBN / 4];  // bf16 ds: the A fragments of dS·K
@@ -144,25 +169,27 @@ template <int HD>
 __device__ __forceinline__ void issue_s_dp(DqRows<HD>& r, const bf16* Qs,
                                            const bf16* dOs, const bf16* Kt,
                                            const bf16* Vt, int row0) {
+  constexpr int BM = kFlashBM, BN = DqCfg<HD>::kBN;
   sm90::wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks)
-    sm90::Wgmma<kFlashBN, 0>::ss(r.s, desc_kmajor<HD, kFlashBM>(Qs, row0, ks),
-                                 desc_kmajor<HD, kFlashBN>(Kt, 0, ks), ks > 0);
+    sm90::Wgmma<BN, 0>::ss(r.s, desc_kmajor<HD, BM>(Qs, row0, ks),
+                           desc_kmajor<HD, BN>(Kt, 0, ks), ks > 0);
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks)
-    sm90::Wgmma<kFlashBN, 0>::ss(r.dp, desc_kmajor<HD, kFlashBM>(dOs, row0, ks),
-                                 desc_kmajor<HD, kFlashBN>(Vt, 0, ks), ks > 0);
+    sm90::Wgmma<BN, 0>::ss(r.dp, desc_kmajor<HD, BM>(dOs, row0, ks),
+                           desc_kmajor<HD, BN>(Vt, 0, ks), ks > 0);
   sm90::wgmma_commit();
 }
 
 template <int HD>
 __device__ __forceinline__ void issue_dq(DqRows<HD>& r, const bf16* Kt) {
+  constexpr int BN = DqCfg<HD>::kBN;
   sm90::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kFlashBN / 16; ++kk)
-    sm90::Wgmma<HD, 1>::rs(r.dq, r.ds + 4 * kk,
-                           desc_mnmajor<HD, kFlashBN>(Kt, kk), 1);
+  for (int kk = 0; kk < BN / 16; ++kk)
+    sm90::Wgmma<HD, 1>::rs(r.dq, r.ds + 4 * kk, desc_mnmajor<HD, BN>(Kt, kk),
+                           1);
   sm90::wgmma_commit();
 }
 
@@ -172,7 +199,7 @@ template <int HD>
 __device__ __forceinline__ void ds_tile(DqRows<HD>& r, int valid, float sl2,
                                         float scale, int t) {
 #pragma unroll
-  for (int i = 0; i < kFlashBN / 2; ++i) {
+  for (int i = 0; i < DqCfg<HD>::kBN / 2; ++i) {
     const int h = (i >> 1) & 1;
     const float p = acc_col(i, t) < valid ? ex2(fmaf(r.s[i], sl2, -r.lse2[h]))
                                           : 0.0f;
@@ -266,7 +293,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   }
 
   const float sl2 = scale * kLog2e;
-  TensorTurns turns(wg, q0 + 64 < Nq);
+  TensorTurns turns(wg, q0 + 64 < Nq ? 2 : 1);
   DqRows<HD> r;
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) r.dq[i] = 0.0f;
@@ -294,7 +321,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   sm90::fence_regs(r.s);
   sm90::fence_regs(r.dp);
   ds_tile<HD>(r, Nkv, sl2, scale, t);
-  acc_to_a<kFlashBN / 2>(r.ds, r.s);
+  acc_to_a<BN / 2>(r.ds, r.s);
 
   for (int j = 1; j < nkt; ++j) {
     const int sj = j % ST, sp = (j - 1) % ST;
@@ -312,7 +339,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     sm90::fence_regs(r.dq);
     sm90::fence_regs(r.s);
     if (lane == 0) sm90::mbar_arrive(empty + sp);
-    acc_to_a<kFlashBN / 2>(r.ds, r.s);
+    acc_to_a<BN / 2>(r.ds, r.s);
   }
   turns.wait();
   issue_dq<HD>(r, Ks + ((nkt - 1) % ST) * BN * HD);
@@ -337,6 +364,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
 template <int HD>
 struct DkvCfg {
   static constexpr int kStages = 2;
+  static constexpr bool kRegA = HD == 64;  // K and V as register fragments
   static constexpr uint32_t kTileBytes = 64 * HD * 2;  // K, V, a Q or dO tile
   static constexpr uint32_t kRowBytes = kFlashBQ * 4;  // lse or delta of one
   static constexpr uint32_t kLoadBytes = 2 * kTileBytes + 2 * kRowBytes;
@@ -429,6 +457,11 @@ __global__ void __launch_bounds__(256, 2)
   for (int i = 0; i < HD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
 
   sm90::mbar_wait(kv_full, 0);
+  uint32_t ka[16], va[16];  // K and V rows as A fragments (C::kRegA)
+  if constexpr (C::kRegA) {
+    load_a_frags(ka, Ks, warp * 16, lane);
+    load_a_frags(va, Vs, warp * 16, lane);
+  }
   for (int i = 0; i < n; ++i) {
     const int s = i % ST;
     sm90::mbar_wait(full + s, (i / ST) & 1);
@@ -437,13 +470,23 @@ __global__ void __launch_bounds__(256, 2)
     float st[BQ / 2], dpt[BQ / 2];  // Sᵀ, dPᵀ: 64 keys x 64 queries
     sm90::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      sm90::Wgmma<BQ, 0>::ss(st, desc_kmajor<HD, 64>(Ks, 0, ks),
-                             desc_kmajor<HD, BQ>(Qt, 0, ks), ks > 0);
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      if constexpr (C::kRegA)
+        sm90::Wgmma<BQ, 0>::rs(st, ka + 4 * ks,
+                               desc_kmajor<HD, BQ>(Qt, 0, ks), ks > 0);
+      else
+        sm90::Wgmma<BQ, 0>::ss(st, desc_kmajor<HD, 64>(Ks, 0, ks),
+                               desc_kmajor<HD, BQ>(Qt, 0, ks), ks > 0);
+    }
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      sm90::Wgmma<BQ, 0>::ss(dpt, desc_kmajor<HD, 64>(Vs, 0, ks),
-                             desc_kmajor<HD, BQ>(dOt, 0, ks), ks > 0);
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      if constexpr (C::kRegA)
+        sm90::Wgmma<BQ, 0>::rs(dpt, va + 4 * ks,
+                               desc_kmajor<HD, BQ>(dOt, 0, ks), ks > 0);
+      else
+        sm90::Wgmma<BQ, 0>::ss(dpt, desc_kmajor<HD, 64>(Vs, 0, ks),
+                               desc_kmajor<HD, BQ>(dOt, 0, ks), ks > 0);
+    }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(st);
@@ -535,12 +578,25 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Maps of one operand set: q, do and o in kFlashBM-row boxes (the dq pass),
-// k and v in kFlashBN-row boxes (the dq pass), q and do in kFlashBQ-row and
-// k and v in 64-row boxes (the dk/dv pass).
+// Maps of the operands: q, do and o in kFlashBM-row boxes and k and v in
+// DqCfg::kBN-row boxes (the dq pass), q and do in kFlashBQ-row and k and v
+// in 64-row boxes (the dk/dv pass).
+enum BwdOperand { kBwdQ, kBwdK, kBwdV, kBwdO, kBwdDO };
 struct FlashBwdMaps {
-  CUtensorMap q128, do128, o128, k80, v80, q64, do64, k64, v64;
+  CUtensorMap q_dq, do_dq, o_dq, k_dq, v_dq, q_kv, do_kv, k_kv, v_kv;
 };
+
+// Encodes the maps the backward at HD reads; mk(map, operand, box rows)
+// encodes one.
+template <int HD, class MakeMap>
+bool flash_bwd_maps(FlashBwdMaps& m, MakeMap mk) {
+  constexpr int BN = DqCfg<HD>::kBN;
+  return mk(&m.q_dq, kBwdQ, kFlashBM) && mk(&m.do_dq, kBwdDO, kFlashBM) &&
+         mk(&m.o_dq, kBwdO, kFlashBM) && mk(&m.k_dq, kBwdK, BN) &&
+         mk(&m.v_dq, kBwdV, BN) && mk(&m.q_kv, kBwdQ, kFlashBQ) &&
+         mk(&m.do_kv, kBwdDO, kFlashBQ) && mk(&m.k_kv, kBwdK, 64) &&
+         mk(&m.v_kv, kBwdV, 64);
+}
 
 // fp32 floats of the row arrays (lse·log2e and delta, each padded to a
 // multiple of 128 query rows a slice) and of the dk and dv partials of
@@ -554,8 +610,9 @@ inline size_t flash_bwd_scratch_floats(int BH, int Nq, int Nkv, int hd) {
   return splits > 1 ? 2 * (size_t)splits * BH * Nkv * hd : 0;
 }
 
-// The backward over BH slices laid out as `lay` says; `rows` and `scratch`
-// hold flash_bwd_row_floats and flash_bwd_scratch_floats.
+// The backward over BH slices laid out as `lay` says, from the maps
+// flash_bwd_maps encoded; `rows` and `scratch` hold flash_bwd_row_floats
+// and flash_bwd_scratch_floats.
 template <int HD>
 cudaError_t launch_flash_bwd(const FlashBwdMaps& m, const float* lse,
                              float* rows, float* scratch, bf16* dq, bf16* dk,
@@ -567,7 +624,7 @@ cudaError_t launch_flash_bwd(const FlashBwdMaps& m, const float* lse,
   if (err != cudaSuccess) return err;
   dim3 dq_grid((Nq + kFlashBM - 1) / kFlashBM, BH);
   flash_dq_kernel<HD><<<dq_grid, kFlashThreads, DqCfg<HD>::kSmem, st>>>(
-      m.q128, m.do128, m.o128, m.k80, m.v80, lse, lse2, delta, dq, Nq, Nkv,
+      m.q_dq, m.do_dq, m.o_dq, m.k_dq, m.v_dq, lse, lse2, delta, dq, Nq, Nkv,
       scale, lay);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -581,8 +638,8 @@ cudaError_t launch_flash_bwd(const FlashBwdMaps& m, const float* lse,
   if (err != cudaSuccess) return err;
   dim3 kv_grid((Nkv + 63) / 64, BH, splits);
   flash_dkdv_kernel<HD><<<kv_grid, 256, DkvCfg<HD>::kSmem, st>>>(
-      m.q64, m.do64, m.k64, m.v64, lse2, delta, dk, dv, dk_part, dv_part, BH,
-      Nq, Nkv, scale, per, lay);
+      m.q_kv, m.do_kv, m.k_kv, m.v_kv, lse2, delta, dk, dv, dk_part, dv_part,
+      BH, Nq, Nkv, scale, per, lay);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
 

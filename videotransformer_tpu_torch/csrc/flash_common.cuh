@@ -19,9 +19,10 @@ namespace vt {
 
 using bf16 = __nv_bfloat16;
 
-// Forward and dq pass: a block of two consumer warpgroups, each owning 64
-// query rows, and a producer warpgroup (one thread of it issues the TMA
-// loads) that gives its registers to the consumers.
+// The dq pass of the two-pass backward (and the forward at head dims other
+// than 64, FwdCfg in flash_fwd.cuh): a block of two consumer warpgroups,
+// each owning 64 query rows, and a producer warpgroup (one thread of it
+// issues the TMA loads) that gives its registers to the consumers.
 constexpr int kFlashBM = 128;  // queries a block
 constexpr int kFlashThreads = 384;
 constexpr int kFlashStages = 3;  // the K/V ring
@@ -42,24 +43,26 @@ struct Panels {
   static constexpr uint32_t kGroupBytes = 8 * kRowBytes;  // 8 rows (SBO)
 };
 
-// Turns of the two consumer warpgroups at the tensor cores (named barriers 1
-// and 2): a warpgroup issues its products only in its turn and then passes
-// the turn, so one warpgroup's exponentials run while the other's products
-// do. Both warpgroups take the same number of turns; warpgroup 0 goes first.
-// Off (every call a no-op) when one of the two is all padding.
+// Turns of the consumer warpgroups at the tensor cores (named barriers 1,
+// 2, ...: one a warpgroup): a warpgroup issues its products only in its
+// turn and then passes the turn to the next, round the `n` warpgroups that
+// have rows, so one warpgroup's exponentials run while another's products
+// do. All take the same number of turns; warpgroup 0 goes first. Off
+// (every call a no-op) when one warpgroup alone has rows.
 struct TensorTurns {
-  int me;
-  bool on;
-  __device__ __forceinline__ TensorTurns(int wg, bool both_compute)
-      : me(wg), on(both_compute) {
-    if (on && me == 1) sm90::bar_arrive(1, 256);
+  int me, n;
+  __device__ __forceinline__ TensorTurns(int wg, int active)
+      : me(wg), n(active) {
+    if (n > 1 && me == n - 1) sm90::bar_arrive(1, 256);
   }
   __device__ __forceinline__ void wait() {
-    if (on) sm90::bar_sync(1 + me, 256);
+    if (n > 1) sm90::bar_sync(1 + me, 256);
   }
-  // The last turn of warpgroup 1 passes nothing: warpgroup 0 takes no more.
+  // The last turn of the last warpgroup passes nothing: warpgroup 0 takes
+  // no more.
   __device__ __forceinline__ void pass(bool last) {
-    if (on && !(last && me == 1)) sm90::bar_arrive(2 - me, 256);
+    if (n > 1 && !(last && me == n - 1))
+      sm90::bar_arrive(me + 1 < n ? me + 2 : 1, 256);
   }
 };
 
@@ -73,6 +76,24 @@ __device__ __forceinline__ uint64_t desc_kmajor(const bf16* tile, int row0,
   const bf16* p = tile + (ks / kSteps) * ROWS * P::kPW + row0 * P::kPW +
                   (ks % kSteps) * 16;
   return sm90::make_desc(p, 16, P::kGroupBytes, P::kSwizzle);
+}
+
+// The wgmma A fragments of this warp's 16 rows row0.. (a multiple of 16) of
+// a tile of 64-column rows in shared memory (hd 64: one 128-byte swizzled
+// panel, chunk c of row r at c ^ (r mod 8)), k16 step ks in a[4ks..4ks+3]:
+// for a product whose A operand stays the same over a loop, loaded once, it
+// reads half the shared memory of one with both operands there (at n = 64
+// the two take the SM's whole 128 bytes a clock).
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[16],
+                                             const bf16* tile, int row0,
+                                             int lane) {
+  const int m = lane >> 3;  // the matrix this lane addresses: rows +8,
+  const int r = row0 + (m & 1) * 8 + (lane & 7);  // columns +8 (m >> 1)
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int c = 2 * ks + (m >> 1);
+    sm90::ldmatrix_x4(a + 4 * ks, tile + r * 64 + ((c ^ (r & 7)) << 3));
+  }
 }
 
 // Descriptor of rows 16kk..16kk+15 of a ROWS-row tile read MN-major, as the

@@ -50,9 +50,10 @@
 //    the special function unit's (__expf: a few fp32 ulps, far inside the
 //    bf16 rounding of p that follows): inlined 104 times a thread, expf's
 //    longer sequence took the dense stage from 0.23 to 0.33 ms on an H100.
-//    The long variant walks the keys in 80-key tiles with an online softmax
-//    and so rounds the unnormalised p̃ = exp(s - m_running) before P̃·V
-//    (B5's order, kernels/flash_attention.py).
+//    The long variant walks the keys in tiles (96 keys at head dim 64,
+//    FwdCfg) with an online softmax and so rounds the unnormalised
+//    p̃ = exp(s - m_running) before P̃·V (B5's order,
+//    kernels/flash_attention.py).
 // 4. out = attn · Wprojᵀ + b (+ x in the epilogue) on the same core.
 //
 // What stays in device memory: qkv (rows x 3Da bf16, written and read once)
@@ -439,10 +440,11 @@ cudaError_t launch_dense(const bf16* qkv, bf16* attn, int nseq, int L, int Da,
 cudaError_t launch_long(const bf16* qkv, bf16* attn, float* lse, int nseq,
                         int L, int Da, int heads, float scale,
                         cudaStream_t st) {
+  using C = FwdCfg<kHd>;
   CUtensorMap qm, kvm;
   if (lse == nullptr ||
-      !make_tensor_map_3d(&qm, qkv, nseq, L, 3 * Da, kFlashBM, kHd) ||
-      !make_tensor_map_3d(&kvm, qkv, nseq, L, 3 * Da, kFlashBN, kHd))
+      !make_tensor_map_3d(&qm, qkv, nseq, L, 3 * Da, C::kBM, kHd) ||
+      !make_tensor_map_3d(&kvm, qkv, nseq, L, 3 * Da, C::kBN, kHd))
     return cudaErrorInvalidValue;
   const HeadLayout lay{heads, 0, Da, 2 * Da, Da, Da};
   return launch_flash_fwd<kHd>(qm, kvm, kvm, attn, lse, nseq * heads, L, L,
@@ -508,6 +510,21 @@ int vt_mhsa_attention_smem_bytes(int seq_len, int head_dim, int variant) {
   if (variant == vt::kDense) return (int)vt::dense_smem(seq_len);
   if (variant == vt::kLong) return (int)vt::FwdCfg<vt::kHd>::kSmem;
   return (int)vt::attention_smem_bytes(seq_len, head_dim);
+}
+
+// B1's attention stage alone: the stage `variant` of vt_fused_prenorm_mhsa
+// on qkv (rows, 3Da), writing attn (rows, Da) and, for the long variant,
+// lse (nseq, heads, seq_len) fp32; to time the stage on its own.
+int vt_mhsa_attention(const void* qkv, void* attn, void* lse, int rows,
+                      int Da, int num_heads, int seq_len, int variant,
+                      float scale, void* stream) {
+  if (rows < 1 || num_heads < 1 || seq_len < 1 || rows % seq_len ||
+      Da % num_heads || !vt::variant_fits(variant, seq_len, Da / num_heads))
+    return cudaErrorInvalidValue;
+  return vt::launch_attention(
+      variant, static_cast<const vt::bf16*>(qkv), static_cast<vt::bf16*>(attn),
+      static_cast<float*>(lse), rows, seq_len, Da, num_heads, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 // x (rows, D) with rows = nseq * seq_len; weights in (out, in) layout:

@@ -621,19 +621,16 @@ cudaError_t launch_long_bwd(const bf16* qkv, const bf16* dout,
                             const bf16* attn, const float* lse, bf16* dqkv,
                             float* work, int nseq, int L, int Da, int heads,
                             float scale, cudaStream_t st) {
-  FlashBwdMaps m;
   const int W = 3 * Da;
-  if (attn == nullptr || lse == nullptr ||
-      !make_tensor_map_3d(&m.q128, qkv, nseq, L, W, kFlashBM, kBHd) ||
-      !make_tensor_map_3d(&m.do128, dout, nseq, L, Da, kFlashBM, kBHd) ||
-      !make_tensor_map_3d(&m.o128, attn, nseq, L, Da, kFlashBM, kBHd) ||
-      !make_tensor_map_3d(&m.k80, qkv, nseq, L, W, kFlashBN, kBHd) ||
-      !make_tensor_map_3d(&m.q64, qkv, nseq, L, W, kFlashBQ, kBHd) ||
-      !make_tensor_map_3d(&m.do64, dout, nseq, L, Da, kFlashBQ, kBHd) ||
-      !make_tensor_map_3d(&m.k64, qkv, nseq, L, W, 64, kBHd))
-    return cudaErrorInvalidValue;
-  m.v80 = m.k80;  // q, k and v share qkv's maps: their columns differ
-  m.v64 = m.k64;
+  if (attn == nullptr || lse == nullptr) return cudaErrorInvalidValue;
+  FlashBwdMaps m;  // q, k and v in qkv (their columns differ), o in attn
+  auto mk = [&](CUtensorMap* map, int which, int rows) {
+    const bool in_qkv = which == kBwdQ || which == kBwdK || which == kBwdV;
+    const bf16* base = in_qkv ? qkv : which == kBwdO ? attn : dout;
+    return make_tensor_map_3d(map, base, nseq, L, in_qkv ? W : Da, rows,
+                              kBHd);
+  };
+  if (!flash_bwd_maps<kBHd>(m, mk)) return cudaErrorInvalidValue;
   const int bh = nseq * heads;
   const HeadLayout lay{heads, 0, Da, 2 * Da, W, W};
   return launch_flash_bwd<kBHd>(m, lse, work,
@@ -806,6 +803,36 @@ int vt_mhsa_bwd_scratch_floats(int rows, int D, int Da, int Do,
                                         slices_qkv, num_heads, seq_len,
                                         variant).total();
   return n > 0x7fffffffu ? -1 : (int)n;
+}
+
+// fp32 floats of the work vt_mhsa_attention_bwd needs: the long variant's
+// row arrays and scratch, 0 for the others; -1 above 2^31.
+int vt_mhsa_attention_bwd_floats(int rows, int num_heads, int seq_len,
+                                 int variant) {
+  if (num_heads < 1 || seq_len < 1 || rows % seq_len) return -1;
+  const size_t n = vt::long_bwd_floats(rows, seq_len, num_heads, variant);
+  return n > 0x7fffffffu ? -1 : (int)n;
+}
+
+// B3's attention stage alone: dqkv (rows, 3Da) bf16 from qkv (rows, 3Da)
+// and dout (rows, Da), with the forward's attn (rows, Da) and lse (nseq,
+// heads, seq_len) fp32 for the long variant (else may be null) and `work`
+// as sized above; the first stage of vt_mhsa_attn_bwd, to time the stage on
+// its own.
+int vt_mhsa_attention_bwd(const void* qkv, const void* dout, const void* attn,
+                          const void* lse, void* work, void* dqkv, int rows,
+                          int Da, int num_heads, int seq_len, int variant,
+                          float scale, void* stream) {
+  using vt::bf16;
+  if (rows < 1 || num_heads < 1 || seq_len < 1 || rows % seq_len ||
+      Da % num_heads ||
+      !vt::bwd_variant_fits(variant, seq_len, Da / num_heads))
+    return cudaErrorInvalidValue;
+  return vt::launch_attention_bwd(
+      variant, static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(attn), static_cast<const float*>(lse),
+      static_cast<float*>(work), static_cast<bf16*>(dqkv), rows, seq_len, Da,
+      num_heads, scale, static_cast<cudaStream_t>(stream));
 }
 
 // B3 alone, from do: x (rows, D), qkv (rows, 3Da), dout (rows, Da), the

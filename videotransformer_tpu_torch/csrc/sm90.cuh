@@ -86,6 +86,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// Four 8x8 bf16 matrices from shared memory into registers (matrix m into
+// r[m], as an mma fragment: lane l holds row l / 4, elements 2(l % 4), +1);
+// lane 8m + i gives the address of row i of matrix m (16 bytes).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
 // ---- named barriers (0 is __syncthreads's) ------------------------------------
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {

@@ -58,6 +58,32 @@ _BWD_SIGNATURES = {
 }
 
 
+def bwd_splits(BH, Nq, Nkv):
+    """(splits, query tiles a split) of B6's dk/dv pass
+    (csrc/flash_bwd.cuh ``bwd_splits``): 64-key blocks walk the 64-query
+    tiles; where the blocks fall short of two a SM of an H100 (264), the
+    tiles are split in runs of equal length and the fp32 partials summed
+    in split order afterwards."""
+    nqt, nkt = -(-Nq // 64), -(-Nkv // 64)
+    want = min(max(264 // (nkt * BH), 1), nqt)
+    per = -(-nqt // want)
+    return -(-nqt // per), per
+
+
+def bwd_row_floats(BH, Nq):
+    """fp32 floats of B6's row arrays: lse·log2e and delta, each padded to
+    a multiple of 128 query rows a slice, the dq pass's blocks
+    (``vt_flash_bwd_row_floats``)."""
+    return 2 * BH * -(-Nq // 128) * 128
+
+
+def bwd_scratch_floats(BH, Nq, Nkv, hd):
+    """fp32 floats of B6's scratch (``vt_flash_bwd_scratch_floats``): the dk
+    and dv partials of every query split, 0 with one split."""
+    splits = bwd_splits(BH, Nq, Nkv)[0]
+    return 2 * splits * BH * Nkv * hd if splits > 1 else 0
+
+
 def _forward_reference(q, k, v, scale):
     """Plain forward: (o in q's dtype, lse fp32 (B, H, Nq))."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale

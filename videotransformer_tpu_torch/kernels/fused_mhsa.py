@@ -84,6 +84,8 @@ _SIGNATURES = {
     "vt_fused_prenorm_mhsa": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "vt_mhsa_attention_smem_bytes": [ctypes.c_int] * 3,
+    "vt_mhsa_attention": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
     "vt_fused_prenorm_mhsa_bwd": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
@@ -93,6 +95,9 @@ _BWD_SIGNATURES = {
     "vt_mhsa_bwd_smem_bytes": [ctypes.c_int] * 3,
     "vt_mhsa_bwd_scratch_floats": [ctypes.c_int] * 9,
     "vt_mhsa_bwd_qkv": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
+    "vt_mhsa_attention_bwd_floats": [ctypes.c_int] * 4,
+    "vt_mhsa_attention_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_void_p],
 }
 
@@ -567,3 +572,55 @@ def _recompute_qkv_launch(x, ln_w, ln_b, w_qkv, b_qkv, ln_eps, lib=None):
     BWD_LAUNCHES += 1
     ATTENTION_BWD_LAUNCHES["recompute"] += 1
     return qkv
+
+
+def _attention_stage_launch(qkv, num_heads, L, scale, lib=None):
+    """B1's attention stage alone on a forward's qkv (rows, 3·Da)
+    (``vt_mhsa_attention``): (attn, lse), lse for the long variant only.
+    The stage of ``_launch``, to time it on its own by CUDA events
+    (tools/fused_bench.py); not a B1 launch by the counts."""
+    name = "fused_prenorm_mhsa (attention stage)"
+    _build.check_operands(name, qkv=qkv)
+    rows, Da = qkv.shape[0], qkv.shape[1] // 3
+    variant = attention_variant(L, Da // num_heads)
+    if lib is None:
+        lib = _build.load("fused_mhsa", _SIGNATURES)
+    attn = torch.empty((rows, Da), dtype=qkv.dtype, device=qkv.device)
+    lse = None
+    if variant == "long":
+        lse = torch.empty((rows // L, num_heads, L), dtype=torch.float32,
+                          device=qkv.device)
+    P = _build.ptr
+    status = lib.vt_mhsa_attention(
+        P(qkv), P(attn), P(lse) if lse is not None else None, rows, Da,
+        num_heads, L, _VARIANT_CODES[variant], float(scale),
+        _build.stream_handle())
+    _build.check_status(name, status)
+    return attn, lse
+
+
+def _attention_bwd_stage_launch(qkv, do, attn, lse, num_heads, L, scale,
+                                lib=None):
+    """B3's attention stage alone (``vt_mhsa_attention_bwd``): dqkv (rows,
+    3·Da) from qkv, do (rows, Da) and, for the long variant, the forward's
+    attn and lse; the first stage of ``_attn_bwd_launch``, to time it on its
+    own by CUDA events (tools/fused_bench.py); not a B3 launch by the
+    counts."""
+    name = "fused_prenorm_mhsa backward (attention stage)"
+    _build.check_operands(name, qkv=qkv, do=do, attn=attn)
+    rows, Da = qkv.shape[0], qkv.shape[1] // 3
+    variant = attention_bwd_variant(L, Da // num_heads)
+    lse_p = _lse_arg(name, lse, variant, rows, L, num_heads, qkv)
+    if lib is None:
+        lib = _build.load("fused_mhsa_bwd", _BWD_SIGNATURES)
+    code = _VARIANT_CODES[variant]
+    work = torch.empty(lib.vt_mhsa_attention_bwd_floats(rows, num_heads, L,
+                                                        code),
+                       dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty((rows, 3 * Da), dtype=qkv.dtype, device=qkv.device)
+    P = _build.ptr
+    status = lib.vt_mhsa_attention_bwd(
+        P(qkv), P(do), P(attn), lse_p, P(work), P(dqkv), rows, Da, num_heads,
+        L, code, float(scale), _build.stream_handle())
+    _build.check_status(name, status)
+    return dqkv

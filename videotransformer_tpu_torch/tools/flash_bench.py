@@ -1,23 +1,36 @@
 """Times the flash-attention kernels (B5 forward, B6 backward) at the calls of
-one batch-8 MaskFeat step on MViT-B (head dim 96), beside
+one batch-8 MaskFeat step on MViT-B (head dim 96) and at the head-dim-64
+long shapes (joint space-time attention and the 448² spatial rows, which
+B1's and B3's long variant run too), beside
 ``scaled_dot_product_attention`` and the bound, and beside the kernels of
 another checkout when one is given: both are built from their own ``csrc/``
 and timed in turns (baseline, kernel, kernel, baseline) on one card.
 
     python3 -m videotransformer_tpu_torch.tools.flash_bench [--baseline DIR]
+        [--variant DIR ...] [--sass]
 
 DIR is the root of another checkout (its
 ``videotransformer_tpu_torch/csrc/flash_attention*.cu`` are built into
-``DIR/build/flash_bench``). Both builds are called through the wrappers
+``DIR/build/flash_bench``). Each ``--variant`` is a copy of this
+checkout's ``csrc/`` edited (as ``DIR/videotransformer_tpu_torch/csrc``),
+built the same way and timed in the same turns (variants and baseline,
+kernel, kernel, then the others again), to compare tile choices. Every
+build is called through the wrappers
 (``kernels/flash_attention._launch``, ``_launch_backward``). Prints one line
 per shape and direction: device ms, TFLOP/s, share of the bound and host µs
 to issue a call, for each build and for SDPA; the host time's parts at
-PARTS_SHAPE; the totals of one step (each shape times its calls); and the
-card's name and power limit. Needs a CUDA card and nvcc.
+PARTS_SHAPE; the totals of one mim step (each shape times its calls) and,
+apart, of the hd-64 calls (each long shape times its 12 calls); and the
+card's name and power limit. Needs a CUDA card and nvcc. ``--sass`` first
+prints, for each build's hd-64 flash kernels, the count of each softmax
+instruction in their machine code (``cuobjdump -sass``, from the CUDA
+toolkit beside nvcc).
 """
 
 import argparse
+import collections
 import os
+import re
 import subprocess
 import time
 
@@ -31,11 +44,18 @@ HD = 96
 # (B·H, Nq, Nkv, calls) of the flash attention calls of one batch-8 mim step
 FLASH_SHAPES = ((8, 25088, 393, 1), (16, 6272, 1569, 1), (16, 6272, 393, 1),
                 (32, 1568, 1569, 1), (32, 1568, 393, 10), (64, 1568, 393, 2))
-# joint space-time attention of TimeSformer-B at 16 frames (8 clips, 12
-# heads, 1 + 16·196 tokens, head dim 64): the JAX package's flash path at
-# N > 2048, timed beside the step (calls 0: not in its totals)
-JOINT_SHAPE = (96, 3137, 3137, 0)
+# the head-dim-64 long shapes, ((B·H, Nq, Nkv, calls), where), 12 calls
+# each (one a layer): joint space-time attention of TimeSformer-B at 16
+# frames (8 clips, 12 heads, 1 + 16·196 tokens: the JAX package's flash
+# path at N > 2048); ViViT-B joint and TimeSformer-B joint at 8 frames, 8
+# clips (1 + 8·196 tokens; B1's and B3's long attention stage at (8, 1569,
+# 768)); TimeSformer-B's divided spatial rows served at 448², 8 clips x 3
+# crops x 8 frames (1 + 28·28 tokens; B1's at (192, 785, 768))
 JOINT_HD = 64
+LONG_SHAPES = (
+    ((96, 3137, 3137, 12), "TimeSformer-B joint at 16 frames"),
+    ((96, 1569, 1569, 12), "ViViT-B joint, TimeSformer-B joint at 8 frames"),
+    ((2304, 785, 785, 12), "TimeSformer-B divided spatial at 448²"))
 # where the wrapper's host time is broken into its parts: the shape with the
 # most calls a step
 PARTS_SHAPE = (32, 1568, 393)
@@ -171,6 +191,47 @@ def issue_parts(q, k, v, do, scale):
             for what, fns in parts.items()}
 
 
+# the softmax's instructions, counted in the kernels' machine code
+SASS_OPS = ("MUFU.EX2", "FFMA", "FMUL", "FADD", "FMNMX", "F2FP", "SHFL",
+            "HGMMA")
+
+
+def sass_counts(so_path):
+    """{kernel: {opcode: count}} of the hd-64 flash kernels (the names with
+    ``ILi64E``: flash_fwd_kernel<64>, the backward's) in a built library,
+    from ``cuobjdump -sass``; every opcode counted by its SASS_OPS prefix."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "ILi64E" in m.group(1) else None
+            if name:
+                counts[name] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                      line)
+        if name and m:
+            op = m.group(1)
+            for prefix in SASS_OPS:
+                if op == prefix or op.startswith(prefix + "."):
+                    counts[name][prefix] += 1
+    return counts
+
+
+def print_sass(builds):
+    """Prints sass_counts of each (label, build directory) pair's flash
+    libraries."""
+    for label, build_dir in builds:
+        for lib in ("flash_attention", "flash_attention_bwd"):
+            so = os.path.join(build_dir, f"lib{lib}.so")
+            for kernel, c in sass_counts(so).items():
+                print(f"sass {label} {kernel}: " + ", ".join(
+                    f"{op} {c[op]}" for op in SASS_OPS), flush=True)
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -181,6 +242,12 @@ def card_name():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="root of another checkout")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="root of a variant of this checkout's csrc/ "
+                         "(named by its directory), timed in turns with "
+                         "the baseline")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the hd-64 kernels' softmax instructions")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("flash_bench needs a CUDA device; none is visible")
@@ -191,12 +258,24 @@ def main():
     libs = {"kernel": (None, None)}  # the wrappers' own builds
     if args.baseline:
         libs["baseline"] = checkout_libs(os.path.abspath(args.baseline))
+    for root in args.variant:
+        libs[os.path.basename(os.path.normpath(root))] = checkout_libs(
+            os.path.abspath(root))
+    if args.sass:
+        for lib in ("flash_attention", "flash_attention_bwd"):
+            _build.build(lib)
+        builds = [("kernel", _build.BUILD_DIR)]
+        if args.baseline:
+            builds.append(("baseline", os.path.join(
+                os.path.abspath(args.baseline), "build", "flash_bench")))
+        print_sass(builds)
     names = (*libs, "sdpa")
 
     rng = np.random.default_rng(0)
-    totals = {}
-    cases = [(shape, HD) for shape in FLASH_SHAPES] + [(JOINT_SHAPE, JOINT_HD)]
-    for (bh, nq, nkv, count), hd in cases:
+    totals = {"mim step": {}, "hd 64": {}}
+    cases = [(shape, HD, "mim step") for shape in FLASH_SHAPES] + [
+        (shape, JOINT_HD, "hd 64") for shape, _ in LONG_SHAPES]
+    for (bh, nq, nkv, count), hd, group in cases:
         scale = hd ** -0.5
         mk = lambda n: torch.from_numpy(rng.standard_normal(
             (1, bh, n, hd), dtype=np.float32)).to("cuda", torch.bfloat16)
@@ -209,8 +288,8 @@ def main():
                 q, k, v, o, lse, do, scale, b)) for name, (_, b) in libs.items()}}
         ms, us = {}, {}
         for what, fns in calls.items():
-            order = ["baseline", "kernel", "kernel", "baseline"] \
-                if "baseline" in fns else ["kernel", "kernel"]
+            others = [name for name in fns if name != "kernel"]
+            order = others + ["kernel", "kernel"] + others[::-1]
             got = {}
             for name in order:
                 got.setdefault(name, []).append(timed_ms(fns[name]))
@@ -221,15 +300,14 @@ def main():
          us[("forward", "sdpa")], us[("backward", "sdpa")]) = sdpa_times(
              q, k, v, do, scale)
         fb, bb, flops = flash_bounds(bh, nq, nkv, hd)
+        tot = totals[group]
         for what, (bms, by), f in (("forward", fb, flops),
                                    ("backward", bb, 2.5 * flops)):
-            totals[(what, "bound")] = totals.get((what, "bound"), 0.0) \
-                + count * bms
+            tot[(what, "bound")] = tot.get((what, "bound"), 0.0) + count * bms
             for name in names:
                 t, host = ms[(what, name)], us[(what, name)] / 1e3
                 for key, x in ((name, t), (f"{name} host-bound", max(t, host))):
-                    totals[(what, key)] = totals.get((what, key), 0.0) \
-                        + count * x
+                    tot[(what, key)] = tot.get((what, key), 0.0) + count * x
             print(f"{what} (B·H, Nq, Nkv, hd) = ({bh}, {nq}, {nkv}, {hd}) "
                   f"x{count}: " + ", ".join(
                       f"{name} {ms[(what, name)]:.4f} ms "
@@ -243,10 +321,13 @@ def main():
                       + ", ".join(f"{p} {t:.1f}" for p, t in parts.items()),
                       flush=True)
         del q, k, v, do, o, lse
-    print("one step (each shape times its calls; host-bound: each call "
-          "max(device ms, issue ms), as when called back to back on an idle "
-          "card): " + ", ".join(f"{what} {key} {t:.4f}"
-                               for (what, key), t in totals.items()))
+    for group, what_is in (
+            ("mim step", "one step (each shape times its calls"),
+            ("hd 64", "the hd-64 calls (each long shape times its 12 calls")):
+        print(f"{group}: {what_is}; host-bound: each call max(device ms, "
+              f"issue ms), as when called back to back on an idle card): "
+              + ", ".join(f"{what} {key} {t:.4f}"
+                          for (what, key), t in totals[group].items()))
     print(f"card: {card}")
 
 

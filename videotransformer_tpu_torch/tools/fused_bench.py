@@ -6,8 +6,9 @@ kernel, baseline) on one card. The kernels: B1 (the MHSA forward), B2 (the
 FFN forward), B3 (the MHSA backward, alone from do and as the whole call
 with its projection products) and B4 (the FFN backward). B1 and B3 are
 also timed at ViViT-B's joint space-time shape (8, 1569, 768), their long
-attention variant, with ``scaled_dot_product_attention`` beside the long
-attention stage. B3's whole call is also timed in its recompute mode (qkv
+attention variant, and B1 at the 448² serving shape (192, 785, 768), with
+the long attention stage alone (CUDA events) and
+``scaled_dot_product_attention`` beside it, in turns. B3's whole call is also timed in its recompute mode (qkv
 rebuilt from x, the wrapper's ``RECOMPUTE_QKV``) against the same call
 from the saved qkv, in turns.
 
@@ -50,8 +51,9 @@ MHSA_SHAPES = (("serve dense", (192, 197, D), 0, 12),
                ("serve temporal", (4704, 8, D), 8, 12),
                ("train dense", (64, 197, D), 0, 12),
                ("train temporal", (1568, 8, D), 8, 12),
-               ("ViViT joint long", (8, 1569, D), 0, 12))
-MHSA_BWD_SHAPES = MHSA_SHAPES[2:]
+               ("ViViT joint long", (8, 1569, D), 0, 12),
+               ("serve long at 448²", (192, 785, D), 0, 12))
+MHSA_BWD_SHAPES = MHSA_SHAPES[2:5]
 # (label, (rows, D), LayerNorm eps, calls a forward or a step)
 FFN_FWD_SHAPES = (("serve", (37656, D), 1e-5, 12),
                   ("TimeSformer train", (12552, D), 1e-5, 12),
@@ -170,9 +172,13 @@ def checkout_libs(root):
     abi, bwd = _abi_version("fused_mhsa_bwd", csrc, build_dir)
     if not hasattr(bwd, "vt_mhsa_attn_bwd"):
         raise ValueError(f"{root}: its B3 has no one-call backward")
-    load = lambda name, sigs: _build.load(name, sigs, csrc, build_dir)
-    if abi < 3:  # before the recompute mode (and the long variant, < 2)
-        load = lambda name, sigs: OlderLib(name, sigs, csrc, build_dir, abi)
+    def load(name, sigs):
+        # the entries it has: the stage-alone ones are this checkout's only
+        lib = ctypes.CDLL(_build.build(name, build_dir, csrc))
+        sigs = {fn: args for fn, args in sigs.items() if hasattr(lib, fn)}
+        if abi < 3:  # before the recompute mode (and the long variant, < 2)
+            return OlderLib(name, sigs, csrc, build_dir, abi)
+        return _build.load(name, sigs, csrc, build_dir)
     ffn_sigs = {"vt_fused_prenorm_ffn":
                 fused_ffn._SIGNATURES["vt_fused_prenorm_ffn"]}
     return {"long": abi >= 2, "recompute": abi >= 3,
@@ -307,17 +313,40 @@ def recompute_args(args):
     return args[:2] + (None,) + args[3:]
 
 
-def sdpa_long_ms(rng, shape):
-    """scaled_dot_product_attention's device ms (forward, backward) on q, k,
-    v of the long attention stage at x's ``shape`` (B, L, D): (1, B·H, L,
-    D/H), the yardstick beside that stage (the port never calls it). Its
-    backward runs through autograd, so inference mode is off here."""
+def long_stage_ms(rng, shape, backward=False):
+    """B1's (or B3's) long attention stage alone at x's ``shape`` (B, L, D)
+    by CUDA events (``fused_mhsa._attention_stage_launch`` or
+    ``_attention_bwd_stage_launch`` on a forward's qkv, attn and lse), and
+    scaled_dot_product_attention on q, k, v of that stage's size (1, B·H, L,
+    D/H), timed in turns (library, stage, stage, library): (stage ms,
+    library ms). The library's backward is its forward and backward through
+    autograd less its forward with grad."""
     B, L, d = shape
+    hd, scale = d // HEADS, (d // HEADS) ** -0.5
+    a, tail = mhsa_case(rng, shape, 0)
+    _, qkv, attn, lse = fused_mhsa._launch(*a, *tail)
+    if backward:
+        do = _maker(rng)((B * L, d), 1.0)
+        stage = lambda: fused_mhsa._attention_bwd_stage_launch(
+            qkv, do, attn, lse, HEADS, L, scale)
+    else:
+        stage = lambda: fused_mhsa._attention_stage_launch(qkv, HEADS, L,
+                                                           scale)
     with torch.inference_mode(False):
-        q, k, v, do = (_maker(rng)((1, B * HEADS, L, d // HEADS), 1.0)
-                       for _ in range(4))
-        fwd, bwd, *_ = sdpa_times(q, k, v, do, (d // HEADS) ** -0.5)
-    return fwd, bwd
+        q, k, v, g = (_maker(rng)((1, B * HEADS, L, hd), 1.0)
+                      for _ in range(4))
+        qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
+        fwd = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, scale=scale)
+        both = lambda: torch.autograd.grad(fwd(), (qg, kg, vg), g)
+        library = (lambda: timed_ms(both) - timed_ms(fwd)) if backward \
+            else (lambda: timed_ms(lambda: torch.nn.functional
+                                   .scaled_dot_product_attention(
+                                       q, k, v, scale=scale)))
+        l1 = library()
+        s1, s2 = timed_ms(stage), timed_ms(stage)
+        l2 = library()
+    return (s1 + s2) / 2, (l1 + l2) / 2
 
 
 def matmul_ms(pairs):
@@ -445,9 +474,10 @@ def main():
                     mhsa_bound(rows, block_diag or shape[1], D),
                     MHSA_PRODUCTS, mhsa_products(a, rows, D), totals, count)
             if shape[1] > 256:
-                print(f"  scaled_dot_product_attention forward on the long "
-                      f"stage's q, k, v: {sdpa_long_ms(rng, shape)[0]:.4f} "
-                      f"ms", flush=True)
+                stage, lib_ms = long_stage_ms(rng, shape)
+                print(f"  the long attention stage alone {stage:.4f} ms, "
+                      f"scaled_dot_product_attention forward on q, k, v of "
+                      f"its size {lib_ms:.4f} ms (in turns)", flush=True)
             del a
         for label, shape, eps, count in FFN_FWD_SHAPES:
             a = ffn_fwd_case(rng, shape)
@@ -480,9 +510,10 @@ def main():
                                   mhsa_bwd_bound(rows, L, D),
                                   mhsa_bwd_bound(rows, L, D, recompute=True))
             if L > 256:
-                print(f"  scaled_dot_product_attention backward on the long "
-                      f"stage's q, k, v: {sdpa_long_ms(rng, shape)[1]:.4f} "
-                      f"ms", flush=True)
+                stage, lib_ms = long_stage_ms(rng, shape, backward=True)
+                print(f"  the long attention stage alone {stage:.4f} ms, "
+                      f"scaled_dot_product_attention backward on q, k, v "
+                      f"of its size {lib_ms:.4f} ms (in turns)", flush=True)
             del a, core
         for label, shape, eps, count in FFN_SHAPES:
             a, tail = ffn_case(rng, shape, eps)

@@ -38,9 +38,18 @@ weights from a seed:
   batch, the first step held against the same step fed the augment's
   output as a video batch, a profile of one step, the host-to-device times
   of the uint8 and the float32 batch; raw-uint8 serving through the
-  predictor and the server against the clips-mode predictor; and, where
-  this machine has OpenCV, the CLI (model_pretrain.single_run) over the
-  bundled demo clips (decided before the phase, and printed either way);
+  predictor and the server against the clips-mode predictor; the decode
+  line (decided before its phase, printed either way: the backend that
+  video_reader's backend="auto" picked, the native decoder's build error
+  if it picked OpenCV, whether FFmpeg's headers are on this machine);
+  where the native decoder builds, it against OpenCV on every demo clip at
+  the JAX package's bounds, and each backend's ms per clip for the
+  dataset's raw read (8 frames at short edge 256, host clock, median of 5
+  passes after 1); the loader's parts a batch of 4 over the demo list
+  (decode, the rest of the item, collate; uint8 and host-transform
+  recipes); and, where this machine can decode mp4, the CLI
+  (model_pretrain.single_run) over the bundled demo clips through
+  backend="auto", its steps' data_time beside the loader's parts;
 - checkpoint (a generator of its own, SEED + 4): B1 at the 448 serving
   shape (192, 785, 768), its long variant, against its plain version and
   stage by stage beside scaled_dot_product_attention; a synthetic ImageNet
@@ -161,10 +170,12 @@ scaled_dot_product_attention on q, k, v of its size, in turns.
 import contextlib
 import copy
 import gc
+import glob
 import importlib.util
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -180,7 +191,8 @@ import torch
 from videotransformer_tpu_torch import graft_entry, model_pretrain
 from videotransformer_tpu_torch.benchmarks import (
     profile_train, run_all, serve_bench, trace_infer, trace_step)
-from videotransformer_tpu_torch.data import device_augment, pipeline
+from videotransformer_tpu_torch.data import (
+    device_augment, pipeline, video_reader)
 from videotransformer_tpu_torch.data.mask_generator import (
     CubeMaskGenerator, pad_cube_marker)
 from videotransformer_tpu_torch.data.transforms import eval_transform_clip
@@ -205,6 +217,7 @@ from videotransformer_tpu_torch.tools.fused_bench import (
     fc1_epilogue_ms, ffn_bwd_bound, ffn_fwd_case, ffn_fwd_products,
     ffn_products, format_stages, matmul_ms, mhsa_bwd_bound, mhsa_bwd_case,
     long_stage_ms, mhsa_bwd_products, mhsa_products, stage_times)
+from videotransformer_tpu_torch.training import data_module
 from videotransformer_tpu_torch.training import trainer as trainer_mod
 from videotransformer_tpu_torch.utils import profiling
 
@@ -1682,46 +1695,246 @@ def raw_serving(rng, predictor, card):
     return launches
 
 
-def cli_over_demo_clips(card):
+# ---------------------------------------------------------------- decode
+
+# the bundled demo clips (12 mp4s, 192 x 256, 40 frames at 25 fps) and the
+# CLI's recipe over them: batch 4, 4 loader threads, TimeSformer-B
+DEMO = "videotransformer_tpu/data/assets/demo"
+DEMO_BATCH, DEMO_WORKERS = 4, 4
+DEMO_ARGS = [
+    "-epoch", "1", "-batch_size", str(DEMO_BATCH), "-num_workers",
+    str(DEMO_WORKERS), "-num_class", "4", "-num_frames", str(FRAMES),
+    "-frame_interval", "4", "-objective", "supervised", "-arch",
+    "timesformer", "-lr", "0.005", "-warmup_epochs", "1",
+    "-train_data_path", f"{DEMO}/demo_train_list.txt", "-classmap_path",
+    f"{DEMO}/demo_classmap.json", "-device", "cuda", "-log_interval", "1"]
+# native against OpenCV, as tests/test_data.py::test_native_decoder_matches_cv2
+# holds them: chroma upsampling and the YUV -> RGB rounding differ (swscale
+# bilinear against OpenCV's conversion), by a mean of ~1-2 of 255
+DECODE_MEAN_ABS_TOL = 4.0
+DECODE_REPS = 5  # timed passes over the demo list, after one untimed
+
+
+def ffmpeg_headers():
+    """(include directories holding libavformat's headers, pkg-config's
+    libavformat version or None) on this machine."""
+    dirs = sorted(glob.glob("/usr/include/libavformat")
+                  + glob.glob("/usr/include/*/libavformat")
+                  + glob.glob("/usr/local/include/libavformat"))
+    version = None
+    if shutil.which("pkg-config"):
+        proc = subprocess.run(["pkg-config", "--modversion", "libavformat"],
+                              capture_output=True, text=True)
+        version = proc.stdout.strip() if proc.returncode == 0 else None
+    return dirs, version
+
+
+def decode_decision():
+    """The decode line, decided before the decode phase starts: the
+    backend that backend="auto" picked (building the native decoder if it
+    can; for cv2 the compiler's error), whether FFmpeg's headers are here,
+    and whether OpenCV is. Returns (backend, OpenCV present)."""
+    t0 = time.perf_counter()
+    backend, error = video_reader.auto_backend()
+    seconds = time.perf_counter() - t0
+    dirs, version = ffmpeg_headers()
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    why = (f"libvideodec.so built or loaded in {seconds:.2f} s" if error is None
+           else f"the native build failed: {error}")
+    log(f"decode: backend=auto picked {backend} ({why}); FFmpeg headers: "
+        f"{', '.join(dirs) or 'none found'} (pkg-config libavformat: "
+        f"{version or 'not found'}); OpenCV: "
+        f"{'present' if has_cv2 else 'absent'}")
+    return backend, has_cv2
+
+
+def demo_data(device_augment):
+    """The CLI's data module over the demo list (KineticsDataModule, as
+    single_run builds it): uint8 clips for the device augment, or the host
+    transforms."""
+    args = model_pretrain.parse_args(DEMO_ARGS + [
+        "-root_dir", ".", "-device_augment", str(device_augment)])
+    return data_module.KineticsDataModule(args, args.train_data_path)
+
+
+def native_against_cv2():
+    """Every demo clip through both backends at the JAX test's bounds: the
+    same length and fps, a mean abs difference below DECODE_MEAN_ABS_TOL,
+    the next frame a worse match, unsorted indices back in request order."""
+    worst, margin = 0.0, float("inf")
+    paths = sorted(glob.glob(f"{DEMO}/*.mp4"))
+    for path in paths:
+        vr = video_reader.VideoReader(path, backend="native")
+        cv = video_reader.VideoReader(path, backend="cv2")
+        try:
+            assert len(vr) == len(cv) and vr.fps == cv.fps, path
+            idx = np.linspace(0, len(vr) - 1, 8).astype(np.int64)
+            got, want = vr.get_batch(idx).astype(int), \
+                cv.get_batch(idx).astype(int)
+            diff = np.abs(got - want).mean()
+            nxt = cv.get_batch([idx[3] + 1])[0].astype(int)
+            d_same = np.abs(got[3] - want[3]).mean()
+            d_next = np.abs(got[3] - nxt).mean()
+            shuffled = vr.get_batch(idx[::-1].copy())
+        finally:
+            vr.close()
+            cv.close()
+        assert diff < DECODE_MEAN_ABS_TOL, (path, diff)
+        assert d_same < d_next, (path, d_same, d_next)
+        assert (shuffled == got[::-1]).all(), path
+        worst, margin = max(worst, diff), min(margin, d_next - d_same)
+    log(f"decode: native against cv2 on {len(paths)} demo clips: worst mean "
+        f"|native - cv2| {worst:.4f} of 255 (tol {DECODE_MEAN_ABS_TOL}); "
+        f"the next frame a worse match on every clip (smallest margin "
+        f"{margin:.4f}); unsorted indices back in request order")
+    return worst
+
+
+def decode_ms_per_clip(backend, card):
+    """The dataset's raw read (Kinetics(raw_clips=True)._decode: FRAMES
+    frames at short edge 256 over a random window) of every demo clip
+    through ``backend``, on the host clock: the median of DECODE_REPS
+    passes after one, divided by the clips."""
+    raw = demo_data(True).train_dataset
+    with mock.patch.object(video_reader, "_auto", (backend, None)):
+        passes = []
+        for _ in range(1 + DECODE_REPS):
+            t0 = time.perf_counter()
+            for i in range(len(raw)):
+                _, video = raw._decode(i)
+                assert video.shape == (FRAMES, 256, 341, 3), video.shape
+            passes.append((time.perf_counter() - t0) * 1e3 / len(raw))
+    ms = float(np.median(passes[1:]))
+    log(f"decode: {backend} {ms:.3f} ms per clip ({FRAMES} frames at short "
+        f"edge 256, the dataset's raw read over {len(raw)} demo clips; "
+        f"median of {DECODE_REPS} passes after one: "
+        f"{', '.join(f'{v:.3f}' for v in passes[1:])}) on the host of {card}")
+    return ms
+
+
+def loader_parts(device_augment, card):
+    """One thread's ms a batch of DEMO_BATCH over the demo list, split into
+    the decode (the default backend), the rest of the dataset's item (the
+    host transforms, or the raw clip's crop and pad) and the collate; the
+    median of the list's batches, after one untimed pass."""
+    data = demo_data(device_augment)
+    ds = data.train_dataset
+    collate = pipeline.collate_raw if device_augment else \
+        pipeline.collate_supervised
+    decode = ds._decode
+    spent = [0.0]
+
+    def timed_decode(index):
+        t0 = time.perf_counter()
+        out = decode(index)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    rows = []
+    with mock.patch.object(ds, "_decode", timed_decode):
+        for rep in range(2):
+            for b in range(0, len(ds) - DEMO_BATCH + 1, DEMO_BATCH):
+                spent[0] = 0.0
+                t0 = time.perf_counter()
+                samples = [ds[i] for i in range(b, b + DEMO_BATCH)]
+                t1 = time.perf_counter()
+                batch = collate(samples)
+                t2 = time.perf_counter()
+                if rep:
+                    rows.append(((spent[0]) * 1e3,
+                                 (t1 - t0 - spent[0]) * 1e3, (t2 - t1) * 1e3))
+    key = "raw_video" if device_augment else "video"
+    assert batch[key].shape[0] == DEMO_BATCH, batch[key].shape
+    parts = dict(zip(("decode_ms", "item_ms", "collate_ms"),
+                     np.median(np.array(rows), axis=0).tolist()))
+    what = "uint8 clips (crop/pad), collate_raw" if device_augment else \
+        f"host transforms_train({IMG}), collate_supervised"
+    log(f"loader parts ({what}): one thread, a batch of {DEMO_BATCH}: "
+        f"decode {parts['decode_ms']:.3f} ms, rest of the item "
+        f"{parts['item_ms']:.3f} ms, collate {parts['collate_ms']:.3f} ms "
+        f"(median of {len(rows)} batches) on the host of {card}")
+    return parts
+
+
+def decode_phase(card, backend, has_cv2):
+    """Where the native decoder built: it against OpenCV on every demo
+    clip, and both backends' ms per clip. Then the loader's parts for both
+    recipes over the default backend. Returns the numbers."""
+    numbers = {"auto_backend": backend, "decode_ms_per_clip": {}}
+    if backend == "native" and has_cv2:
+        numbers["native_vs_cv2_mean_abs"] = native_against_cv2()
+    for b in ("native", "cv2"):
+        if b == "cv2" and not has_cv2 or b == "native" and backend != b:
+            log(f"decode: {b} not timed (unavailable on this machine)")
+            continue
+        numbers["decode_ms_per_clip"][b] = decode_ms_per_clip(b, card)
+    numbers["loader_parts_ms"] = {
+        "device_augment": loader_parts(True, card),
+        "host": loader_parts(False, card)}
+    return numbers
+
+
+def cli_over_demo_clips(card, backend, has_cv2):
     """The port's CLI on the bundled demo clips, where this machine can
-    decode mp4 (OpenCV): TimeSformer-B at full width, 1 epoch of batch 4
-    with -device_augment True. Decided before the phase starts."""
-    if importlib.util.find_spec("cv2") is None:
-        log("CLI over the demo clips: did not run; this machine has no "
-            "OpenCV (importlib.util.find_spec('cv2') is None), and the port "
-            "decodes mp4 only through it")
+    decode mp4 (the native decoder or OpenCV): TimeSformer-B at full width,
+    1 epoch of batch 4 with -device_augment True, decoding through
+    backend="auto". Decided before the phase starts. Returns the steps'
+    (time, data_time) in s from its log, or None."""
+    if backend == "cv2" and not has_cv2:
+        log("CLI over the demo clips: did not run; this machine has neither "
+            "the native decoder nor OpenCV, and the port decodes mp4 only "
+            "through them")
         return None
-    log("CLI over the demo clips: OpenCV found, running single_run")
-    demo = "videotransformer_tpu/data/assets/demo"
+    log(f"CLI over the demo clips: decoding through backend=auto "
+        f"({backend}), running single_run")
     with tempfile.TemporaryDirectory() as root:
-        trainer = model_pretrain.single_run([
-            "-epoch", "1", "-batch_size", "4", "-num_workers", "4",
-            "-num_class", "4", "-num_frames", str(FRAMES),
-            "-frame_interval", "4", "-objective", "supervised",
-            "-arch", "timesformer", "-lr", "0.005", "-warmup_epochs", "1",
-            "-root_dir", root, "-train_data_path",
-            f"{demo}/demo_train_list.txt", "-classmap_path",
-            f"{demo}/demo_classmap.json", "-device", "cuda",
-            "-device_augment", "True", "-log_interval", "1"])
-    log(f"CLI over the demo clips: {trainer.global_step} steps on {card}")
+        trainer = model_pretrain.single_run(DEMO_ARGS + [
+            "-root_dir", root, "-device_augment", "True"])
+        (train_log,) = glob.glob(f"{root}/results/*/log/train.log")
+        with open(train_log) as f:
+            steps = [(float(ln.split(" time ")[1].split()[0]),
+                      float(ln.split(" data_time ")[1].split()[0]))
+                     for ln in f if " data_time " in ln]
+    log(f"CLI over the demo clips: {trainer.global_step} steps on {card}, "
+        f"decoded by {backend}; step time / data_time (s): "
+        f"{', '.join(f'{t:.3f} / {d:.3f}' for t, d in steps)}")
     assert trainer.global_step == 3, trainer.global_step
-    return trainer.global_step
+    assert len(steps) == 3, steps
+    return steps
 
 
 def data_phase(predictor, card):
     """The data path: the augment on the card against the CPU, training
-    from uint8 clips, raw-uint8 serving, the CLI over the demo clips. Its
-    own generator: the earlier phases' weights and clips stay as they
-    were. Returns the launches of the main-path runs (the uint8 fit and
-    the raw serving) and the numbers."""
+    from uint8 clips, raw-uint8 serving, the decoders and the loader's
+    parts over the demo clips, the CLI over them. Its own generator: the
+    earlier phases' weights and clips stay as they were. Returns the
+    launches of the main-path runs (the uint8 fit and the raw serving) and
+    the numbers."""
     rng = np.random.default_rng(SEED + 4)
     aug = augment_check(rng, card)
     fit_launches, train = uint8_train(rng, card)
     torch.cuda.empty_cache()
     serve_launches = raw_serving(rng, predictor, card)
-    cli_over_demo_clips(card)
+    backend, has_cv2 = decode_decision()
+    decode = None
+    if backend == "native" or has_cv2:
+        decode = decode_phase(card, backend, has_cv2)
+    cli_steps = cli_over_demo_clips(card, backend, has_cv2)
+    if decode is not None and cli_steps is not None:
+        parts = decode["loader_parts_ms"]["device_augment"]
+        batch_ms = sum(parts.values())
+        log(f"loader against the step: one thread makes a batch of "
+            f"{DEMO_BATCH} uint8 clips in {batch_ms:.3f} ms ({backend}), "
+            f"{DEMO_WORKERS} threads one in ~{batch_ms / DEMO_WORKERS:.3f} "
+            f"ms; the CLI's steps 2-3 took "
+            f"{', '.join(f'{t * 1e3:.1f}' for t, _ in cli_steps[1:])} ms "
+            f"with data_time "
+            f"{', '.join(f'{d * 1e3:.1f}' for _, d in cli_steps[1:])} ms; "
+            f"the uint8 fit's data wait (no decode) "
+            f"{', '.join(f'{v:.2f}' for v in train['data_ms'])} ms")
     launches = {n: fit_launches[n] + serve_launches[n] for n in KERNEL_NAMES}
-    return launches, {"augment_ms": aug, **train}
+    return launches, {"augment_ms": aug, **train, "decode": decode,
+                      "cli_steps_s": cli_steps}
 
 
 # ---------------------------------------------------------------- checkpoints

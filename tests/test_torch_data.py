@@ -5,8 +5,10 @@ seeds, ``canonicalize_raw_clip``, the decode with its short-edge resize,
 the ``Loader`` (order, length, a worker's error, every worker gone, no
 progress) and the prefetch on a CPU device.
 
-Both packages decode with OpenCV (the JAX package's native FFmpeg reader is
-switched off here), so decoded frames are bit-equal. Tolerances: the resize
+The decode comparisons run once for each backend (``decode_backend``, from
+test_torch_native_decoder.py): both packages through OpenCV, and both
+through their default ``auto``, which is the native FFmpeg reader here; the
+decoded frames are bit-equal either way. Tolerances: the resize
 weights are copies (equal); a resize is two fp32 products, numpy's einsum
 against torch.matmul: 1e-3 on 0-255 pixels, 1e-5 after ToTensor +
 Normalize; everything else equal. Each ``Loader`` test passes its own
@@ -34,17 +36,11 @@ from videotransformer_tpu_torch.data import rand_augment as pra
 from videotransformer_tpu_torch.data import transforms as T
 from videotransformer_tpu_torch.data.video_reader import (
     DecordInit, VideoReader)
+from test_torch_native_decoder import decode_backend  # noqa: F401
 
 DEMO = "videotransformer_tpu/data/assets/demo"
 DEMO_LIST = f"{DEMO}/demo_train_list.txt"
 DEMO_CLASSMAP = f"{DEMO}/demo_classmap.json"
-
-
-@pytest.fixture
-def cv2_only(monkeypatch):
-    """The JAX package decodes with OpenCV, as the port does."""
-    pytest.importorskip("cv2")
-    monkeypatch.setattr(jvr, "_load_native", lambda: None)
 
 
 @pytest.mark.parametrize("method", ["bicubic", "bilinear", "nearest"])
@@ -174,10 +170,12 @@ def test_temporal_sampling_matches_jax(start, end, n):
 
 
 @pytest.mark.parametrize("short_edge", [0, 256, 100])
-def test_reader_short_edge_and_fps_match_jax(cv2_only, short_edge):
+def test_reader_short_edge_and_fps_match_jax(decode_backend, short_edge):
     path = f"{DEMO}/checker_spin_0.mp4"
-    want = jvr.VideoReader(path, backend="cv2", short_edge=short_edge)
-    got = VideoReader(path, short_edge=short_edge)
+    want = jvr.VideoReader(path, backend=decode_backend,
+                           short_edge=short_edge)
+    got = VideoReader(path, backend=decode_backend, short_edge=short_edge)
+    assert want.backend == got.backend == decode_backend
     assert len(got) == len(want) and got.fps == want.fps == 25.0
     idx = [0, 39, 5, 5, 20]
     frames = got.get_batch(idx)
@@ -188,6 +186,7 @@ def test_reader_short_edge_and_fps_match_jax(cv2_only, short_edge):
     want.close()
     reader = DecordInit(num_threads=2)(path)
     assert len(reader) == 40 and repr(DecordInit(2)).endswith("=2)")
+    assert reader.backend == decode_backend
     reader.close()
 
 
@@ -233,11 +232,12 @@ def _assert_samples_equal(got, want, atol):
 
 @pytest.mark.parametrize("mode", ["raw", "float", "mim_raw", "mim_host_hog",
                                   "mim_device_hog"])
-def test_kinetics_over_the_demo_clips_matches_jax(cv2_only, mode):
+def test_kinetics_over_the_demo_clips_matches_jax(decode_backend, mode):
     """Raw mode: canonical uint8 (T, 256, 342, 3) clips (the 192 x 256
     demo decodes to 256 x 341 and pads). mim: the bounded mask redraw keeps
     the reference's fault (c) (an all-empty 20th draw is returned as it
-    is), as the JAX package does."""
+    is), as the JAX package does. With ``native`` neither package is
+    patched: each ``Kinetics`` decodes through its default path."""
     objective = "mim" if mode.startswith("mim") else "supervised"
     cfg = _configs(objective)
     kw = {"raw_clips": mode in ("raw", "mim_raw")}

@@ -52,6 +52,8 @@ ranks meet through a FileStore in the test's tmp_path, torchrun through
 its standalone rendezvous on a free port.
 """
 
+import functools
+import glob
 import os
 import re
 import signal
@@ -81,21 +83,46 @@ def _env():
            if not k.startswith(("JAX_", "XLA_"))}
     env["OMP_NUM_THREADS"] = "2"
     env["PYTHONPATH"] = REPO
+    env["PYTHONUNBUFFERED"] = "1"  # a killed rank's log keeps its last lines
     return env
 
 
-def _communicate(procs):
+def _rank_logs(log_dir):
+    """The end of every rank's stdout.log and stderr.log that torchrun
+    wrote under ``--log-dir`` (none when ``log_dir`` is None)."""
+    if log_dir is None:
+        return ""
+    return "".join(
+        f"\n--- {path}:\n{open(path).read()[-3000:]}"
+        for path in sorted(glob.glob(f"{log_dir}/*/attempt_*/*/std*.log")))
+
+
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)  # torchrun's ranks too
+            p.communicate()
+
+
+def _communicate(procs, log_dir=None):
+    """Each process's output, each waited on for TIMEOUT_S. A process that
+    fails or outlasts its wait fails the test with the end of its output
+    and, under torchrun, of every rank's logs under ``log_dir``."""
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=TIMEOUT_S)
+            try:
+                out, _ = p.communicate(timeout=TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                out, _ = p.communicate()
+                raise AssertionError(
+                    f"still running after {TIMEOUT_S} s:\n{out[-3000:]}"
+                    f"{_rank_logs(log_dir)}") from None
             outs.append(out)
-            assert p.returncode == 0, out[-3000:]
+            assert p.returncode == 0, out[-3000:] + _rank_logs(log_dir)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)  # torchrun's ranks too
-                p.communicate()
+        _kill(procs)
     return outs
 
 
@@ -122,10 +149,54 @@ def _torchrun(tmp_path, world, args):
         cwd=REPO, env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
         start_new_session=True)
-    _communicate([proc])
+    _communicate([proc], logs)
     (run,) = list(logs.iterdir())
     return [(run / "attempt_0" / str(r) / "stdout.log").read_text()
             for r in range(world)]
+
+
+# The CLI tests under torchrun run the CLI's own build_model on a TimeSformer
+# of this size instead of TimeSformer-B: under the six-worker tier-1 load
+# TimeSformer-B's fp32 training state (parameters, gradients and two AdamW
+# moments, 1.4 GB a process) made each CLI step take ~3.4 s, and the test's
+# own rebuild and load of the 1.45 GB gathered checkpoint ~23 s, most of
+# the test's 49-71 s against its 90 s wait. What they check (the mesh, the
+# LR scale, the steps over the demo clips, the gathered checkpoint that a
+# one-process trainer loads) does not depend on the width.
+CLI_TIMESFORMER = {"embed_dims": 64, "num_heads": 4,
+                   "num_transformer_layers": 2}
+CLI_LAUNCHER = f"""
+import functools, runpy
+from videotransformer_tpu_torch.training import trainer
+trainer.TimeSformer = functools.partial(trainer.TimeSformer,
+                                        **{CLI_TIMESFORMER!r})
+runpy.run_module("videotransformer_tpu_torch.model_pretrain",
+                 run_name="__main__")
+"""
+
+
+def cli_under_torchrun(tmp_path, argv):
+    """Rank 0's stdout of ``model_pretrain argv`` on the CPU under torchrun
+    over two ranks, its TimeSformer at CLI_TIMESFORMER's size."""
+    launcher = tmp_path / "cli.py"
+    launcher.write_text(CLI_LAUNCHER)
+    logs = tmp_path / "logs"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "--redirects", "3", "--log-dir",
+         str(logs), str(launcher), "-device", "cpu", *argv],
+        cwd=REPO, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    _communicate([proc], logs)
+    (run,) = list(logs.iterdir())
+    return (run / "attempt_0" / "0" / "stdout.log").read_text()
+
+
+def cli_sized_trainers(monkeypatch):
+    """This process's trainers build their TimeSformer as the CLI tests'
+    launcher does."""
+    monkeypatch.setattr(ptrainer, "TimeSformer", functools.partial(
+        ptrainer.TimeSformer, **CLI_TIMESFORMER))
 
 
 def _parse(out):
@@ -275,6 +346,9 @@ for max_n in (2048, 16):  # fused (B1/B3), then unfused (flash attention)
     err = max([float((o1 - o2).abs().max()), float((dx1 - dx2).abs().max())]
               + [float((g1[n] - g2[n]).abs().max()) for n in g1])
     print("MAXERR", max_n, err, flush=True)
+# gloo's threads outliving the interpreter abort the exit ("terminate called
+# without an active exception", seen once under the tier-1 load)
+torch.distributed.destroy_process_group()
 print("WORKER OK", flush=True)
 """
 

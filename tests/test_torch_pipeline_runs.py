@@ -35,9 +35,6 @@ parameters are held as the others are). A stage-sum fault is of the
 gradient's size, not eps's.
 """
 
-import subprocess
-import sys
-
 import pytest
 
 from videotransformer_tpu_torch import model_pretrain as pcli
@@ -79,13 +76,14 @@ def test_pp_run_matches_one_process(tmp_path, what):
     mp._check(outs, one, ckpt, **keywords)
 
 
-def test_cli_pp2_under_torchrun(tmp_path):
+def test_cli_pp2_under_torchrun(tmp_path, monkeypatch):
     """``-pp 2`` under torchrun: the CLI builds the (data 1, pipe 2) mesh
     and the pipeline trainer, scales the LR by the data ranks' batch
     alone, trains an epoch over the demo clips, validates and tests, and
-    writes a gathered checkpoint that a one-process trainer loads."""
+    writes a gathered checkpoint that a one-process trainer loads. The
+    CLI's TimeSformer is cut to mp.CLI_TIMESFORMER's size (two blocks: one
+    a stage)."""
     demo = f"{mp.REPO}/videotransformer_tpu/data/assets/demo"
-    logs = tmp_path / "logs"
     argv = ["-epoch", "1", "-batch_size", "4", "-num_class", "4",
             "-num_frames", "4", "-frame_interval", "4", "-img_size", "32",
             "-objective", "supervised", "-arch", "timesformer", "-lr",
@@ -95,22 +93,14 @@ def test_cli_pp2_under_torchrun(tmp_path):
             "-test_data_path", f"{demo}/demo_train_list.txt",
             "-classmap_path", f"{demo}/demo_classmap.json", "-use_fp16",
             "False"]
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", "--redirects", "3", "--log-dir",
-         str(logs), "-m", "videotransformer_tpu_torch.model_pretrain",
-         "-pp", "2", "-device", "cpu", *argv],
-        cwd=mp.REPO, env=mp._env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, start_new_session=True)
-    mp._communicate([proc])
-    (run,) = list(logs.iterdir())
-    out = (run / "attempt_0" / "0" / "stdout.log").read_text()
+    out = mp.cli_under_torchrun(tmp_path, ["-pp", "2", *argv])
     assert "pp=2" in out and "lr=7.8125e-05" in out, out[-3000:]
     assert sum(ln.startswith("epoch 0 step") for ln in out.splitlines()) \
         == 3, out[-3000:]  # 12 demo clips in batches of 4
     for what in ("validation", "test"):
         assert f"of current {what} epoch" in out, out[-3000:]
     (ckpt,) = list(tmp_path.glob("results/*/ckpt/last_checkpoint"))
+    mp.cli_sized_trainers(monkeypatch)
     cfg = pcli.parse_args(argv)
     tr = ptrainer.VideoTransformerTrainer(cfg, "cpu")
     tr.load_checkpoint(str(ckpt))

@@ -206,13 +206,12 @@ def test_mim_sp2_seq_ranks_are_replicas(tmp_path):
     mp._check(outs, argv, ckpt, adamw=False)
 
 
-def test_cli_sp2_under_torchrun(tmp_path):
+def test_cli_sp2_under_torchrun(tmp_path, monkeypatch):
     """``-sp 2`` under torchrun: the CLI builds the (data 1, seq 2) mesh,
     scales the LR by the data ranks' batch alone, trains an epoch over the
     demo clips and writes a gathered checkpoint that a one-process trainer
-    loads."""
+    loads. The CLI's TimeSformer is cut to mp.CLI_TIMESFORMER's size."""
     demo = f"{mp.REPO}/videotransformer_tpu/data/assets/demo"
-    logs = tmp_path / "logs"
     argv = ["-epoch", "1", "-batch_size", "4", "-num_class", "4",
             "-num_frames", "4", "-frame_interval", "4", "-img_size", "32",
             "-objective", "supervised", "-arch", "timesformer", "-lr",
@@ -220,20 +219,12 @@ def test_cli_sp2_under_torchrun(tmp_path):
             "-train_data_path", f"{demo}/demo_train_list.txt",
             "-classmap_path", f"{demo}/demo_classmap.json", "-use_fp16",
             "False"]
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", "--redirects", "3", "--log-dir",
-         str(logs), "-m", "videotransformer_tpu_torch.model_pretrain",
-         "-sp", "2", "-device", "cpu", *argv],
-        cwd=mp.REPO, env=mp._env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, start_new_session=True)
-    mp._communicate([proc])
-    (run,) = list(logs.iterdir())
-    out = (run / "attempt_0" / "0" / "stdout.log").read_text()
+    out = mp.cli_under_torchrun(tmp_path, ["-sp", "2", *argv])
     assert "sp=2" in out and "lr=7.8125e-05" in out, out[-3000:]
     assert sum(ln.startswith("epoch 0 step") for ln in out.splitlines()) \
         == 3, out[-3000:]  # 12 demo clips in batches of 4
     (ckpt,) = list(tmp_path.glob("results/*/ckpt/last_checkpoint"))
+    mp.cli_sized_trainers(monkeypatch)
     cfg = pcli.parse_args(argv)
     tr = ptrainer.VideoTransformerTrainer(cfg, "cpu")
     tr.load_checkpoint(str(ckpt))

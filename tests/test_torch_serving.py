@@ -32,6 +32,7 @@ from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, load_predictor)
 from videotransformer_tpu_torch.serving.server import InferenceServer
 from videotransformer_tpu_torch.tools.demo_inference import load_clip
+from test_torch_native_decoder import decode_backend  # noqa: F401
 
 NUM_CLASS, FRAMES, IMG = 10, 4, 128
 MEAN, STD = (0.45,) * 3, (0.225,) * 3
@@ -154,19 +155,18 @@ def _write_mp4(path, frames=40, hw=(160, 200), seed=6):
 
 
 def test_server_raw_preprocess_bytes_matches_jax(raw_artifact, tmp_path,
-                                                 monkeypatch):
+                                                 decode_backend):
     """Raw mode: the host only decodes (short edge to 48 at decode, a
     temporal window from the transforms' generator, cropped or padded to
-    48 x 64); the JAX server reads through its OpenCV backend. Then the
-    port's server answers the bytes as its predictor answers the clip."""
+    48 x 64); both servers read through their default reader, set to
+    ``decode_backend``. Then the port's server answers the bytes as its
+    predictor answers the clip."""
     from types import SimpleNamespace
 
-    from videotransformer_tpu.data import video_reader as jvr
     from videotransformer_tpu.serving.server import (
         InferenceServer as JInferenceServer)
     from videotransformer_tpu_torch.data import transforms as T
 
-    monkeypatch.setattr(jvr, "_load_native", lambda: None)
     data = _write_mp4(str(tmp_path / "clip.mp4"))
     path, _, _ = raw_artifact
     pred = load_predictor(path, "cpu", num_heads=4, dtype=torch.float32)
@@ -262,9 +262,9 @@ def test_eval_transform_matches_jax(hw, img_size):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def test_load_clip_matches_jax(tmp_path, monkeypatch):
-    """An mp4 written by OpenCV, read by the port's reader and by the JAX
-    package's OpenCV backend, through both ``load_clip``s."""
+def test_load_clip_matches_jax(tmp_path, monkeypatch, decode_backend):
+    """An mp4 written by OpenCV, read by both packages' readers through
+    ``decode_backend``, and through both ``load_clip``s."""
     cv2 = pytest.importorskip("cv2")
     path = str(tmp_path / "clip.mp4")
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25,
@@ -276,8 +276,9 @@ def test_load_clip_matches_jax(tmp_path, monkeypatch):
     writer.release()
 
     indices = [31, 0, 7, 7, 39]
-    want = JVideoReader(path, backend="cv2")
+    want = JVideoReader(path, backend=decode_backend)
     got = VideoReader(path)
+    assert want.backend == got.backend == decode_backend
     assert len(got) == len(want) == 40
     np.testing.assert_array_equal(got.get_batch(indices),
                                   want.get_batch(indices))
@@ -285,7 +286,7 @@ def test_load_clip_matches_jax(tmp_path, monkeypatch):
     want.close()
 
     monkeypatch.setattr(jdemo, "VideoReader",
-                        lambda p: JVideoReader(p, backend="cv2"))
+                        lambda p: JVideoReader(p, backend=decode_backend))
     jT.seed_transforms(7)
     want_clip = jdemo.load_clip(path, FRAMES, 4, MEAN, STD)
     got_clip = load_clip(path, FRAMES, 4, MEAN, STD,

@@ -187,7 +187,8 @@ def test_port_never_imports_jax():
                 "benchmarks/trace_infer.py", "benchmarks/profile_train.py",
                 "benchmarks/serve_bench.py", "benchmarks/run_all.py",
                 "parallel/pp.py", "training/stacked_trainer.py",
-                "training/pp_trainer.py", "graft_entry.py"):
+                "training/pp_trainer.py", "graft_entry.py",
+                "native/__init__.py", "native/videodec.py"):
         assert os.path.join(port, new) in files, new
     banned = ("jax", "flax")
     for path in files:
@@ -359,6 +360,13 @@ def test_slice_runs_with_jax_and_flax_blocked():
             assert np.isfinite(big(big_clip)).all()
         assert callable(export_serving.main) and callable(
             demo_inference.build_model)
+        # the native FFmpeg decoder, built from the port's own source
+        from videotransformer_tpu_torch.data.video_reader import VideoReader
+        vr = VideoReader("videotransformer_tpu/data/assets/demo/"
+                         "checker_spin_0.mp4", backend="native")
+        assert vr.backend == "native" and len(vr) == 40
+        assert vr.get_batch([39, 0]).shape == (2, 192, 256, 3)
+        vr.close()
         blocked = ("jax", "flax", "videotransformer_tpu")
         assert all(sys.modules.get(m) is None for m in blocked)
         assert not [m for m in sys.modules

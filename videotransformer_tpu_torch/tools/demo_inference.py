@@ -1,9 +1,9 @@
 """Demo-clip inference: the reference notebook's path on the port.
 
-Port of ``videotransformer_tpu/tools/demo_inference.py``: decode (OpenCV,
-``data.video_reader``) -> Resize(-1, 256) -> ThreeCrop(224) ->
-Normalize(0.45/0.225) -> TimeSformer or ViViT -> per-crop logits -> mean over
-the 3 crops -> argmax -> classmap lookup.
+Port of ``videotransformer_tpu/tools/demo_inference.py``: decode (the
+native decoder or OpenCV, ``data.video_reader``) -> Resize(-1, 256) ->
+ThreeCrop(224) -> Normalize(0.45/0.225) -> TimeSformer or ViViT -> per-crop
+logits -> mean over the 3 crops -> argmax -> classmap lookup.
 
     python -m videotransformer_tpu_torch.tools.demo_inference \\
         --video videotransformer_tpu/data/assets/demo/pulse_circle_0.mp4 \\

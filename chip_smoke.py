@@ -58,10 +58,19 @@ weights from a seed:
   and ViViT-B (fact_encoder, Conv3d inflation, 4 temporal layers copied;
   one step), the missing and unexpected names asserted and every imported
   leaf bit-equal to the file's; the TimeSformer's trainer checkpoint
-  exported by tools/export_serving.py for 224 and for 448 requests,
-  reloaded with load_predictor and served, 8 clips x 3 crops: at 224
-  bit-equal to the trainer's weights, at 448 (the 224 table resized on
-  every forward) against the plain versions, timed and profiled; the mim
+  exported by tools/export_serving.py for 224 and for 448 requests (the
+  bucket-8 torch.export program, traced on the CPU in bf16, beside
+  params.npz), reloaded with load_predictor both from the program and as
+  the model rebuilt from the parameter names, and served, 8 clips x 3
+  crops: the rebuilt model at 224 bit-equal to the trainer's weights, at
+  448 (the 224 table resized on every forward) against the plain versions,
+  timed and profiled; the program's logits bit-equal to the rebuilt
+  model's at both sizes with the same launches, the export and load
+  seconds, each served batch timed in turns; a tiny program exported on the
+  CPU served on the card (bit-equal to its rebuilt model, within
+  SLICE_REL_TOL of the same program on the CPU); B1's and B2's host µs to
+  issue a call through the wrapper, the vt:: op, and the autograd entry
+  before the ops and now (tools/fused_bench.py issue_costs); the mim
   phase's checkpoint into an arch=mvit supervised trainer (-pretrain_pth),
   bit-equal, one step, and the same weights through a reference .pth
   (save_reference_checkpoint) with no missing or unexpected key;
@@ -204,11 +213,13 @@ from videotransformer_tpu_torch.models.timesformer import (
     TimeSformer, get_vit_base_patch16_224)
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.parallel import mesh as pmesh
+from videotransformer_tpu_torch.serving.export import export_predictor
 from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, load_predictor, make_predict_fn)
 from videotransformer_tpu_torch.serving.server import InferenceServer
 from videotransformer_tpu_torch.tools import (
-    export_serving, mp_train_worker, visualize_attention, visualize_maskfeat)
+    export_serving, fused_bench, mp_train_worker, visualize_attention,
+    visualize_maskfeat)
 from videotransformer_tpu_torch.tools.flash_bench import (
     FLASH_SHAPES, HD as MVIT_HD, JOINT_HD, LONG_SHAPES, bound, flash_bounds,
     issue_us, sdpa_times, timed_ms)
@@ -2026,12 +2037,99 @@ def check_import_steps(what, steps, want, attention, attention_bwd):
 def export_from_checkpoint(ckpt, out, img_size):
     """tools/export_serving.py over the trainer's checkpoint: TimeSformer-B
     built at 224, the checkpoint loaded strictly, the artifact for
-    ``img_size`` requests written to ``out``; the predictor loaded back on
-    the card."""
+    ``img_size`` requests written to ``out`` (the program of bucket
+    ``CLIPS``, traced on the CPU in bf16); loaded back on the card twice:
+    served from the program, and by the model rebuilt from the parameter
+    names (``programs=False``, the direct predictor). Returns (program
+    predictor, direct predictor, {export, load of each: seconds})."""
+    t0 = time.perf_counter()
     export_serving.main(["--out", out, "--ckpt", ckpt, "--ckpt_format",
                          "port", "--num_frames", str(FRAMES), "--num_class",
-                         str(CLASSES), "--img_size", str(img_size)])
-    return load_predictor(out, "cuda")
+                         str(CLASSES), "--img_size", str(img_size),
+                         "--buckets", str(CLIPS)])
+    t1 = time.perf_counter()
+    program = load_predictor(out, "cuda")
+    t2 = time.perf_counter()
+    direct = load_predictor(out, "cuda", programs=False)
+    seconds = {"export": t1 - t0, "load_program": t2 - t1,
+               "load_direct": time.perf_counter() - t2}
+    assert program.model is None and program.dtype == torch.bfloat16
+    log(f"checkpoint export at {img_size}: tools/export_serving.py "
+        f"{seconds['export']:.2f} s (params.npz and the bucket-{CLIPS} "
+        f"program), load from the program {seconds['load_program']:.2f} s, "
+        f"the rebuilt model {seconds['load_direct']:.2f} s")
+    return program, direct, seconds
+
+
+def program_against_direct(program, direct, clips, what, attention, card):
+    """The same batch served from the program and by the direct predictor
+    on the card: the logits to the bit, the same launches and attention
+    kernels; then each timed in turns (direct, program, program, direct):
+    the forward alone on the batch already on the card in bf16 (CUDA
+    events over 10 calls), and the whole call, numpy in, numpy out (5).
+    Returns the program run's launches."""
+    got, counts, kernels = served_forward(program, clips)
+    want, want_counts, want_kernels = served_forward(direct, clips)
+    log(f"checkpoint serving at {what} from the program: launches {counts}, "
+        f"attention {kernels}; logits bit-equal to the direct predictor's "
+        f"{np.array_equal(got, want)} (max|diff| "
+        f"{np.abs(got - want).max():.3e})")
+    assert np.array_equal(got, want)
+    assert counts == want_counts and kernels == want_kernels == attention, \
+        (counts, want_counts, kernels)
+    batch = torch.from_numpy(clips).to("cuda", torch.bfloat16)
+    forward, whole = {}, {}
+    with torch.inference_mode():
+        for name, pred in (("direct", direct), ("program", program),
+                           ("program", program), ("direct", direct)):
+            forward.setdefault(name, []).append(timed_ms(
+                lambda: pred._predict(batch), iters=10, warmup=2,
+                queued=False))
+            whole.setdefault(name, []).append(timed_ms(
+                lambda: pred(clips), iters=5, warmup=1, queued=False))
+    turns = lambda t: "/".join(f"{v:.2f}" for v in t)
+    log(f"checkpoint serving at {what}: a batch of {CLIPS} clips x {CROPS} "
+        f"crops, the forward on the card program {turns(forward['program'])}"
+        f" ms, direct predictor {turns(forward['direct'])} ms; the whole "
+        f"call (numpy in, numpy out) program {turns(whole['program'])} ms, "
+        f"direct {turns(whole['direct'])} ms (each turn's mean, in turns "
+        f"direct, program, program, direct) on {card}")
+    return counts
+
+
+def tiny_program_on_card(tmp):
+    """A tiny TimeSformer (128 wide, 2 heads of 64, 2 layers, 4 frames at
+    32²) exported on the CPU in bf16 and served on the card: its logits
+    bit-equal to the rebuilt model's on the card, through B1 (4 calls) and
+    B2 (2), and within SLICE_REL_TOL of the same program on the CPU (the
+    plain versions). Returns the card run's launches."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    model = TimeSformer(num_frames=4, img_size=32, embed_dims=128,
+                        num_heads=2, num_transformer_layers=2)
+    model.reset_parameters(g)
+    head = ClassificationHead(CLASSES, 128)
+    head.reset_parameters(g)
+    out = os.path.join(tmp, "tiny")
+    export_predictor(out, model, head, num_frames=4, num_class=CLASSES,
+                     img_size=32, buckets=(2,))
+    clips = np.random.default_rng(SEED + 11).standard_normal(
+        (2, CROPS, 4, 3, 32, 32), dtype=np.float32)
+    got, counts, _ = served_forward(load_predictor(out, "cuda"), clips)
+    want, want_counts, _ = served_forward(
+        load_predictor(out, "cuda", num_heads=2, programs=False), clips)
+    on_cpu = load_predictor(out, "cpu")(clips)
+    err = np.abs(got - on_cpu).max()
+    scale = np.abs(on_cpu).max()
+    log(f"tiny program exported on the CPU, served on the card: launches "
+        f"{counts}; bit-equal to the rebuilt model on the card "
+        f"{np.array_equal(got, want)}; against the program on the CPU (the "
+        f"plain versions) max|diff| {err:.3e}, rel {err / scale:.3e} (tol "
+        f"{SLICE_REL_TOL})")
+    assert np.array_equal(got, want) and counts == want_counts
+    assert counts["fused_prenorm_mhsa"] == 4 and \
+        counts["fused_prenorm_ffn"] == 2, counts
+    assert err <= SLICE_REL_TOL * scale, (err, scale)
+    return counts
 
 
 def served_forward(predictor, clips):
@@ -2046,7 +2144,8 @@ def served_forward(predictor, clips):
 def serve_at_224(predictor, tr, rng):
     """8 clips x 3 crops through the reloaded predictor, against the
     trainer's model and head cast as the predictor casts them (bf16
-    backbone, fp32 head) on the same clips: bit-equal."""
+    backbone, fp32 head) on the same clips: bit-equal. Returns (launches,
+    the clips)."""
     clips = rng.standard_normal((CLIPS, CROPS, FRAMES, 3, IMG, IMG),
                                 dtype=np.float32)
     logits, counts, attention = served_forward(predictor, clips)
@@ -2065,7 +2164,7 @@ def serve_at_224(predictor, tr, rng):
         counts["fused_prenorm_ffn"] == DEPTH, counts
     assert logits.shape == (CLIPS, CLASSES) and np.isfinite(logits).all()
     assert np.array_equal(logits, want)
-    return counts
+    return counts, clips
 
 
 def serve_at_448(predictor, rng, card):
@@ -2073,7 +2172,8 @@ def serve_at_448(predictor, rng, card):
     (a 224 model, its table resized on every forward): the head set by
     prototype_head from the plain features, the served logits against the
     same forward through the plain versions (SLICE_REL_TOL, argmax equal by
-    a margin >= 1), B1 long 12 and packed 12; then timed and profiled."""
+    a margin >= 1), B1 long 12 and packed 12; then timed and profiled.
+    Returns (launches, the clips)."""
     clips = rng.standard_normal((CLIPS, CROPS, FRAMES, 3, HI_IMG, HI_IMG),
                                 dtype=np.float32)
     batch = torch.from_numpy(clips).to("cuda", torch.bfloat16)
@@ -2114,7 +2214,7 @@ def serve_at_448(predictor, rng, card):
         gc.collect()
         profile_forward(lambda: predict(batch), ms, n=2,
                         what=f"{HI_IMG} forward")
-    return counts
+    return counts, clips
 
 
 def maskfeat_handoff(rng, mim_ckpt, tmp):
@@ -2199,15 +2299,33 @@ def checkpoint_phase(card, mim_ckpt, tmp):
     ckpt = os.path.join(tmp, "timesformer_b.ckpt")
     tr.save_checkpoint(ckpt)
 
-    predictor = export_from_checkpoint(ckpt, os.path.join(tmp, "a224"), IMG)
-    add(serve_at_224(predictor, tr, rng))
-    del predictor, tr
+    program, direct, _ = export_from_checkpoint(ckpt, os.path.join(
+        tmp, "a224"), IMG)
+    counts, clips = serve_at_224(direct, tr, rng)
+    add(counts)
+    add(program_against_direct(program, direct, clips, IMG,
+                               TIMESFORMER_ATTENTION, card))
+    del program, direct, tr
     torch.cuda.empty_cache()
-    predictor = export_from_checkpoint(ckpt, os.path.join(tmp, "a448"),
-                                       HI_IMG)
-    add(serve_at_448(predictor, rng, card))
-    del predictor
+    program, direct, _ = export_from_checkpoint(ckpt, os.path.join(
+        tmp, "a448"), HI_IMG)
+    counts, clips = serve_at_448(direct, rng, card)
+    add(counts)
+    # the program takes the head prototype_head set on the direct predictor
+    for name, t in direct.head.state_dict().items():
+        program.head_params[name].copy_(t)
+    add(program_against_direct(program, direct, clips, HI_IMG, HI_ATTENTION,
+                               card))
+    del program, direct
     torch.cuda.empty_cache()
+    add(tiny_program_on_card(tmp))
+    issued = fused_bench.issue_costs(np.random.default_rng(SEED + 12))
+    for name, us in issued.items():
+        log(f"{name} host us to issue a call (tools/fused_bench.py "
+            f"issue_costs, serving shape, inference mode): " + ", ".join(
+                f"{way} {t:.1f}" for way, t in us.items())
+            + f"; the op registration adds {us['entry'] - us['entry_before']:.1f}"
+            f" us to the entry on {card}")
 
     cfg = SimpleNamespace(**{**vars(vivit_configs("fact_encoder")),
                              "pretrain_pth": vit,

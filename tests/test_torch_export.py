@@ -9,7 +9,8 @@ package's, on the CPU.
   tests/test_torch_timesformer.py holds them.
 - ``serving/export.py``: the ``params.npz`` and ``manifest.json`` of the
   JAX package's ``export_predictor`` for the same weights and arguments,
-  but for ``platforms`` (the port writes no program: ``[]``).
+  but for ``platforms``: the port's programs run on ``["cpu", "cuda"]``
+  (tests/test_torch_export_program.py holds them).
 - ``tools/export_serving.py`` and ``tools/demo_inference.py`` on tiny
   models.
 
@@ -159,12 +160,15 @@ def test_export_writes_jaxs_params_and_manifest(tmp_path, arch,
     want_manifest, want = _read(tmp_path / "jax")
     got_manifest, got = _read(tmp_path / "port")
     assert want_manifest.pop("platforms") == ["cpu"]
-    assert got_manifest.pop("platforms") == []
+    assert got_manifest.pop("platforms") == ["cpu", "cuda"]
     assert got_manifest == want_manifest
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert sorted(f for f in os.listdir(tmp_path / "port")
+                  if f.endswith(".pt2")) == ["predict_b1.pt2",
+                                             "predict_b2.pt2"]
 
 
 # ------------------------------------------------------------------- tools
@@ -203,10 +207,11 @@ def test_export_serving_tool(tmp_path, tiny_tools, ckpt_format):
     export_serving.main(["--out", out, "--ckpt", ckpt, "--ckpt_format",
                          ckpt_format, "--num_frames", "4", "--num_class",
                          str(CLASSES), "--img_size", "48", "--buckets",
-                         "2,1"])
+                         "2,1", "--dtype", "float32"])
     manifest, _ = _read(out)
     assert manifest["img_size"] == 48 and manifest["buckets"] == [1, 2]
     pred = load_predictor(out, "cpu", num_heads=4, dtype=torch.float32)
+    assert pred.model is None and sorted(pred.programs) == [1, 2]
     clips = torch.from_numpy(np.random.RandomState(8).rand(
         2, 3, 4, 3, 48, 48).astype(np.float32))
     with torch.no_grad():

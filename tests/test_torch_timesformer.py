@@ -188,7 +188,9 @@ def test_port_never_imports_jax():
                 "benchmarks/serve_bench.py", "benchmarks/run_all.py",
                 "parallel/pp.py", "training/stacked_trainer.py",
                 "training/pp_trainer.py", "graft_entry.py",
-                "native/__init__.py", "native/videodec.py"):
+                "native/__init__.py", "native/videodec.py",
+                "kernels/_ops.py", "native/videoenc.py",
+                "tools/make_demo_assets.py"):
         assert os.path.join(port, new) in files, new
     banned = ("jax", "flax")
     for path in files:
@@ -352,7 +354,8 @@ def test_slice_runs_with_jax_and_flax_blocked():
                 **{**vars(cfg), "pretrain_pth": f"{tmp}/m.pth"}), "cpu")
             assert ft.pretrained_keys == ([], [])
             export_predictor(tmp, model, head, num_frames=4, num_class=10,
-                             img_size=160, buckets=(1,))
+                             img_size=160, buckets=(1,),
+                             dtype=torch.float32)
             big = load_predictor(tmp, "cpu", num_heads=4,
                                  dtype=torch.float32)
             big_clip = np.random.RandomState(5).rand(

@@ -4,12 +4,14 @@ Port of ``videotransformer_tpu/kernels/flash_attention_pallas.py``: the
 forward body ``_fwd_kernel`` and the backward body ``_bwd_kernel`` with the
 ``custom_vjp`` around them. ``flash_attention`` is a
 ``torch.autograd.Function`` on ``(B, H, N*, hd)`` tensors, with Nq != Nkv
-allowed (MViT's pooled keys and values). On a CUDA tensor its forward
-launches ``csrc/flash_attention.cu`` and its backward
-``csrc/flash_attention_bwd.cu`` (bf16, head dim 32, 64, 96 or 128), or they
-raise; on a CPU tensor they run the plain PyTorch versions
-(``flash_attention_reference``, ``flash_attention_backward_reference``).
-There is no other branch.
+allowed (MViT's pooled keys and values). Its forward is the dispatcher op
+``vt::flash_attention`` (``kernels/_ops.py``): on a CUDA tensor it launches
+``csrc/flash_attention.cu`` (bf16, head dim 32, 64, 96 or 128) or raises,
+on a CPU tensor it runs the plain PyTorch version
+(``flash_attention_reference``), and under ``torch.export`` it is one node.
+The backward launches ``csrc/flash_attention_bwd.cu`` on a CUDA tensor, or
+runs ``flash_attention_backward_reference`` on a CPU one. There is no other
+branch.
 
 Rounding order. The plain forward is the TPU kernel's, exactly: fp32
 scores × scale, p = exp(s - max) / sum in fp32, p rounded to the working
@@ -37,7 +39,7 @@ import ctypes
 
 import torch
 
-from videotransformer_tpu_torch.kernels import _build
+from videotransformer_tpu_torch.kernels import _build, _ops
 
 # Calls that reached the CUDA kernels (not the plain versions): forward, and
 # backward.
@@ -118,10 +120,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
-            o, lse = _forward_reference(q, k, v, scale)
-        else:
-            o, lse = _launch(q, k, v, scale)
+        o, lse = OP(q, k, v, scale)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(q, k, v, o, lse)
             ctx.scale = scale
@@ -177,6 +176,24 @@ def _launch(q, k, v, scale, lib=None):
     _build.check_status(name, status)
     LAUNCHES += 1
     return o, lse
+
+
+def _op_fake(q, k, v, scale):
+    """The shapes of ``vt::flash_attention``'s outputs: o like q, lse fp32
+    (B, H, Nq)."""
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _op_cuda(q, k, v, scale):
+    """``vt::flash_attention`` on the card: the kernel (``_launch``)."""
+    return _launch(q, k, v, scale)
+
+
+# (o, lse): the plain forward on the CPU, the kernel on the card
+OP = _ops.define(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)",
+    _forward_reference, _op_cuda, _op_fake)
 
 
 def _launch_backward(q, k, v, o, lse, do, scale, lib=None):

@@ -3,12 +3,14 @@
 Port of ``videotransformer_tpu/kernels/fused_ffn_pallas.py``: the forward
 body ``_kernel`` and the backward body ``_bwd_kernel`` with the
 ``_vjp_fwd``/``_vjp_bwd`` around them. ``fused_prenorm_ffn`` is a
-``torch.autograd.Function``. On a CUDA tensor its forward launches
-``csrc/fused_ffn.cu`` and its backward ``csrc/fused_ffn_bwd.cu`` (bf16 only),
-or they raise; on a CPU tensor they run the plain PyTorch versions
-(``fused_prenorm_ffn_reference`` and ``fused_prenorm_ffn_backward_reference``)
-with the kernels' rounding order. There is no other branch. No residual:
-the caller adds it.
+``torch.autograd.Function`` whose forward is the dispatcher op
+``vt::fused_prenorm_ffn`` (``kernels/_ops.py``): on a CUDA tensor it
+launches ``csrc/fused_ffn.cu`` (bf16 only) or raises, on a CPU tensor it
+runs the plain PyTorch version (``fused_prenorm_ffn_reference``) with the
+kernel's rounding order, and under ``torch.export`` it is one node. The
+backward launches ``csrc/fused_ffn_bwd.cu`` on a CUDA tensor, or runs
+``fused_prenorm_ffn_backward_reference`` on a CPU one. There is no other
+branch. No residual: the caller adds it.
 
 When a gradient is wanted the forward also saves the pre-GELU hidden h_pre
 (the TPU kernel's ``with_hpre``), so the backward recomputes only the
@@ -24,7 +26,7 @@ import math
 
 import torch
 
-from videotransformer_tpu_torch.kernels import _build
+from videotransformer_tpu_torch.kernels import _build, _ops
 from videotransformer_tpu_torch.kernels._plain import (
     layer_norm, layer_norm_backward, layer_norm_fp32, linear_fp32)
 
@@ -132,15 +134,11 @@ class _FusedPrenormFFN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save):
-        if x.device.type == "cpu":
-            out, h_pre = _forward_reference(x, ln_w, ln_b, w1, b1, w2, b2,
-                                            ln_eps)
-        else:
-            out, h_pre = _launch(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save)
+        out, h_pre = OP(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save)
         if save:
             ctx.save_for_backward(x, h_pre, ln_w, ln_b, w1, w2)
             ctx.ln_eps = ln_eps
-        return out.reshape(*x.shape[:-1], w2.shape[0])
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -202,6 +200,37 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre, lib=None):
     _build.check_status(name, status)
     LAUNCHES += 1
     return out, h_pre
+
+
+def _op_cpu(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre):
+    """``vt::fused_prenorm_ffn`` on the CPU: the plain forward."""
+    out, h_pre = _forward_reference(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps)
+    return (out.reshape(*x.shape[:-1], -1),
+            h_pre if save_h_pre else _ops.empty(x))
+
+
+def _op_cuda(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre):
+    """``vt::fused_prenorm_ffn`` on the card: the kernel (``_launch``)."""
+    out, h_pre = _launch(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre)
+    return (out.reshape(*x.shape[:-1], -1),
+            h_pre if save_h_pre else _ops.empty(x))
+
+
+def _op_fake(x, ln_w, ln_b, w1, b1, w2, b2, ln_eps, save_h_pre):
+    """The shapes of ``vt::fused_prenorm_ffn``'s outputs: out (..., Do) and
+    h_pre (rows, hidden) when saved, else (0,); both in x's dtype."""
+    hidden = w1.shape[0]
+    rows = x.numel() // x.shape[-1]
+    return (x.new_empty((*x.shape[:-1], w2.shape[0])),
+            x.new_empty((rows, hidden) if save_h_pre else (0,)))
+
+
+# (out (..., Do), h_pre (rows, hidden) or (0,))
+OP = _ops.define(
+    "fused_prenorm_ffn",
+    "(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, "
+    "Tensor b2, float ln_eps, bool save_h_pre) -> (Tensor, Tensor)",
+    _op_cpu, _op_cuda, _op_fake)
 
 
 def _launch_backward(g, x, h_pre, ln_w, ln_b, w1, w2, ln_eps, lib=None):

@@ -4,11 +4,15 @@ proj [-> +x], with its backward.
 Port of ``videotransformer_tpu/kernels/fused_mhsa_pallas.py``: the forward
 body ``_kernel``, the backward body ``_attn_bwd_kernel`` and the
 ``_vjp_fwd``/``_vjp_bwd`` around them. ``fused_prenorm_mhsa`` is a
-``torch.autograd.Function``. On a CUDA tensor its forward launches
-``csrc/fused_mhsa.cu`` and its backward ``csrc/fused_mhsa_bwd.cu`` (bf16
-only), or they raise; on a CPU tensor they run the plain PyTorch versions
-(``fused_prenorm_mhsa_reference``, ``fused_prenorm_mhsa_backward_reference``)
-with the kernels' rounding order. There is no other branch.
+``torch.autograd.Function`` whose forward is the dispatcher op
+``vt::fused_prenorm_mhsa`` (``kernels/_ops.py``): on a CUDA tensor it
+launches ``csrc/fused_mhsa.cu`` (bf16 only) or raises, on a CPU tensor it
+runs the plain PyTorch version (``fused_prenorm_mhsa_reference``) with the
+kernel's rounding order, and under ``torch.export`` it is one node whose
+shapes come from its fake implementation. The backward launches
+``csrc/fused_mhsa_bwd.cu`` on a CUDA tensor, or runs
+``fused_prenorm_mhsa_backward_reference`` on a CPU one. There is no other
+branch.
 
 The forward's qkv and pre-projection attention output are the saved
 residuals (the TPU kernel's ``save_qkv``/``save_attn``). The kernel writes
@@ -59,7 +63,7 @@ from typing import NamedTuple
 
 import torch
 
-from videotransformer_tpu_torch.kernels import _build
+from videotransformer_tpu_torch.kernels import _build, _ops
 from videotransformer_tpu_torch.kernels._plain import (
     layer_norm, layer_norm_backward, linear_fp32)
 from videotransformer_tpu_torch.kernels.fused_ffn import split_k
@@ -295,17 +299,14 @@ class _FusedPrenormMHSA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads,
                 scale, ln_eps, add_residual, block_diag):
-        args = (x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
-                ln_eps, add_residual, block_diag)
-        if x.device.type == "cpu":
-            out, qkv, attn, lse = _forward_reference(*args)
-        else:
-            out, qkv, attn, lse = _launch(*args)
+        out, qkv, attn, lse = OP(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+                                 num_heads, scale, ln_eps, add_residual,
+                                 block_diag)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(x, None if RECOMPUTE_QKV else qkv, attn,
                                   lse, ln_w, ln_b, w_qkv, w_proj, b_qkv)
             ctx.config = (num_heads, scale, ln_eps, add_residual, block_diag)
-        return out.reshape(*x.shape[:2], w_proj.shape[0])
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -383,6 +384,62 @@ def _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
     LAUNCHES += 1
     ATTENTION_LAUNCHES[variant] += 1
     return out, qkv, attn, lse
+
+
+def _lse_shape(rows, L, num_heads, Da):
+    """The lse output's shape: (rows / L, H, L) for the long variant, which
+    writes it, else (0,)."""
+    if attention_variant(L, Da // num_heads) == "long":
+        return (rows // L, num_heads, L)
+    return (0,)
+
+
+def _op_cpu(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
+            ln_eps, add_residual, block_diag):
+    """``vt::fused_prenorm_mhsa`` on the CPU: the plain forward, its lse
+    kept where the kernel writes one."""
+    out, qkv, attn, lse = _forward_reference(
+        x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
+        ln_eps, add_residual, block_diag)
+    L = _seq_len(x.shape[1], block_diag)
+    if _lse_shape(qkv.shape[0], L, num_heads, attn.shape[1]) == (0,):
+        lse = _ops.empty(x, torch.float32)
+    return out.reshape(*x.shape[:2], -1), qkv, attn, lse
+
+
+def _op_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
+             ln_eps, add_residual, block_diag):
+    """``vt::fused_prenorm_mhsa`` on the card: the kernel (``_launch``)."""
+    out, qkv, attn, lse = _launch(x, ln_w, ln_b, w_qkv, b_qkv, w_proj,
+                                  b_proj, num_heads, scale, ln_eps,
+                                  add_residual, block_diag)
+    if lse is None:
+        lse = _ops.empty(x, torch.float32)
+    return out.reshape(*x.shape[:2], -1), qkv, attn, lse
+
+
+def _op_fake(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale,
+             ln_eps, add_residual, block_diag):
+    """The shapes and dtypes of ``vt::fused_prenorm_mhsa``'s outputs: out (B,
+    N, Do), qkv (rows, 3·Da) and attn (rows, Da) in x's dtype, lse fp32
+    (``_lse_shape``)."""
+    B, N, _ = x.shape
+    Da3, Do = w_qkv.shape[0], w_proj.shape[0]
+    rows, L = B * N, _seq_len(N, block_diag)
+    return (x.new_empty((B, N, Do)), x.new_empty((rows, Da3)),
+            x.new_empty((rows, Da3 // 3)),
+            x.new_empty(_lse_shape(rows, L, num_heads, Da3 // 3),
+                        dtype=torch.float32))
+
+
+# (out, qkv, attn, lse): out (B, N, Do); qkv, attn and lse as ``_launch``
+# returns them, lse (0,) where the variant writes none
+OP = _ops.define(
+    "fused_prenorm_mhsa",
+    "(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w_qkv, Tensor b_qkv, "
+    "Tensor w_proj, Tensor b_proj, int num_heads, float scale, "
+    "float ln_eps, bool add_residual, int block_diag) -> "
+    "(Tensor, Tensor, Tensor, Tensor)", _op_cpu, _op_cuda, _op_fake)
 
 
 def _bwd_prepare(name, x, qkv, w_qkv, Do, num_heads, block_diag, lib):

@@ -25,6 +25,17 @@ The trunk runs in the JAX package's split-cls layout: the cls token is a
 separate (B, 1, C) tensor beside the (B, L, C) patch tokens, so the pools
 and the kernels see only the patch tokens, and L = T·H·W stays the flash
 kernel's Nq. It is concatenated back once, before the final LayerNorm.
+Without the cls token (``cls_embed_on=False``, JAX mvit.py:434-504) the
+cls tensor is None throughout: the encoding has no ``cls_token`` or
+``pos_embed_class``, no block carries a cls row, and nothing is
+concatenated at the end.
+
+Dropout inside the blocks (``dropout_rate_block`` > 0) acts in training
+mode after ``proj`` on the patch and cls parts (mvit.py:273-276) and after
+the MLP's GELU and fc2 (:403-420); such a block runs the plain MLP, never
+the fused FFN, as JAX's ``use_fused_mlp`` rule says (:370-375). Its
+uniforms come from the generator DropPath takes, drawn for the global batch
+under data parallelism (``mesh.rand_rows``); they are not JAX's bits.
 
 Module and parameter names are pytorchvideo's, those of
 ``videotransformer_tpu.models.convert.maskfeat_flax_to_torch_state_dict``;
@@ -34,7 +45,7 @@ LayerNorms outside the kernels take fp32 statistics and round to the working
 type, as flax's do. The convolutions and max pools are library calls
 (cuDNN on the card), as they were XLA convolutions outside Pallas in the JAX
 package; the max pools' backward is written out (``_MaxPool3d``) so that it
-adds in a fixed order. Dropout inside the blocks is not ported (MaskFeat builds none).
+adds in a fixed order.
 """
 
 import math
@@ -75,6 +86,18 @@ def layer_norm(x, norm):
 def linear(x, fc):
     return F.linear(x, fc.weight.to(x.dtype),
                     None if fc.bias is None else fc.bias.to(x.dtype))
+
+
+def _dropout(x, rate, training, generator, mesh):
+    """flax ``nn.Dropout``: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), in training mode; ``generator`` and ``mesh``
+    as DropPath's (``mesh.rand_rows``)."""
+    if not training or rate == 0.0 or x is None:
+        return x
+    keep = 1.0 - rate
+    u = _mesh.rand_rows(tuple(x.shape), generator, torch.float32, x.device,
+                        mesh)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class _MaxPool3d(torch.autograd.Function):
@@ -157,9 +180,12 @@ class MultiScaleAttention(nn.Module):
     """Pooling attention in split-cls layout (mvit.py:119-282)."""
 
     def __init__(self, dim, num_heads, qkv_bias=True, kernel_q=(),
-                 kernel_kv=(), stride_q=(), stride_kv=()):
+                 kernel_kv=(), stride_q=(), stride_kv=(), dropout_rate=0.0,
+                 mesh=None):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = float(dropout_rate)
+        self.mesh = mesh  # the dropout's data rank
         hd = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         for name, kernel, stride in (("q", kernel_q, stride_q),
@@ -199,7 +225,7 @@ class MultiScaleAttention(nn.Module):
         u = pool(t.reshape(B, *thw, C).permute(0, 4, 1, 2, 3))
         new_thw = tuple(u.shape[2:])
         u = u.permute(0, 2, 3, 4, 1).reshape(B, -1, C)
-        return (self._per_head_norm(cls_tok, norm),
+        return (None if cls_tok is None else self._per_head_norm(cls_tok, norm),
                 self._per_head_norm(u, norm), new_thw)
 
     def _heads(self, t):
@@ -207,14 +233,16 @@ class MultiScaleAttention(nn.Module):
         B, N, C = t.shape
         return t.reshape(B, N, self.num_heads, -1).transpose(1, 2).contiguous()
 
-    def forward(self, x, x_cls, thw):
-        """x (B, L, C) patch tokens, x_cls (B, 1, C), thw = (T, H, W) of L.
-        Returns ((out_cls, out), (T', H', W') of the pooled queries)."""
+    def forward(self, x, x_cls, thw, generator=None):
+        """x (B, L, C) patch tokens, x_cls (B, 1, C) or None (no cls token),
+        thw = (T, H, W) of L; ``generator`` feeds the dropout in training
+        mode. Returns ((out_cls or None, out), (T', H', W') of the pooled
+        queries)."""
         B, L, C = x.shape
         scale = (C // self.num_heads) ** -0.5
         qkv = linear(x, self.qkv)
-        qkv_cls = linear(x_cls, self.qkv)
-        part = lambda t, i: t[..., i * C:(i + 1) * C]
+        qkv_cls = None if x_cls is None else linear(x_cls, self.qkv)
+        part = lambda t, i: None if t is None else t[..., i * C:(i + 1) * C]
         q_cls, q, q_thw = self._pool(part(qkv_cls, 0), part(qkv, 0), thw,
                                      self.pool_q, self.norm_q)
         k_cls, k, _ = self._pool(part(qkv_cls, 1), part(qkv, 1), thw,
@@ -223,10 +251,15 @@ class MultiScaleAttention(nn.Module):
                                  self.pool_v, self.norm_v)
         # the cls key and value join the pooled ones, in the reference's
         # [cls, pooled] order
-        kh = self._heads(torch.cat([k_cls, k], dim=1))
-        vh = self._heads(torch.cat([v_cls, v], dim=1))
+        if k_cls is not None:
+            k, v = torch.cat([k_cls, k], dim=1), torch.cat([v_cls, v], dim=1)
+        kh, vh = self._heads(k), self._heads(v)
         out = flash_attention.flash_attention(self._heads(q), kh, vh, scale)
         out = out.transpose(1, 2).reshape(B, -1, C)
+        drop = lambda t: _dropout(t, self.dropout_rate, self.training,
+                                  generator, self.mesh)
+        if q_cls is None:
+            return (None, drop(linear(out, self.proj))), q_thw
 
         # the single cls query row: fp32 softmax of (q · scale) kᵀ
         qc = self._heads(q_cls) * scale
@@ -234,11 +267,14 @@ class MultiScaleAttention(nn.Module):
         p = torch.softmax(s, dim=-1).to(x.dtype)
         oc = torch.matmul(p.float(), vh.float()).to(x.dtype)
         out_cls = oc.transpose(1, 2).reshape(B, 1, C)
-        return (linear(out_cls, self.proj), linear(out, self.proj)), q_thw
+        out = drop(linear(out, self.proj))
+        return (drop(linear(out_cls, self.proj)), out), q_thw
 
 
 class MultiScaleBlock(nn.Module):
-    """mvit.py:285-431, in split-cls layout."""
+    """mvit.py:285-431, in split-cls layout. ``has_cls_embed`` is the
+    schedule's flag (``build_mvit_block_configs``); the block follows its
+    input, whose cls part is None without the cls token."""
 
     def __init__(self, dim, dim_out, num_heads, mlp_ratio=4.0, qkv_bias=True,
                  dropout_rate=0.0, droppath_rate=0.0, kernel_q=(),
@@ -246,16 +282,14 @@ class MultiScaleBlock(nn.Module):
                  mesh=None):
         super().__init__()
         self.mesh = mesh  # DropPath's data rank
-        if dropout_rate or not has_cls_embed:
-            raise NotImplementedError(
-                "MViT blocks with dropout or without the cls token are not "
-                "ported yet (MaskFeat builds neither)")
+        self.dropout_rate = float(dropout_rate)
         self.dim, self.dim_out = dim, dim_out
         self.droppath_rate = float(droppath_rate)
         self.stride_q = tuple(stride_q)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = MultiScaleAttention(dim, num_heads, qkv_bias, kernel_q,
-                                        kernel_kv, stride_q, stride_kv)
+                                        kernel_kv, stride_q, stride_kv,
+                                        dropout_rate, mesh)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         hidden = int(dim * mlp_ratio)
         self.mlp = nn.Module()
@@ -283,14 +317,23 @@ class MultiScaleBlock(nn.Module):
         u = _mesh.rand_rows((h.shape[0], 1, 1), generator, h.dtype, h.device,
                             self.mesh)
         mask = torch.floor(keep + u)
-        return h / keep * mask, h_cls / keep * mask
+        return h / keep * mask, None if h_cls is None else h_cls / keep * mask
 
-    def _mlp(self, t):
-        return linear(F.gelu(linear(t, self.mlp.fc1)), self.mlp.fc2)
+    def _mlp(self, t, generator=None):
+        """fc1, GELU, fc2, with the dropout after the GELU and after fc2
+        (none at rate 0 or in eval mode)."""
+        drop = lambda u: _dropout(u, self.dropout_rate, self.training,
+                                  generator, self.mesh)
+        return drop(linear(drop(F.gelu(linear(t, self.mlp.fc1))),
+                           self.mlp.fc2))
 
     def forward(self, x, x_cls, thw, generator=None):
+        """x (B, L, C), x_cls (B, 1, C) or None (no cls token), thw = (T,
+        H, W) of L -> ((x_cls or None, x), (T', H', W'))."""
         (attn_cls, attn_out), thw_new = self.attn(
-            layer_norm(x, self.norm1), layer_norm(x_cls, self.norm1), thw)
+            layer_norm(x, self.norm1),
+            None if x_cls is None else layer_norm(x_cls, self.norm1), thw,
+            generator)
         if int(np.prod(self.stride_q or (1,))) > 1:
             # skip-path pooling (pytorchvideo pool_skip), on the patch tokens
             kernel = [s + 1 if s > 1 else s for s in self.stride_q]
@@ -300,10 +343,14 @@ class MultiScaleBlock(nn.Module):
         attn_out, attn_cls = self._droppath_pair(attn_out, attn_cls,
                                                  generator)
         x = x + attn_out
-        x_cls = x_cls + attn_cls
-        xc = layer_norm(x_cls, self.norm2)
-        hc = self._mlp(xc)
-        if self.proj is None:
+        xc = hc = None
+        if x_cls is not None:
+            x_cls = x_cls + attn_cls
+            xc = layer_norm(x_cls, self.norm2)
+        if self.proj is None and self.dropout_rate == 0.0:
+            # the fused FFN on the patch tokens, the cls row plain
+            if xc is not None:
+                hc = self._mlp(xc)
             dt = x.dtype
             n, fc1, fc2 = self.norm2, self.mlp.fc1, self.mlp.fc2
             h = fused_ffn.fused_prenorm_ffn(
@@ -312,35 +359,49 @@ class MultiScaleBlock(nn.Module):
                 fc2.bias.to(dt), LN_EPS)
         else:
             xn = layer_norm(x, self.norm2)
-            h = self._mlp(xn)
-            x, x_cls = linear(xn, self.proj), linear(xc, self.proj)
+            h = self._mlp(xn, generator)
+            if xc is not None:
+                hc = self._mlp(xc, generator)
+            if self.proj is not None:
+                x = linear(xn, self.proj)
+                if xc is not None:
+                    x_cls = linear(xc, self.proj)
         h, hc = self._droppath_pair(h, hc, generator)
-        return (x_cls + hc, x + h), thw_new
+        return (None if x_cls is None else x_cls + hc, x + h), thw_new
 
 
 class SpatioTemporalClsPositionalEncoding(nn.Module):
     """sep_pos_embed=True (video_transformer.py:693-698): the spatial table
     tiled over T plus the temporal table repeated over H·W; the cls token
-    gets its own slot."""
+    gets its own slot (``has_cls``; without it there is no ``cls_token``
+    and no ``pos_embed_class``)."""
 
-    def __init__(self, embed_dim, patch_embed_shape):
+    def __init__(self, embed_dim, patch_embed_shape, has_cls=True):
         super().__init__()
         T, H, W = patch_embed_shape
+        self.has_cls = has_cls
         self.pos_embed_spatial = nn.Parameter(torch.empty(1, H * W, embed_dim))
         self.pos_embed_temporal = nn.Parameter(torch.empty(1, T, embed_dim))
-        self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
-        self.pos_embed_class = nn.Parameter(torch.empty(1, 1, embed_dim))
+        if has_cls:
+            self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
+            self.pos_embed_class = nn.Parameter(torch.empty(1, 1, embed_dim))
 
     def reset_parameters(self, generator):
-        for p in (self.pos_embed_spatial, self.pos_embed_temporal,
-                  self.cls_token, self.pos_embed_class):
+        tables = (self.pos_embed_spatial, self.pos_embed_temporal)
+        if self.has_cls:
+            tables += (self.cls_token, self.pos_embed_class)
+        for p in tables:
             init.trunc_normal_(p, generator, std=0.02)
 
     def forward(self, x):
-        """x (B, T·H·W, D) -> (cls (B, 1, D), x + pos), in x's dtype."""
+        """x (B, T·H·W, D) -> (cls (B, 1, D) or None, x + pos), in x's
+        dtype."""
         B, _, D = x.shape
         T, HW = self.pos_embed_temporal.shape[1], self.pos_embed_spatial.shape[1]
-        cls = (self.cls_token + self.pos_embed_class).to(x.dtype).expand(B, 1, D)
+        cls = None
+        if self.has_cls:
+            cls = (self.cls_token + self.pos_embed_class).to(x.dtype).expand(
+                B, 1, D)
         pos = (self.pos_embed_spatial.repeat(1, T, 1)
                + self.pos_embed_temporal.repeat_interleave(HW, dim=1))
         return cls, x + pos.to(x.dtype)
@@ -351,11 +412,11 @@ class MultiscaleVisionTransformers(nn.Module):
     (mvit.py:476-504)."""
 
     def __init__(self, embed_dim, patch_embed_shape, block_configs,
-                 mesh=None):
+                 mesh=None, cls_embed_on=True):
         super().__init__()
         self.patch_embed_shape = tuple(patch_embed_shape)
         self.cls_positional_encoding = SpatioTemporalClsPositionalEncoding(
-            embed_dim, patch_embed_shape)
+            embed_dim, patch_embed_shape, cls_embed_on)
         self.blocks = nn.ModuleList(
             [MultiScaleBlock(**cfg, mesh=mesh) for cfg in block_configs])
         self.norm_embed = nn.LayerNorm(block_configs[-1]["dim_out"],
@@ -369,12 +430,15 @@ class MultiscaleVisionTransformers(nn.Module):
         init.zeros_(self.norm_embed.bias)
 
     def forward(self, x, generator=None):
-        """x (B, T·H·W, D) patch tokens -> (B, 1 + L', D') features."""
+        """x (B, T·H·W, D) patch tokens -> (B, 1 + L', D') features, (B,
+        L', D') without the cls token."""
         x_cls, x = self.cls_positional_encoding(x)
         thw = self.patch_embed_shape
         for blk in self.blocks:
             (x_cls, x), thw = blk(x, x_cls, thw, generator)
-        return layer_norm(torch.cat([x_cls, x], dim=1), self.norm_embed)
+        if x_cls is not None:
+            x = torch.cat([x_cls, x], dim=1)
+        return layer_norm(x, self.norm_embed)
 
 
 def build_mvit_block_configs(
@@ -474,6 +538,8 @@ def create_multiscale_vision_transformers(
     mlp_ratio=4.0,
     qkv_bias=True,
     droppath_rate_block=0.0,
+    dropout_rate_block=0.0,
+    cls_embed_on=True,
     embed_dim_mul=None,
     atten_head_mul=None,
     pool_q_stride_size=None,
@@ -482,10 +548,12 @@ def create_multiscale_vision_transformers(
     pool_kvq_kernel=None,
     mesh=None,
 ):
-    """The MViT trunk of video_transformer.py:621-800 (mvit.py:593-638):
+    """The MViT trunk of video_transformer.py:621-800 (mvit.py:593-641):
     positional encoding + blocks + final norm; the caller embeds patches.
-    ``mesh``: a data-parallel run's (``parallel/mesh.py``), for DropPath's
-    draws. Returns (module, final_embed_dim)."""
+    ``cls_embed_on`` and ``dropout_rate_block`` as in JAX, with its
+    defaults (module doc). ``mesh``: a data-parallel run's
+    (``parallel/mesh.py``), for DropPath's and the dropout's draws.
+    Returns (module, final_embed_dim)."""
     if isinstance(spatial_size, int):
         spatial_size = (spatial_size, spatial_size)
     input_dims = [temporal_size, spatial_size[0], spatial_size[1]]
@@ -494,11 +562,13 @@ def create_multiscale_vision_transformers(
     block_configs, embed_dim = build_mvit_block_configs(
         depth=depth, num_heads=num_heads, patch_embed_dim=patch_embed_dim,
         mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
+        dropout_rate_block=dropout_rate_block,
         droppath_rate_block=droppath_rate_block,
         embed_dim_mul=embed_dim_mul, atten_head_mul=atten_head_mul,
         pool_q_stride_size=pool_q_stride_size,
         pool_kv_stride_size=pool_kv_stride_size,
         pool_kv_stride_adaptive=pool_kv_stride_adaptive,
-        pool_kvq_kernel=pool_kvq_kernel)
+        pool_kvq_kernel=pool_kvq_kernel, has_cls=cls_embed_on)
     return MultiscaleVisionTransformers(patch_embed_dim, patch_embed_shape,
-                                        block_configs, mesh), embed_dim
+                                        block_configs, mesh,
+                                        cls_embed_on), embed_dim

@@ -83,8 +83,19 @@ def resize_weights(n_in, n_out):
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
 def _resize_weights_on(n_in, n_out, device, dtype):
+    """``resize_weights`` on ``device`` in ``dtype``: copied up once
+    (``_resize_weights_cached``), but made anew under ``torch.export``,
+    where it is a constant of the program and the cast and copy are its
+    ops (a cached tensor would be the trace's fake one)."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(resize_weights(n_in, n_out)).to(
+            device=device, dtype=dtype)
+    return _resize_weights_cached(n_in, n_out, device, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights_cached(n_in, n_out, device, dtype):
     """``resize_weights`` on ``device`` in ``dtype``, copied up once: from
     pinned memory without blocking on a card, so a forward never waits on
     the host."""

@@ -1,2 +1,2 @@
-"""Native (C++) host components: the FFmpeg video decoder, built at first
-use with g++ (``videodec.py``)."""
+"""Native (C++) host components, built at first use with g++: the FFmpeg
+video decoder (``videodec.py``) and encoder (``videoenc.py``)."""

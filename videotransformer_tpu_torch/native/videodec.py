@@ -57,30 +57,36 @@ class DecoderBuildError(RuntimeError):
         self.output = output
 
 
-def build(build_dir=None):
-    """Compile ``videodec.cpp`` into ``<build_dir>/libvideodec.so`` unless
-    it is up to date; returns the library's path. The library is written
-    under a temporary name and renamed, so processes building at once each
-    leave a whole library."""
-    build_dir = build_dir or BUILD_DIR
-    so = os.path.join(build_dir, LIB_NAME)
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(SRC):
+def compile_library(src, lib_name, build_dir, error):
+    """Compile ``src`` with g++ against FFmpeg into ``<build_dir>/<lib_name>``
+    unless it is up to date; returns the library's path. The library is
+    written under a temporary name and renamed, so processes building at
+    once each leave a whole library. A missing g++ or a failed build raises
+    ``error`` (a class taking the message and the compiler's output)."""
+    so = os.path.join(build_dir, lib_name)
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
         return so
     cxx = shutil.which("g++")
     if cxx is None:
-        raise DecoderBuildError(
-            "g++ not found on PATH: the native video decoder is built from "
-            f"{SRC} at first use and needs g++ and FFmpeg's headers")
+        raise error(
+            f"g++ not found on PATH: {lib_name} is built from {src} at first "
+            f"use and needs g++ and FFmpeg's headers")
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [cxx, *CXX_FLAGS, SRC, *FFMPEG_LIBS, "-o", tmp]
+    cmd = [cxx, *CXX_FLAGS, src, *FFMPEG_LIBS, "-o", tmp]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise DecoderBuildError(
-            f"g++ failed ({proc.returncode}) building {LIB_NAME}:\n"
-            f"{' '.join(cmd)}\n", proc.stdout + proc.stderr)
+        raise error(f"g++ failed ({proc.returncode}) building {lib_name}:\n"
+                    f"{' '.join(cmd)}\n", proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def build(build_dir=None):
+    """Compile ``videodec.cpp`` into ``<build_dir>/libvideodec.so`` unless
+    it is up to date; returns the library's path (``compile_library``)."""
+    return compile_library(SRC, LIB_NAME, build_dir or BUILD_DIR,
+                           DecoderBuildError)
 
 
 def get_lib():

@@ -252,12 +252,15 @@ def main():
 
     p = argparse.ArgumentParser()
     p.add_argument("--export_dir", required=True,
-                   help="artifact dir (params.npz + manifest.json) "
-                        "written by the JAX package's export_predictor or "
-                        "the port's serving/export.py; any TimeSformer or "
-                        "ViViT type")
+                   help="artifact dir written by the port's "
+                        "serving/export.py (served from its predict_b{B}.pt2 "
+                        "programs) or by the JAX package's export_predictor "
+                        "(params.npz + manifest.json: the model rebuilt from "
+                        "the parameter names); any TimeSformer or ViViT type")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--num_heads", type=int, default=None)
+    p.add_argument("--num_heads", type=int, default=None,
+                   help="head count of a rebuilt model (embed_dims // 64 by "
+                        "default); a program carries its own")
     p.add_argument("--port", type=int, default=8471)
     p.add_argument("--classmap", default=None,
                    help="JSON {class name: id}, e.g. "

@@ -27,7 +27,9 @@ shape: device ms of each build, its share of the bound, the host µs to
 issue a call, then each build's
 stages (device ms per call from ``torch.profiler``) with ``torch.matmul``'s
 device ms beside each product (a yardstick the port never calls), B2's fc1
-with and without its GELU epilogue, and the card's name and power limit.
+with and without its GELU epilogue, B1's and B2's host µs to issue a call
+by each way in (``issue_costs``: the wrapper, the ``vt::`` op, the autograd
+entry before the ops and now), and the card's name and power limit.
 Needs a CUDA card and nvcc.
 """
 
@@ -378,6 +380,57 @@ def mhsa_bwd_products(args, rows, d):
     return [(g2.t(), attn), (g2, w_proj), (qkv, w_qkv), (qkv.t(), x2)]
 
 
+class _DirectMHSA(torch.autograd.Function):
+    """B1's autograd entry as it was before the ``vt::`` ops: the forward
+    calls the wrapper (``_launch``) itself. For ``issue_costs`` only."""
+
+    @staticmethod
+    def forward(ctx, x, *rest):
+        out, *_ = fused_mhsa._launch(x, *rest)
+        return out.reshape(*x.shape[:2], -1)
+
+
+class _DirectFFN(torch.autograd.Function):
+    """B2's, the same (``issue_costs`` only)."""
+
+    @staticmethod
+    def forward(ctx, x, *rest):
+        out, _ = fused_ffn._launch(x, *rest, False)
+        return out.reshape(*x.shape[:-1], -1)
+
+
+def issue_costs(rng, iters=50):
+    """Host µs to issue one call of B1 (dense, the serving shape (192, 197,
+    768)) and B2 (the serving rows (37656, 768)) by each way in: the
+    wrapper alone (``_launch``), the ``vt::`` op through the dispatcher, the
+    autograd entry as it was before the ops (``_DirectMHSA``,
+    ``_DirectFFN``) and the entry now (``fused_prenorm_mhsa``,
+    ``fused_prenorm_ffn``: the autograd Function over the op), under
+    ``inference_mode``, in turns (before, now, now, before)."""
+    a, cfg = mhsa_case(rng, (192, 197, D), 0)
+    f = ffn_fwd_case(rng, (37656, D))
+    ways = {
+        "fused_prenorm_mhsa": {
+            "launch": lambda: fused_mhsa._launch(*a, *cfg),
+            "op": lambda: fused_mhsa.OP(*a, *cfg),
+            "entry_before": lambda: _DirectMHSA.apply(*a, *cfg),
+            "entry": lambda: fused_mhsa.fused_prenorm_mhsa(*a, *cfg)},
+        "fused_prenorm_ffn": {
+            "launch": lambda: fused_ffn._launch(*f, 1e-5, False),
+            "op": lambda: fused_ffn.OP(*f, 1e-5, False),
+            "entry_before": lambda: _DirectFFN.apply(*f, 1e-5),
+            "entry": lambda: fused_ffn.fused_prenorm_ffn(*f, 1e-5)}}
+    out = {}
+    with torch.inference_mode():
+        for name, calls in ways.items():
+            got = {}
+            for way in ("launch", "op", "entry_before", "entry", "entry",
+                        "entry_before", "op", "launch"):
+                got.setdefault(way, []).append(issue_us(calls[way], iters))
+            out[name] = {w: sum(t) / len(t) for w, t in got.items()}
+    return out
+
+
 def fc1_epilogue_ms(args, eps):
     """B2's fc1 alone at (x's rows, hidden): device ms with its bias + GELU
     epilogue and with the bias alone (csrc/fused_ffn.cu's
@@ -522,6 +575,9 @@ def main():
             compare("B4", f"{label} {shape}", calls, ffn_bwd_bound(*shape),
                     FFN_PRODUCTS, ffn_products(a, *shape), totals, count)
             del a
+    for name, us in issue_costs(rng).items():
+        print(f"{name} host us to issue a call: " + ", ".join(
+            f"{way} {t:.1f}" for way, t in us.items()), flush=True)
     print("summed over the calls of a serving forward or a train or mim "
           "step (x the count on each line): "
           + ", ".join(f"{k} {n} {t:.4f}" for (k, n), t in totals.items()))

@@ -12,14 +12,32 @@
   --model tiny``, its JSON lines with the JAX script's keys; run_all's
   FLOPs equal to JAX's ``timesformer_fwd_flops`` and its share taken of
   989 TFLOP/s; every entry point refuses a card that is not there.
+- the port's spans: nothing recorded and no ``record_function`` entered
+  with no session (the cost of 100k such span sites printed, not
+  asserted); inside a session the spans of two threads with their parents
+  and ids, a cross-thread ``record``, the buffer starting again with the
+  next session; ``to_trace_clock`` against the ``record_function`` copies
+  of the main thread's spans (median within 50 µs) and a second thread's
+  span placed between two main-thread markers; a tiny TimeSformer step and
+  a tiny MaskFeat step recording ``trainer.step`` and its phases under one
+  step id, their losses, gradients and parameters bit-identical with the
+  recorder on and off.
 """
 
+import collections
 import importlib.util
 import json
 import os
+import statistics
+import sys
+import threading
+import time
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from videotransformer_tpu.utils.profiling import StepTimer as JStepTimer
 from videotransformer_tpu_torch.benchmarks import (
@@ -287,3 +305,250 @@ def test_entry_points_refuse_a_missing_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name](["--model", "tiny"])
+
+
+# ------------------------------------------------------------------ spans
+
+def _session():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _host_ranges(prof):
+    """(name, start s, end s) of a finished session's host events, as the
+    benchmark's trace holds them."""
+    return [(e.name, e.time_range.start / 1e6, e.time_range.end / 1e6)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+
+
+def test_no_session_records_nothing_and_enters_no_range(monkeypatch):
+    class Refused:
+        def __init__(self, *args, **kwargs):
+            raise AssertionError("record_function entered with no session")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", Refused)
+    before = profiling.RECORDER.spans()
+    for k in range(1000):
+        with profiling.span("off", id=k):
+            with profiling.span("off.child", parent=k):
+                pass
+        profiling.record("off.cross", 0, 1, id=k)
+    # one shared do-nothing object: a site allocates nothing
+    assert profiling.span("a") is profiling.span("b", id=1, parent=2)
+    assert profiling.RECORDER.spans() == before
+
+
+def test_off_path_cost_of_a_span_site(capsys):
+    """The mean cost of a span site with no session, printed (PERF.md
+    quotes it); no timing is asserted."""
+    before = profiling.RECORDER.spans()
+    n = 100_000
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        with profiling.span("off"):
+            pass
+    site = (time.perf_counter_ns() - t0) / n
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        pass
+    loop = (time.perf_counter_ns() - t0) / n
+    with capsys.disabled():
+        print(f"\nspan site with no session: {site:.1f} ns mean over {n} "
+              f"(the bare loop {loop:.1f} ns)")
+    assert profiling.RECORDER.spans() == before
+
+
+def test_spans_of_two_threads_with_parents_and_ids():
+    profiling.RECORDER.spans()  # whatever an earlier session left
+    marks = {}
+
+    def worker():
+        with profiling.span("worker", id=3):
+            with profiling.span("worker.child"):
+                pass
+        profiling.record("cross", marks["t0"], time.perf_counter_ns(),
+                         id=5, parent=9)
+
+    with _session():
+        with profiling.span("outer", id=7):
+            marks["t0"] = time.perf_counter_ns()
+            with profiling.span("inner"):
+                th = threading.Thread(target=worker)
+                th.start()
+                th.join()
+    spans = profiling.RECORDER.spans()
+    by = {s.name: s for s in spans}
+    assert sorted(by) == ["cross", "inner", "outer", "worker",
+                          "worker.child"]
+    assert len(spans) == 5
+    main, other = threading.get_ident(), by["worker"].thread
+    assert other != main
+    assert {by[n].thread for n in ("outer", "inner")} == {main}
+    assert {by[n].thread for n in ("worker.child", "cross")} == {other}
+    got = {n: (s.parent, s.id) for n, s in by.items()}
+    assert got == {"outer": (None, 7), "inner": ("outer", 7),
+                   "worker": (None, 3), "worker.child": ("worker", 3),
+                   "cross": (9, 5)}
+    outer, inner = by["outer"], by["inner"]
+    assert outer.start_ns <= inner.start_ns <= by["worker"].start_ns \
+        <= by["worker.child"].start_ns <= by["worker"].end_ns \
+        <= inner.end_ns <= outer.end_ns
+    assert by["cross"].start_ns == marks["t0"] < by["cross"].end_ns
+    assert all(s.events is None for s in spans)  # no card
+    # read again after the session: the same spans; the next session's
+    # first span starts the buffer again
+    assert profiling.RECORDER.spans() == spans
+    with _session():
+        with profiling.span("again"):
+            pass
+    assert [s.name for s in profiling.RECORDER.spans()] == ["again"]
+
+
+def test_spans_of_many_threads_at_once_are_all_kept():
+    """More threads than cores record nested spans at once under a short
+    switch interval: no span is lost, and each keeps its thread's parent
+    and id."""
+    profiling.RECORDER.spans()
+    n_threads, per = 2 * (os.cpu_count() or 4), 100
+    start = threading.Barrier(n_threads)
+
+    def worker(k):
+        start.wait(timeout=30)
+        for _ in range(per):
+            with profiling.span("stress", id=k):
+                with profiling.span("stress.child"):
+                    pass
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with _session():
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    spans = profiling.RECORDER.spans()
+    assert len(spans) == 2 * n_threads * per
+    per_thread = collections.Counter((s.thread, s.id) for s in spans)
+    assert sorted(per_thread.values()) == [2 * per] * n_threads
+    assert {(s.parent, s.name) for s in spans} == {
+        (None, "stress"), ("stress", "stress.child")}
+
+
+def test_to_trace_clock_against_the_record_function_copies():
+    profiling.RECORDER.spans()
+    x = torch.randn(64, 64)
+
+    def worker():
+        with profiling.span("worker"):
+            time.sleep(0.002)
+
+    with _session() as prof:
+        for k in range(40):
+            with profiling.span("step", id=k):
+                (x @ x).sum()
+        with profiling.span("marker.a"):
+            time.sleep(0.001)
+        th = threading.Thread(target=worker)
+        th.start()
+        th.join()
+        with profiling.span("marker.b"):
+            time.sleep(0.001)
+    ranges = _host_ranges(prof)
+    mapped = profiling.to_trace_clock(profiling.RECORDER.spans(), ranges)
+    steps = sorted(s.start_ns for s in mapped if s.name == "step")
+    copies = sorted(a for n, a, _ in ranges if n == "step")
+    assert len(steps) == len(copies) == 40
+    gaps = [abs(s / 1e9 - c) for s, c in zip(steps, copies)]
+    assert statistics.median(gaps) <= 50e-6
+    (a,) = [r for r in ranges if r[0] == "marker.a"]
+    (b,) = [r for r in ranges if r[0] == "marker.b"]
+    (w,) = [s for s in mapped if s.name == "worker"]
+    assert a[2] <= w.start_ns / 1e9 < w.end_ns / 1e9 <= b[1]
+    # no copy of any span's name: no clock
+    assert profiling.to_trace_clock(mapped, [("other", 0.0, 1.0)]) is None
+
+
+def _tiny_trainer(objective, monkeypatch):
+    from videotransformer_tpu_torch.models.maskfeat import MaskFeat
+    from videotransformer_tpu_torch.models.timesformer import TimeSformer
+    from videotransformer_tpu_torch.training import trainer as ptrainer
+
+    if objective == "mim":
+        monkeypatch.setattr(ptrainer, "build_model", lambda c: MaskFeat(
+            img_size=32, num_frames=4, depth=4,
+            embed_dim_mul=((1, 2.0), (3, 2.0)),
+            atten_head_mul=((1, 2.0), (3, 2.0)),
+            pool_q_stride_size=((1, 1, 2, 2), (3, 1, 2, 2)),
+            feature_dim=216))
+        frames = 4
+    else:
+        monkeypatch.setattr(ptrainer, "build_model", lambda c: TimeSformer(
+            num_frames=2, img_size=32, embed_dims=64, num_heads=4,
+            num_transformer_layers=2, attention_type=c.attention_type))
+        frames = 2
+    cfg = SimpleNamespace(
+        objective=objective, arch="mvit" if objective == "mim"
+        else "timesformer", attention_type="divided_space_time",
+        num_class=10, num_frames=frames, img_size=32, optim_type="adamw",
+        clip_grad=1.0, seed=0, mixup=False, eval_metrics="finetune",
+        use_fp16=False)
+    rng = np.random.RandomState(3)
+    batch = {"raw_video": rng.randint(0, 256, (2, frames, 36, 48, 3),
+                                      dtype=np.uint8)}
+    if objective == "mim":
+        markers = np.zeros((2, 8, 2), np.int32)
+        markers[0, :2] = [[0, 1], [1, 1]]
+        markers[1, 0] = [0, 0]
+        batch.update(mask=(rng.rand(2, 2, 2, 2) > 0.3).astype(np.int32),
+                     cube_marker=markers,
+                     cube_count=np.array([2, 1], np.int32))
+    else:
+        batch["label"] = np.array([1, 7], np.int32)
+    return (lambda: ptrainer.VideoTransformerTrainer(cfg, "cpu")), batch
+
+
+@pytest.mark.parametrize("objective", ["supervised", "mim"])
+def test_a_train_step_records_its_phases_bit_for_bit(objective,
+                                                       monkeypatch):
+    make, batch = _tiny_trainer(objective, monkeypatch)
+
+    def step(on):
+        trainer = make()
+        prior = profiling.RECORDER.spans()
+        if on:
+            with _session():
+                stats = trainer.train_step(batch, 1e-3, 0.05)
+        else:
+            stats = trainer.train_step(batch, 1e-3, 0.05)
+        params = trainer.optimizer.params
+        after = profiling.RECORDER.spans()
+        if not on:  # nothing kept with the recorder off
+            assert after == prior
+        return (stats["loss"], {n: p.grad for n, p in params.items()},
+                {n: p.detach() for n, p in params.items()}, after)
+
+    loss_off, grads_off, params_off, _ = step(False)
+    loss_on, grads_on, params_on, spans = step(True)
+    assert torch.equal(loss_off, loss_on)
+    assert sorted(grads_off) == sorted(grads_on)
+    for n in grads_off:
+        assert (grads_off[n] is None) == (grads_on[n] is None), n
+        if grads_off[n] is not None:
+            assert torch.equal(grads_off[n], grads_on[n]), n
+        assert torch.equal(params_off[n], params_on[n]), n
+    phases = {"trainer.augment", "trainer.forward", "trainer.backward",
+              "trainer.optimizer"} | ({"trainer.hog"}
+                                      if objective == "mim" else set())
+    assert sorted(s.name for s in spans) == sorted(phases | {"trainer.step"})
+    (top,) = [s for s in spans if s.name == "trainer.step"]
+    assert (top.parent, top.id) == (None, 1)  # the step's global_step
+    for s in spans:
+        if s.name != "trainer.step":
+            assert (s.parent, s.id) == ("trainer.step", 1), s.name
+            assert top.start_ns <= s.start_ns <= s.end_ns <= top.end_ns

@@ -9,6 +9,7 @@ two weight matmuls, on values of order 1)."""
 import http.client
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from videotransformer_tpu_torch.serving.predictor import (
     TorchPredictor, load_predictor)
 from videotransformer_tpu_torch.serving.server import InferenceServer
 from videotransformer_tpu_torch.tools.demo_inference import load_clip
+from videotransformer_tpu_torch.utils import profiling
 from test_torch_native_decoder import decode_backend  # noqa: F401
 
 NUM_CLASS, FRAMES, IMG = 10, 4, 128
@@ -233,6 +235,58 @@ def test_server_batches_concurrent_submits(artifact):
     assert sum(k * v for k, v in hist.items()) == len(clips)
     assert max(hist) > 1, hist
     assert stats["latency_ms"]["p50"] is not None
+
+
+def test_server_records_each_requests_queue_wait():
+    """Under a profiler session each request gets one ``server.queue``
+    span, from inside its ``server.submit`` span to its batch's hand-off
+    to the predictor, its parent the batch's id; ``/stats`` reports the
+    queue wait beside the latency."""
+    calls = []  # perf_counter_ns at each predictor call, in batch order
+
+    def predictor(clips):
+        calls.append(time.perf_counter_ns())
+        time.sleep(0.002)
+        return np.zeros((len(clips), 3), np.float32)
+
+    server = InferenceServer(predictor, max_batch=4, batch_window_ms=20.0)
+    profiling.RECORDER.spans()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            futures = [server.submit(np.full((2, 3), i, np.float32))
+                       for i in range(6)]
+            for f in futures:
+                f.result(timeout=60)
+        port = server.serve(port=0)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        server.stop()
+    spans = profiling.RECORDER.spans()
+    named = lambda n: [s for s in spans if s.name == n]
+    submits = {s.id: s for s in named("server.submit")}
+    batches = {s.id: s for s in named("server.batch")}
+    fills = {s.id: s for s in named("server.fill")}
+    queues = named("server.queue")
+    assert sorted(submits) == sorted(q.id for q in queues) == [1, 2, 3, 4,
+                                                                5, 6]
+    assert sorted(batches) == list(range(1, len(calls) + 1))
+    for q in queues:
+        sub, batch = submits[q.id], batches[q.parent]
+        assert sub.start_ns <= q.start_ns <= sub.end_ns
+        # dispatch: after the batch's window, before the predictor's call
+        assert fills[q.parent].end_ns <= q.end_ns <= calls[q.parent - 1]
+        assert batch.start_ns <= q.end_ns <= batch.end_ns
+        assert q.thread == batch.thread != sub.thread
+    for name in ("server.fill", "server.reply"):
+        assert {s.parent for s in named(name)} == {"server.batch"}
+    assert named("server.wait")
+    assert set(stats["queue_ms"]) == {"p50", "p90", "p99"}
+    assert 0 <= stats["queue_ms"]["p50"] <= stats["queue_ms"]["p99"] \
+        <= stats["latency_ms"]["p99"]
 
 
 def _jax_eval_transform(video, img_size):

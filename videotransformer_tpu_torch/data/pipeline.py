@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from videotransformer_tpu_torch.data.mask_generator import pad_cube_marker
+from videotransformer_tpu_torch.utils import profiling
 
 
 def collate_raw(samples):
@@ -229,18 +230,20 @@ class _PinnedRing:
         """Write ``batch`` into the next buffer set -> (slot, pinned)."""
         slot, self.turn = self.turn, 1 - self.turn
         if self.events[slot] is not None:
-            self.events[slot].synchronize()
+            with profiling.span("prefetch.event_wait"):
+                self.events[slot].synchronize()
         bufs = self.buffers[slot]
         pinned = {}
-        for k, v in batch.items():
-            src = _host(v)
-            buf = bufs.get(k)
-            if buf is None or buf.shape != src.shape or \
-                    buf.dtype != src.dtype:
-                buf = bufs[k] = torch.empty(src.shape, dtype=src.dtype,
-                                            pin_memory=True)
-            buf.copy_(src)
-            pinned[k] = buf
+        with profiling.span("prefetch.stage"):
+            for k, v in batch.items():
+                src = _host(v)
+                buf = bufs.get(k)
+                if buf is None or buf.shape != src.shape or \
+                        buf.dtype != src.dtype:
+                    buf = bufs[k] = torch.empty(src.shape, dtype=src.dtype,
+                                                pin_memory=True)
+                buf.copy_(src)
+                pinned[k] = buf
         return slot, pinned
 
 
@@ -249,12 +252,25 @@ def device_prefetch(iterator, device, stream=None):
     as tensors on ``device``, the next one copying while the current one is
     in use. On a CUDA device the copies run on ``stream`` (a new side
     stream by default) from a ring of two pinned buffers; the batch handed
-    out is ready for the current stream."""
+    out is ready for the current stream.
+
+    While a profiler session is active each batch handed out records
+    ``prefetch.next`` (the generator's work for it, the consumer's time
+    between batches left out) with, on a card, the children
+    ``prefetch.event_wait`` (the ring's wait for the copy that last read a
+    buffer set) and ``prefetch.stage`` (the host copy into the pinned
+    ring)."""
     device = torch.device(device)
     if device.type != "cuda":
-        for batch in iterator:
-            yield {k: _host(v).to(device) for k, v in batch.items()}
-        return
+        it = iter(iterator)
+        while True:
+            with profiling.span("prefetch.next"):
+                batch = next(it, None)
+                if batch is not None:
+                    batch = {k: _host(v).to(device) for k, v in batch.items()}
+            if batch is None:
+                return
+            yield batch
     stream = stream or torch.cuda.Stream(device)
     ring = _PinnedRing()
 
@@ -272,12 +288,13 @@ def device_prefetch(iterator, device, stream=None):
     nxt = next(it, None)
     pending = None if nxt is None else put(nxt)
     while pending is not None:
-        nxt = next(it, None)
-        ahead = None if nxt is None else put(nxt)
-        batch, event = pending
-        current = torch.cuda.current_stream(device)
-        current.wait_event(event)
-        for v in batch.values():
-            v.record_stream(current)
+        with profiling.span("prefetch.next"):
+            nxt = next(it, None)
+            ahead = None if nxt is None else put(nxt)
+            batch, event = pending
+            current = torch.cuda.current_stream(device)
+            current.wait_event(event)
+            for v in batch.values():
+                v.record_stream(current)
         yield batch
         pending = ahead

@@ -29,6 +29,13 @@ stacks, or "raw", the decoder's canonical uint8 (T, raw_h, raw_w, 3) clip
 device as uint8 and through the eval recipe there (``make_raw_predict_fn``;
 export.py:66-90). Both ways are one ``TorchPredictor``; only its callable
 differs.
+
+While a ``torch.profiler`` session is active a call records its spans
+(``utils/profiling.py``): ``predictor.call``, and under it for each bucket
+chunk ``predictor.stage`` (padding and concatenating on the host),
+``predictor.upload`` (the ``.to(device)`` of the batch),
+``predictor.forward`` (the bucket's program or the model) and
+``predictor.fetch`` (``.cpu().numpy()``, which waits for the device).
 """
 
 import json
@@ -44,6 +51,7 @@ from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
 from videotransformer_tpu_torch.models.vivit import ViViT
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
+from videotransformer_tpu_torch.utils import profiling
 
 
 def make_predict_fn(model, head, num_class, n_crops):
@@ -157,25 +165,30 @@ class TorchPredictor:
 
     @torch.inference_mode()
     def __call__(self, clips):
-        clips = np.asarray(clips, self.input_dtype)
-        n = clips.shape[0]
-        out = []
-        i = 0
-        while i < n:
-            take = min(n - i, self.max_batch)
-            b = self._bucket(take)
-            chunk = clips[i:i + take]
-            if take < b:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((b - take,) + chunk.shape[1:],
-                                     chunk.dtype)], axis=0)
-            x = torch.from_numpy(chunk).to(self.device)
-            if self.input_mode == "clips":
-                x = x.to(self.dtype)
-            logits = self._predict(x)
-            out.append(logits[:take].float().cpu().numpy())
-            i += take
-        return np.concatenate(out, axis=0)
+        with profiling.span("predictor.call"):
+            clips = np.asarray(clips, self.input_dtype)
+            n = clips.shape[0]
+            out = []
+            i = 0
+            while i < n:
+                with profiling.span("predictor.stage"):
+                    take = min(n - i, self.max_batch)
+                    b = self._bucket(take)
+                    chunk = clips[i:i + take]
+                    if take < b:
+                        chunk = np.concatenate(
+                            [chunk, np.zeros((b - take,) + chunk.shape[1:],
+                                             chunk.dtype)], axis=0)
+                with profiling.span("predictor.upload"):
+                    x = torch.from_numpy(chunk).to(self.device)
+                    if self.input_mode == "clips":
+                        x = x.to(self.dtype)
+                with profiling.span("predictor.forward"):
+                    logits = self._predict(x)
+                with profiling.span("predictor.fetch"):
+                    out.append(logits[:take].float().cpu().numpy())
+                i += take
+            return np.concatenate(out, axis=0)
 
     def warmup(self):
         """Run every bucket once, through ``__call__`` (builds the kernels

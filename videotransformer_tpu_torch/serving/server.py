@@ -14,11 +14,22 @@ canonical uint8 clip, and the eval recipe runs on the device.
 Endpoints:
     POST /predict   body = raw video bytes (mp4)   -> JSON top-5
     GET  /healthz                                  -> {"ok": true}
-    GET  /stats     request/batch/latency counters -> JSON
+    GET  /stats     request/batch/latency/queue-wait counters -> JSON
+
+While a ``torch.profiler`` session is active the server records its spans
+(``utils/profiling.py``): ``server.submit`` on the caller's thread, which
+gives the request its id; on the collector ``server.wait`` (blocked on an
+empty queue), ``server.batch`` (a batch, by its id) around ``server.fill``
+(the batching window after the first request), the predictor's call and
+``server.reply`` (the futures set); and at dispatch one ``server.queue``
+a request, from its submit to the hand-off to the predictor, whose parent
+is the batch's id.
 
 Run: ``python -m videotransformer_tpu_torch.serving.server --export_dir DIR``
 """
 
+import collections
+import itertools
 import json
 import os
 import queue
@@ -30,20 +41,34 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from videotransformer_tpu_torch.utils import profiling
+
+
+def _percentiles(samples):
+    ordered = sorted(samples)
+    pct = (lambda p: round(ordered[min(len(ordered) - 1,
+                                       int(p * len(ordered)))], 1)) \
+        if ordered else (lambda p: None)
+    return {"p50": pct(0.5), "p90": pct(0.9), "p99": pct(0.99)}
+
 
 class _Stats:
+    """Counters, and the latest 4096 requests' latency (submit to answer)
+    and queue wait (submit to the predictor's call), in ms."""
+
     def __init__(self):
         self._lock = threading.Lock()
         self.requests = 0
         self.errors = 0
         self.batches = {}
-        self._lat_ms = []
+        self._lat_ms = collections.deque(maxlen=4096)
+        self._queue_ms = collections.deque(maxlen=4096)
 
-    def record(self, batch_size, lat_ms_each):
+    def record(self, batch_size, lat_ms_each, queue_ms_each):
         with self._lock:
             self.batches[batch_size] = self.batches.get(batch_size, 0) + 1
             self._lat_ms.extend(lat_ms_each)
-            self._lat_ms = self._lat_ms[-4096:]
+            self._queue_ms.extend(queue_ms_each)
 
     def count_request(self, error=False):
         with self._lock:
@@ -52,16 +77,12 @@ class _Stats:
 
     def snapshot(self):
         with self._lock:
-            lat = sorted(self._lat_ms)
-            pct = (lambda p: round(lat[min(len(lat) - 1,
-                                           int(p * len(lat)))], 1)) \
-                if lat else (lambda p: None)
             return {
                 "requests": self.requests,
                 "errors": self.errors,
                 "batch_histogram": dict(sorted(self.batches.items())),
-                "latency_ms": {"p50": pct(0.5), "p90": pct(0.9),
-                               "p99": pct(0.99)},
+                "latency_ms": _percentiles(self._lat_ms),
+                "queue_ms": _percentiles(self._queue_ms),
             }
 
 
@@ -88,6 +109,7 @@ class InferenceServer:
         self.idx_to_class = (
             {int(v): k for k, v in classmap.items()} if classmap else {})
         self.stats = _Stats()
+        self._ids = itertools.count(1)  # request ids
         self._queue = queue.Queue()
         self._stop = threading.Event()
         self._collector = threading.Thread(target=self._device_loop,
@@ -98,12 +120,20 @@ class InferenceServer:
     # ---- device side -----------------------------------------------------
 
     def _device_loop(self):
+        batch_ids = itertools.count(1)
         while not self._stop.is_set():
-            try:
-                first = self._queue.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            items = [first]
+            with profiling.span("server.wait"):
+                try:
+                    first = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+            batch_id = next(batch_ids)
+            with profiling.span("server.batch", id=batch_id):
+                self._run_batch(first, batch_id)
+
+    def _run_batch(self, first, batch_id):
+        items = [first]
+        with profiling.span("server.fill"):
             deadline = time.perf_counter() + self.batch_window_ms / 1000.0
             while len(items) < self.max_batch:
                 remaining = deadline - time.perf_counter()
@@ -113,26 +143,35 @@ class InferenceServer:
                     items.append(self._queue.get(timeout=remaining))
                 except queue.Empty:
                     break
-            clips = np.stack([c for c, _, _ in items])
-            try:
-                logits = np.asarray(self.predictor(clips))
-                now = time.perf_counter()
-                self.stats.record(
-                    len(items), [(now - t_in) * 1000 for _, _, t_in in items])
-                for (_, fut, _), row in zip(items, logits):
+        clips = np.stack([c for c, _, _, _ in items])
+        dispatched = time.perf_counter_ns()
+        for _, _, t_in, rid in items:
+            profiling.record("server.queue", t_in, dispatched, id=rid,
+                             parent=batch_id)
+        try:
+            logits = np.asarray(self.predictor(clips))
+            now = time.perf_counter_ns()
+            self.stats.record(
+                len(items), [(now - t_in) / 1e6 for _, _, t_in, _ in items],
+                [(dispatched - t_in) / 1e6 for _, _, t_in, _ in items])
+            with profiling.span("server.reply"):
+                for (_, fut, _, _), row in zip(items, logits):
                     fut.set_result(row)
-            except Exception as e:  # propagate to every waiter
-                for _, fut, _ in items:
-                    if not fut.done():
-                        fut.set_exception(e)
+        except Exception as e:  # propagate to every waiter
+            for _, fut, _, _ in items:
+                if not fut.done():
+                    fut.set_exception(e)
 
     def submit(self, clip) -> Future:
         """clip -> Future of (num_class,) logits. The clip's layout follows
         the predictor's input mode: (n_crops, T, C, S, S) float32, or the
         canonical (T, H, W, 3) uint8 clip in raw mode."""
-        dtype = getattr(self.predictor, "input_dtype", np.float32)
-        fut = Future()
-        self._queue.put((np.asarray(clip, dtype), fut, time.perf_counter()))
+        rid = next(self._ids)
+        with profiling.span("server.submit", id=rid):
+            dtype = getattr(self.predictor, "input_dtype", np.float32)
+            fut = Future()
+            self._queue.put((np.asarray(clip, dtype), fut,
+                             time.perf_counter_ns(), rid))
         return fut
 
     # ---- host side -------------------------------------------------------

@@ -153,7 +153,7 @@ class PipelineTrainer(StackedBlocksTrainer):
                 tokens.backward(pp.merge_rows(grads))
         dist.broadcast(stats, src=mesh.pipe_ranks[-1], group=mesh.pipe_group)
         loss, (top1, top5) = self._reduce_step(stats[0], stats[1:].unbind())
-        grad_norm = self.optimizer.step(lr, wd)
+        grad_norm = self._update(lr, wd)
         return {"loss": loss, "grad_norm": grad_norm, "top1": top1,
                 "top5": top5, "bs": video.shape[0] * mesh.data}
 

@@ -140,6 +140,7 @@ from videotransformer_tpu_torch.training.metrics import (
     AccuracyMeter, topk_correct)
 from videotransformer_tpu_torch.training.optimizer import (
     RefOptimizer, layer_scales)
+from videotransformer_tpu_torch.utils import profiling
 
 
 def cross_entropy(logits, labels):
@@ -440,10 +441,11 @@ class VideoTransformerTrainer:
         # drawn for the global batch, this data rank's rows kept
         data = 1 if self.mesh is None else self.mesh.data
         shape = (raw.shape[0] * data,) + raw.shape[1:]
-        draws = _mesh.shard_batch(self.mesh, draw_augment(
-            self.generator, shape, device=raw.device, **recipe))
-        return augment_batch(raw, out_size=cfg.img_size, mean=mean, std=std,
-                             with_raw=mim, draws=draws, **recipe)
+        with profiling.span("trainer.augment", device=self.device):
+            draws = _mesh.shard_batch(self.mesh, draw_augment(
+                self.generator, shape, device=raw.device, **recipe))
+            return augment_batch(raw, out_size=cfg.img_size, mean=mean,
+                                 std=std, with_raw=mim, draws=draws, **recipe)
 
     def _mixup(self, video, labels):
         """Mixup over the global batch (row i with row B - 1 - i): this
@@ -485,11 +487,12 @@ class VideoTransformerTrainer:
         seq = self.seq_shards
         if self.mesh.data * seq == 1:
             return loss.detach(), list(extra)
-        stats = torch.stack([loss.detach().float()]
-                            + [e.float() for e in extra])
-        self.optimizer.reduce_gradients(
-            [stats], self.mesh.replica_group if seq > 1 else None)
-        return stats[0], [e / seq for e in stats[1:]]
+        with profiling.span("trainer.reduce"):
+            stats = torch.stack([loss.detach().float()]
+                                + [e.float() for e in extra])
+            self.optimizer.reduce_gradients(
+                [stats], self.mesh.replica_group if seq > 1 else None)
+            return stats[0], [e / seq for e in stats[1:]]
 
     def train_step(self, batch, lr, wd):
         """One step: forward, backward, clip, update; counts one global step.
@@ -497,14 +500,23 @@ class VideoTransformerTrainer:
         or ``{"raw_video": (B, T, H, W, C) uint8, "label"}``, returning the
         loss, grad_norm, top1, top5 (device tensors) and bs. mim: the batch
         of the module doc, or ``{"raw_video", "mask", "cube_marker",
-        "cube_count"}``, returning the loss and grad_norm."""
-        self.generator.manual_seed(self.seed + self.global_step + 7919)
-        self.global_step += 1
-        if self.mesh is not None:
-            batch = self._model_group_batch(batch)
-        if not self.supervised:
-            return self._mim_step(batch, lr, wd)
-        return self._supervised_step(batch, lr, wd)
+        "cube_count"}``, returning the loss and grad_norm. While a profiler
+        session is active it records ``trainer.step`` (its id the step's
+        ``global_step``) and its phases, each but ``trainer.reduce`` with
+        its device time on a card (``utils/profiling.py``)."""
+        with profiling.span("trainer.step", id=self.global_step + 1):
+            self.generator.manual_seed(self.seed + self.global_step + 7919)
+            self.global_step += 1
+            if self.mesh is not None:
+                batch = self._model_group_batch(batch)
+            if not self.supervised:
+                return self._mim_step(batch, lr, wd)
+            return self._supervised_step(batch, lr, wd)
+
+    def _update(self, lr, wd):
+        """The clip and the optimizer's update; returns the grad norm."""
+        with profiling.span("trainer.optimizer", device=self.device):
+            return self.optimizer.step(lr, wd)
 
     def _train_inputs(self, batch):
         """(clips in the working type, labels, mixup's soft targets or
@@ -522,31 +534,33 @@ class VideoTransformerTrainer:
 
     def _supervised_step(self, batch, lr, wd):
         video, labels, soft = self._train_inputs(batch)
-        self.optimizer.zero_grad()
-        if self.linear_prob:
-            self.model.eval()
-            with torch.no_grad():
-                feats = self._features(video)
-        else:
-            self.model.train()
-            feats = self._features(video, self.generator)
-        logits = self.cls_head(feats)
-        if soft is not None:
-            loss = soft_target_cross_entropy(logits, soft)
-            acc_labels = soft.argmax(-1)
-        else:
-            loss = cross_entropy(logits, labels)
-            acc_labels = labels
-        bs = logits.shape[0]
-        if self.mesh is not None:  # this rank's share of the global mean
-            loss = loss / (self.mesh.data * self.seq_shards)
-            bs *= self.mesh.data
-        loss.backward()
+        with profiling.span("trainer.forward", device=self.device):
+            self.optimizer.zero_grad()
+            if self.linear_prob:
+                self.model.eval()
+                with torch.no_grad():
+                    feats = self._features(video)
+            else:
+                self.model.train()
+                feats = self._features(video, self.generator)
+            logits = self.cls_head(feats)
+            if soft is not None:
+                loss = soft_target_cross_entropy(logits, soft)
+                acc_labels = soft.argmax(-1)
+            else:
+                loss = cross_entropy(logits, labels)
+                acc_labels = labels
+            bs = logits.shape[0]
+            if self.mesh is not None:  # this rank's share of the global mean
+                loss = loss / (self.mesh.data * self.seq_shards)
+                bs *= self.mesh.data
+        with profiling.span("trainer.backward", device=self.device):
+            loss.backward()
         correct = topk_correct(logits.detach(), acc_labels)
         if self.mesh is not None:
             loss, (correct[1], correct[5]) = self._reduce_step(
                 loss, (correct[1], correct[5]))
-        grad_norm = self.optimizer.step(lr, wd)
+        grad_norm = self._update(lr, wd)
         return {"loss": loss.detach(), "grad_norm": grad_norm,
                 "top1": correct[1], "top5": correct[5], "bs": bs}
 
@@ -554,17 +568,19 @@ class VideoTransformerTrainer:
         """HOG targets from the clip before Normalize (B, T, C, H, W), at the
         cube-center frames 2·start + span only, scattered one-hot into
         (B, T, h, w, 108) (trainer.py:353-372)."""
-        frames = raw.permute(0, 1, 3, 4, 2)  # (B, T, H, W, C)
-        B, T = frames.shape[:2]
-        centers = markers[..., 0] * 2 + markers[..., 1]  # (B, M)
-        m_idx = torch.arange(markers.shape[1], device=self.device)
-        valid = (m_idx[None] < counts[:, None]).float()
-        gathered = frames[torch.arange(B, device=self.device)[:, None],
-                          centers.long()]  # (B, M, H, W, C)
-        hog = batched_hog_targets(gathered)  # (B, M, h, w, 108)
-        onehot = (centers[..., None] == torch.arange(T, device=self.device)
-                  ).float() * valid[..., None]
-        return torch.einsum("bmt,bmhwc->bthwc", onehot, hog)
+        with profiling.span("trainer.hog", device=self.device):
+            frames = raw.permute(0, 1, 3, 4, 2)  # (B, T, H, W, C)
+            B, T = frames.shape[:2]
+            centers = markers[..., 0] * 2 + markers[..., 1]  # (B, M)
+            m_idx = torch.arange(markers.shape[1], device=self.device)
+            valid = (m_idx[None] < counts[:, None]).float()
+            gathered = frames[torch.arange(B, device=self.device)[:, None],
+                              centers.long()]  # (B, M, H, W, C)
+            hog = batched_hog_targets(gathered)  # (B, M, h, w, 108)
+            onehot = (centers[..., None]
+                      == torch.arange(T, device=self.device)
+                      ).float() * valid[..., None]
+            return torch.einsum("bmt,bmhwc->bthwc", onehot, hog)
 
     def _mim_step(self, batch, lr, wd):
         dev = self.device
@@ -583,15 +599,17 @@ class VideoTransformerTrainer:
         else:
             target = self._hog_targets(_as_tensor(raw, dev, torch.float32),
                                        markers, counts)
-        self.optimizer.zero_grad()
-        self.model.train()
-        # under data parallelism this rank's share of the global loss
-        _, loss = self.model(video, target, mask, markers, counts,
-                             self.generator)
-        loss.backward()
+        with profiling.span("trainer.forward", device=self.device):
+            self.optimizer.zero_grad()
+            self.model.train()
+            # under data parallelism this rank's share of the global loss
+            _, loss = self.model(video, target, mask, markers, counts,
+                                 self.generator)
+        with profiling.span("trainer.backward", device=self.device):
+            loss.backward()
         if self.mesh is not None:
             loss, _ = self._reduce_step(loss)
-        grad_norm = self.optimizer.step(lr, wd)
+        grad_norm = self._update(lr, wd)
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     @torch.no_grad()

@@ -18,14 +18,45 @@ torch.profiler's events:
   the busy and idle share of the traced device span;
 - ``analyze``: prints and returns the breakdown by category and the top
   ops per step.
+
+And the port's own spans, recorded where the work happens (the server,
+the predictor, the trainer, the prefetch) while a ``torch.profiler``
+session is active, and at no other time:
+
+- ``span(name, id=None, parent=None, device=None)``: a context manager
+  around host work on one thread; ``record(name, start_ns, end_ns, ...)``
+  an interval that begins on one thread and ends on another. With no
+  session a span site costs one read of
+  ``torch.autograd.profiler._is_profiler_enabled`` and returns a shared
+  do-nothing context manager: no allocation, no ``record_function``.
+- A span (``Span``) holds its name, start and end in
+  ``time.perf_counter_ns()``, its thread, its parent (the enclosing
+  span's name on its thread, unless given) and its id (the enclosing
+  span's, unless given: a request's spans share the request's id, a
+  train step's share ``global_step``). On a CUDA ``device`` it also holds
+  a pair of timing events recorded on the current stream, whose
+  ``device_ms`` is read once the device has passed them; nothing waits
+  on them.
+- While on, each span also opens a ``record_function`` of its name, so the
+  spans of the thread that started the profiler appear in its trace
+  (``torch.profiler`` records the ranges of that thread alone) and name
+  the trace's idle gaps. ``to_trace_clock`` uses those copies to put
+  every span, other threads' too, on the trace's clock.
+- ``RECORDER`` keeps the spans in a bounded buffer (thread-safe) and hands
+  them out with ``spans()`` once the session has ended; the first span of
+  the next session starts the buffer again.
 """
 
+import collections
 import contextlib
 import json
 import os
+import statistics
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 
 CATEGORIES = ("port", "cuBLAS", "cuDNN", "elementwise", "layout/copy",
@@ -149,20 +180,34 @@ def _top_level(events):
     return out
 
 
+def _annotation(e):
+    return getattr(e, "is_user_annotation", False)
+
+
+def _op_parent(e):
+    """The nearest enclosing op of a CPU event, ``record_function`` ranges
+    (the port's spans among them) passed over."""
+    p = e.cpu_parent
+    while p is not None and _annotation(p):
+        p = p.cpu_parent
+    return p
+
+
 def profile_spans(prof, device, exclude=()):
     """The spans of a finished torch.profiler session on ``device``
     ("cuda": its CUDA events, user annotations and the names in
-    ``exclude`` left out; "cpu": the top-level CPU ops)."""
+    ``exclude`` left out; "cpu": the top-level CPU ops, inside
+    ``record_function`` ranges or not, as the chrome trace's ``cpu_op``
+    events give them)."""
     if torch.device(device).type == "cuda":
         return [(e.name, e.time_range.start, e.time_range.end)
                 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name not in exclude
-                and not getattr(e, "is_user_annotation", False)]
+                and e.name not in exclude and not _annotation(e)]
     return [(e.name, e.time_range.start, e.time_range.end)
             for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CPU
-            and e.cpu_parent is None]
+            and not _annotation(e) and _op_parent(e) is None]
 
 
 def chrome_trace_spans(path, device):
@@ -247,3 +292,169 @@ def analyze(spans, steps, top=20, out=print):
             "idle_share": s["idle_share"],
             "categories": {c: cats.get(c, (0.0, 0))[0] for c in CATEGORIES},
             "top": [[n, ms, calls / steps] for n, (ms, calls) in ranked]}
+
+
+# ------------------------------------------------------------ spans
+
+# parent: the enclosing span's name, or what the site gives (a request's
+# server.queue span: its batch's id); events: None, or the (start, end)
+# CUDA events of a span on a card
+Span = collections.namedtuple(
+    "Span", "name start_ns end_ns thread parent id events")
+
+_CAPACITY = 1 << 16  # spans a session keeps; the oldest give way
+
+
+class Recorder:
+    """The spans of the current or last profiler session, oldest first, in
+    a buffer of at most ``_CAPACITY``."""
+
+    def __init__(self):
+        self._spans = collections.deque(maxlen=_CAPACITY)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._open = False  # the buffer holds a session that may go on
+
+    def stack(self):
+        """This thread's open spans, (name, id) each, innermost last."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def keep(self, span):
+        if not self._open:  # the first span since the last spans()
+            with self._lock:
+                if not self._open:
+                    self._spans.clear()
+                    self._open = True
+        self._spans.append(span)
+
+    def spans(self):
+        """The spans kept. Once the session has ended they are its spans
+        (with those of any session that ran since the last call), and the
+        next session's first span starts the buffer again; inside a session,
+        the spans so far."""
+        with self._lock:
+            if not _autograd_profiler._is_profiler_enabled:
+                self._open = False
+            return list(self._spans)
+
+
+RECORDER = Recorder()
+
+
+class _Off:
+    """The span of a site while no session is active: nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Open:
+    __slots__ = ("name", "id", "parent", "device", "start_ns", "range",
+                 "start_event", "stack")
+
+    def __init__(self, name, id, parent, device):
+        self.name, self.id, self.parent, self.device = name, id, parent, device
+
+    def __enter__(self):
+        stack = self.stack = RECORDER.stack()
+        if stack:
+            up_name, up_id = stack[-1]
+            if self.parent is None:
+                self.parent = up_name
+            if self.id is None:
+                self.id = up_id
+        stack.append((self.name, self.id))
+        self.start_ns = time.perf_counter_ns()
+        self.range = _autograd_profiler.record_function(self.name)
+        self.range.__enter__()
+        self.start_event = None
+        if self.device is not None and self.device.type == "cuda":
+            self.start_event = torch.cuda.Event(enable_timing=True)
+            self.start_event.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        events = None
+        if self.start_event is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            events = (self.start_event, end)
+        self.range.__exit__(*exc)
+        end_ns = time.perf_counter_ns()
+        self.stack.pop()
+        RECORDER.keep(Span(self.name, self.start_ns, end_ns,
+                           threading.get_ident(), self.parent, self.id,
+                           events))
+        return False
+
+
+def span(name, id=None, parent=None, device=None):
+    """A span around the body while a profiler session is active (module
+    doc); ``device``: a CUDA device whose current stream also gets the
+    span's pair of timing events."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Open(name, id, parent, device)
+
+
+def record(name, start_ns, end_ns, id=None, parent=None):
+    """Keep the span ``name`` from ``start_ns`` to ``end_ns``
+    (``time.perf_counter_ns()``), begun on another thread, while a session
+    is active; its thread is the caller's."""
+    if _autograd_profiler._is_profiler_enabled:
+        RECORDER.keep(Span(name, start_ns, end_ns, threading.get_ident(),
+                           parent, id, None))
+
+
+def device_ms(s):
+    """Device ms between a span's two events; None without events or
+    before the device has passed the second."""
+    if s.events is None or not s.events[1].query():
+        return None
+    return s.events[0].elapsed_time(s.events[1])
+
+
+def _trace_offset_ns(spans, trace_host_ranges):
+    """What to add to a ``perf_counter_ns`` time to put it on the clock of
+    ``trace_host_ranges`` ((name, start s, end s)), in ns: the median of
+    (copy's start - span's start) over the spans whose ``record_function``
+    copies the trace holds. A name counts where the trace holds as many
+    ranges of it as there are spans, paired in order of start; None where
+    no name does."""
+    starts = collections.defaultdict(list)
+    for s in spans:
+        starts[s.name].append(s.start_ns)
+    copies = collections.defaultdict(list)
+    for name, start, _ in trace_host_ranges:
+        if name in starts:
+            copies[name].append(start)
+    diffs = []
+    for name, mine in starts.items():
+        theirs = copies.get(name)
+        if theirs and len(theirs) == len(mine):
+            diffs += [t * 1e9 - s
+                      for s, t in zip(sorted(mine), sorted(theirs))]
+    return statistics.median(diffs) if diffs else None
+
+
+def to_trace_clock(spans, trace_host_ranges):
+    """``spans`` with start_ns and end_ns on the clock of a trace's host
+    ranges ((name, start s, end s), the host events of a finished
+    session), which its device operations share: the spans of every
+    thread, whether or not the trace holds their copies; None where no
+    span's copies are there. The offset is ``_trace_offset_ns``'s."""
+    off = _trace_offset_ns(spans, trace_host_ranges)
+    if off is None:
+        return None
+    return [s._replace(start_ns=s.start_ns + off, end_ns=s.end_ns + off)
+            for s in spans]

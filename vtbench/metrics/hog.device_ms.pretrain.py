@@ -1,0 +1,9 @@
+"""Device ms a traced step of the port's ``trainer.hog`` phase (MaskFeat's
+HOG targets at the cube centres), from the CUDA events the span records on
+the current stream."""
+
+from vtbench import inside
+
+
+def read(run):
+    return inside.device_ms_per_step(run, "trainer.hog")

@@ -20,14 +20,21 @@ weights from a seed:
   forward each at 8x224 against the plain versions, and one train step of
   joint attention at 16 frames (3137 tokens: the unfused branch, flash
   attention B5/B6) against the same step through the plain versions;
+- MViT's pools (a generator of their own, SEED + 11): the pool kernels
+  (kernels/mvit_pool.py) at each of the 16 blocks of a MaskFeat step at 32
+  clips (34 pools) against their plain version in fp32, forward and
+  backward, each twice to the bit, timed beside the plain version in bf16
+  and cuDNN's conv3d alone on dense operands, with each block's bound;
 - mim: three MaskFeat pretraining steps on MViT-B (16x224, 16 blocks, two
   q-pool stages, masks from the cube mask generator, HOG targets computed on
   the card from the raw clip) on 8 clips with cuDNN's deterministic
   algorithms, timed, and repeated from the same state through the plain
   versions, compared, and profiled; further steps with cuDNN's default
-  algorithms, timed and profiled; then one supervised arch=mvit step (layer decay 0.75,
-  decoder_pred frozen) and an eval-mode forward on 2 clips against the plain
-  versions;
+  algorithms, timed and profiled, a traced step in which cuDNN runs the
+  patch embed's convolution alone (no pool), and two steps from one state
+  twice, bit-equal, with the default algorithms; then one supervised
+  arch=mvit step (layer decay 0.75, decoder_pred frozen) and an eval-mode
+  forward on 2 clips against the plain versions;
 - data (its own generator, SEED + 4): the device augment of 8 canonical
   uint8 clips (8x256x342) on the card against the CPU on the same draws
   (the supervised recipe, RandAugment with draws covering all 14 ops, the
@@ -206,7 +213,7 @@ from videotransformer_tpu_torch.data.mask_generator import (
     CubeMaskGenerator, pad_cube_marker)
 from videotransformer_tpu_torch.data.transforms import eval_transform_clip
 from videotransformer_tpu_torch.kernels import (
-    _build, flash_attention, fused_ffn, fused_mhsa)
+    _build, flash_attention, fused_ffn, fused_mhsa, mvit_pool)
 from videotransformer_tpu_torch.models import convert, mvit
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import (
@@ -249,7 +256,7 @@ TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR, TRAIN_WD = 8, 3, 1e-4, 0.05
 LOSS_REL_TOL = 1e-2
 NORM_REL_TOL = 3e-2
 LIBRARIES = ("fused_mhsa", "fused_ffn", "fused_mhsa_bwd", "fused_ffn_bwd",
-             "flash_attention", "flash_attention_bwd")
+             "flash_attention", "flash_attention_bwd", "mvit_pool")
 # MaskFeat on MViT-B at 16x224 (the JAX trainer's objective=mim build);
 # FLASH_SHAPES (flash_bench) are the (B·H, Nq, Nkv, calls) of its flash
 # attention calls in one batch-8 step, head dim MVIT_HD
@@ -848,10 +855,13 @@ KERNEL_COUNTERS = ((fused_mhsa, "LAUNCHES"), (fused_ffn, "LAUNCHES"),
 KERNEL_NAMES = ("fused_prenorm_mhsa", "fused_prenorm_ffn",
                 "fused_prenorm_mhsa_bwd", "fused_prenorm_ffn_bwd",
                 "flash_attention", "flash_attention_bwd")
+# MViT's pools (kernels/mvit_pool.py), a block's three pools a call, read
+# apart (read_pool_counts): only the MViT paths run them
+POOL_COUNTERS = ((mvit_pool, "LAUNCHES"), (mvit_pool, "BWD_LAUNCHES"))
 
 
 def reset_counts():
-    for mod, attr in KERNEL_COUNTERS:
+    for mod, attr in KERNEL_COUNTERS + POOL_COUNTERS:
         setattr(mod, attr, 0)
     for counts in (fused_mhsa.ATTENTION_LAUNCHES,
                    fused_mhsa.ATTENTION_BWD_LAUNCHES):
@@ -869,6 +879,11 @@ TIMESFORMER_ATTENTION = {"packed": DEPTH, "dense": DEPTH, "long": 0,
 def read_counts():
     return {n: getattr(mod, attr)
             for n, (mod, attr) in zip(KERNEL_NAMES, KERNEL_COUNTERS)}
+
+
+def read_pool_counts():
+    """(forward, backward) calls of the pool kernels since reset_counts."""
+    return tuple(getattr(mod, attr) for mod, attr in POOL_COUNTERS)
 
 
 def trainer_tree(flat):
@@ -937,7 +952,11 @@ def plain_versions():
                               flash_attention._forward_reference),
             mock.patch.object(
                 flash_attention, "_launch_backward",
-                flash_attention.flash_attention_backward_reference)]
+                flash_attention.flash_attention_backward_reference),
+            mock.patch.object(mvit_pool, "_launch",
+                              mvit_pool._forward_reference),
+            mock.patch.object(mvit_pool, "_launch_backward",
+                              mvit_pool._backward_reference)]
 
 
 def check_steps(what, steps, plain, want, attention, attention_bwd):
@@ -1135,6 +1154,13 @@ def timesformer_types(rng, card):
 MIM_WANT = {"fused_prenorm_mhsa": 0, "fused_prenorm_ffn": 13,
             "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": 13,
             "flash_attention": 16, "flash_attention_bwd": 16}
+# the pool kernels' (forward, backward) calls a mim step: one a block each
+# way (every block pools k and v; blocks 1 and 3 q too), 34 pools
+MIM_POOL_WANT = (16, 16)
+POOL_CLIPS = 32  # the pool phase's batch: the benchmark's MaskFeat cell's
+# the old path's cuDNN kernels, one launch a channel or a transpose around
+# them, which no pool may launch now
+POOL_CUDNN_KERNELS = ("convolveNd", "dgrad2d_grouped", "tensorTransformGeneric")
 
 
 def mim_configs(objective="mim"):
@@ -1184,6 +1210,7 @@ def run_mim_steps(tree, batch):
         steps.append({"loss": float(stats["loss"]),
                       "grad_norm": float(stats["grad_norm"]),
                       "launches": read_counts(),
+                      "pools": read_pool_counts(),
                       "ms": start.elapsed_time(end)})
     return tr, steps
 
@@ -1213,10 +1240,11 @@ def mim_slice(rng, card):
     tree = trainer_mod.VideoTransformerTrainer(mim_configs(), "cpu"
                                                ).params_tree()
     batch = mim_batch(rng)
-    # cuDNN's default convolution backward is not reproducible, and AdamW's
-    # first updates (about lr·sign(g)) carry that noise to ~1e-3 of the loss
-    # by the third step, with or without the kernels: the compared runs take
-    # the deterministic algorithms, so each repeats to the bit.
+    # the plain versions' pools are cuDNN's convolutions, whose default
+    # backward is not reproducible, and AdamW's first updates (about
+    # lr·sign(g)) carry that noise to ~1e-3 of the loss by the third step:
+    # the compared runs take the deterministic algorithms, so each repeats
+    # to the bit (mim_repeats holds the kernels' steps to it without them).
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     step = lambda: tr.train_step(batch, MIM_LR, MIM_WD)
@@ -1246,7 +1274,9 @@ def mim_slice(rng, card):
         assert k["loss"] > 0 and k["grad_norm"] > 0, k
         assert dl <= MIM_LOSS_REL_TOL and dn <= MIM_NORM_REL_TOL, (i, dl, dn)
         assert k["launches"] == MIM_WANT, (i, k["launches"])
+        assert k["pools"] == MIM_POOL_WANT, (i, k["pools"])
         assert not any(p["launches"].values()), p["launches"]
+        assert p["pools"] == (0, 0), p["pools"]
     det_ms = steady(steps)
     ms = timed_ms(step, iters=2, warmup=1, queued=False)
     log(f"mim slice: {MIM_CLIPS} clips of {MIM_FRAMES}x{IMG} a step on "
@@ -1260,7 +1290,226 @@ def mim_slice(rng, card):
     pool = "mvit skip max pool"
     with_patches(in_ranges(mvit._MaxPool3d, pool), profile_forward, step, ms,
                  2, "mim train step", (pool, f"{pool} backward"))
+    pools_off_cudnn(step)
+    mim_repeats(tree, batch)
     return launches, tr, batch
+
+
+def pools_off_cudnn(step):
+    """One traced mim step with cuDNN's default algorithms: cuDNN runs the
+    patch embed's convolution alone (one aten::cudnn_convolution and one
+    aten::convolution_backward a step), no kernel of the pools' old cuDNN
+    path is launched (POOL_CUDNN_KERNELS), and the pool kernels launch once
+    a block forward and three times backward; their device ms and the
+    convolution kernels' are printed by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # first session: profiler start-up
+        step()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    ops, kernels = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            ops[e.name] = ops.get(e.name, 0) + 1
+        elif not e.is_user_annotation:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += (e.time_range.end - e.time_range.start) / 1e3
+    pools = {n: v for n, v in kernels.items()
+             if n.removeprefix("void ").startswith("vt::mvit_pool")}
+    conv = {n: v for n, v in kernels.items() if n not in pools and (
+        profiling.kernel_source(n) == "cuDNN" or "conv" in n.lower()
+        or "xmma" in n.lower())}
+    log(f"mim step, traced (cuDNN default algorithms): aten::cudnn_"
+        f"convolution {ops.get('aten::cudnn_convolution', 0)}, aten::"
+        f"convolution_backward {ops.get('aten::convolution_backward', 0)} "
+        f"a step; pool kernels " + ", ".join(
+            f"{n[:40]} {c} x {ms:.3f} ms" for n, (c, ms) in pools.items())
+        + f" ({sum(v[1] for v in pools.values()):.3f} ms); convolution "
+        f"kernels " + ", ".join(f"{n[:60]} {c} x {ms:.3f} ms"
+                                for n, (c, ms) in conv.items()))
+    assert ops.get("aten::cudnn_convolution", 0) == 1, ops
+    assert ops.get("aten::convolution_backward", 0) == 1, ops
+    assert not [n for n in kernels if any(k in n for k in POOL_CUDNN_KERNELS)
+                ], conv
+    assert sum(c for c, _ in pools.values()) == 4 * MIM_POOL_WANT[0], pools
+
+
+def mim_repeats(tree, batch):
+    """Two mim steps from one state, twice, with cuDNN's default algorithms
+    (the benchmark's setting): losses, grad norms and every parameter equal
+    to the bit."""
+    runs = []
+    for _ in range(2):
+        tr = trainer_mod.VideoTransformerTrainer(mim_configs(), "cuda",
+                                                 params=tree)
+        stats = [tr.train_step(batch, MIM_LR, MIM_WD) for _ in range(2)]
+        runs.append(([(float(st["loss"]), float(st["grad_norm"]))
+                      for st in stats],
+                     {n: p.detach().clone()
+                      for n, p in tr.optimizer.params.items()}))
+        del tr
+    (a, pa), (b, pb) = runs
+    differ = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    log(f"mim steps from one state, twice (cuDNN default algorithms): "
+        f"(loss, grad_norm) {a} and {b}; parameters that differ: "
+        f"{len(differ)} of {len(pa)} {differ[:4]}")
+    assert a == b and not differ, (a, b, differ)
+
+
+def mvit_pool_blocks():
+    """(grid, C, head dim, geometry) of each block of the trainer's MaskFeat
+    at 16x224: the token grid the block sees and its pools' (kernel,
+    stride), or None, for q, k and v."""
+    model = trainer_mod.build_model(mim_configs())
+    thw, out = model.mvit.patch_embed_shape, []
+    for blk in model.mvit.blocks:
+        pools = (blk.attn.pool_q, blk.attn.pool_k, blk.attn.pool_v)
+        hd = next(p.weight.shape[0] for p in pools if p is not None)
+        out.append((thw, blk.dim, hd, tuple(
+            None if p is None else (p.kernel, p.stride) for p in pools)))
+        if blk.attn.pool_q is not None:
+            thw = mvit_pool.out_grid(thw, blk.attn.pool_q.kernel,
+                                     blk.attn.pool_q.stride)
+    return out
+
+
+def _touched(n, k, s):
+    """Positions of a length-n axis that a pool's windows read."""
+    out = (n + 2 * (k // 2) - k) // s + 1
+    return len({o * s - k // 2 + i for o in range(out) for i in range(k)}
+               & set(range(n)))
+
+
+def pool_bytes(B, thw, C, geometry):
+    """(forward, backward) bytes a block's pools must move, each once: the
+    input positions their windows read and the outputs; the whole d_qkv
+    written, the output gradients (a slice without a pool: its gradient)
+    and the input positions read."""
+    L = int(np.prod(thw))
+    fwd, bwd = 0, 2 * B * L * 3 * C
+    for g in geometry:
+        if g is None:
+            bwd += 2 * B * L * C
+            continue
+        read = 2 * B * C * int(np.prod([_touched(n, k, s) for n, k, s in zip(
+            thw, *g)]))
+        out = 2 * B * C * int(np.prod(mvit_pool.out_grid(thw, *g)))
+        fwd, bwd = fwd + read + out, bwd + read + out
+    return fwd, bwd
+
+
+def mvit_pool_phase(rng, card):
+    """The pool kernels at every block of a MaskFeat step at POOL_CLIPS
+    clips (16 calls, 34 pools), against the plain version in fp32 from the
+    same bf16 operands (the weight rounded to bf16, as the kernels round
+    it), forward and backward, each twice to the bit; timed beside the
+    plain version as the program ran it before (bf16 slices through
+    F.conv3d, forward and backward by autograd) and cuDNN's conv3d alone on
+    dense (B, C, T, H, W) operands with the tiled weight (the yardstick:
+    the port never calls it), and each direction's bound. Returns the
+    kernel report's entry."""
+    rows = []
+    for i, (thw, C, hd, geometry) in enumerate(mvit_pool_blocks()):
+        B = POOL_CLIPS
+        qkv = bf16_on_card(rng, (B, int(np.prod(thw)), 3 * C), 1.0)
+        weights = [None if g is None else torch.from_numpy(
+            rng.standard_normal((hd, 1, *g[0]), dtype=np.float32) * 0.1
+        ).to("cuda") for g in geometry]
+        pooled = [j for j, g in enumerate(geometry) if g is not None]
+        reset_counts()
+        outs = mvit_pool._launch(qkv, thw, geometry, weights)
+        again = mvit_pool._launch(qkv, thw, geometry, weights)
+        grads = [bf16_on_card(rng, o.shape, 1.0) for o in outs]
+        got = mvit_pool._launch_backward(qkv, thw, geometry, weights, grads)
+        got2 = mvit_pool._launch_backward(qkv, thw, geometry, weights, grads)
+        torch.cuda.synchronize()
+        assert read_pool_counts() == (2, 2), read_pool_counts()
+        assert all(torch.equal(outs[j], again[j]) for j in pooled), i
+        assert all(a is b or torch.equal(a, b) for a, b in zip(got, got2)), i
+        w32 = [None if w is None else w.to(torch.bfloat16).float()
+               for w in weights]
+        want = mvit_pool._forward_reference(qkv.float(), thw, geometry, w32)
+        want_b = mvit_pool._backward_reference(
+            qkv.float(), thw, geometry, w32, [g.float() for g in grads])
+        fwd_err = worst_error([outs[j] for j in pooled],
+                              [want[j] for j in pooled])
+        bwd_err = worst_error([got[0]] + [got[1 + j] for j in pooled],
+                              [want_b[0]] + [want_b[1 + j] for j in pooled])
+        del want, want_b, again, got2
+
+        def plain():
+            x = qkv.detach().requires_grad_()
+            ws = [None if w is None else w.detach().requires_grad_()
+                  for w in weights]
+            o = mvit_pool._forward_reference(x, thw, geometry, ws)
+            torch.autograd.grad(o, [x] + [w for w in ws if w is not None],
+                                grads)
+
+        dense = []
+        for j in pooled:
+            kernel, stride = geometry[j]
+            grid = mvit_pool.out_grid(thw, kernel, stride)
+            dense.append((
+                qkv[..., j * C:(j + 1) * C].reshape(B, *thw, C).permute(
+                    0, 4, 1, 2, 3).contiguous().requires_grad_(),
+                weights[j].to(torch.bfloat16).repeat(
+                    C // hd, 1, 1, 1, 1).requires_grad_(),
+                grads[j].reshape(B, *grid, C).permute(0, 4, 1, 2, 3
+                                                      ).contiguous(),
+                kernel, stride))
+
+        def library():
+            for x5, w5, dy5, kernel, stride in dense:
+                y = torch.nn.functional.conv3d(
+                    x5, w5, stride=stride, padding=[k // 2 for k in kernel],
+                    groups=C)
+                torch.autograd.grad(y, (x5, w5), dy5)
+
+        fwd_ms = timed_ms(lambda: mvit_pool._launch(
+            qkv, thw, geometry, weights), iters=10)
+        bwd_ms = timed_ms(lambda: mvit_pool._launch_backward(
+            qkv, thw, geometry, weights, grads), iters=10)
+        plain_ms = timed_ms(plain, iters=2, warmup=1)
+        library_ms = timed_ms(library, iters=2, warmup=1)
+        fwd_b, bwd_b = (n / 3.35e9 for n in pool_bytes(B, thw, C, geometry))
+        rows.append({"block": i, "grid": list(thw), "C": C, "head_dim": hd,
+                     "pools": [None if g is None else [list(g[0]), list(g[1])]
+                               for g in geometry],
+                     "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "ms": fwd_ms + bwd_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_fwd_ms": fwd_b, "bound_bwd_ms": bwd_b,
+                     "bound_ms": fwd_b + bwd_b, "fwd_err": fwd_err[1],
+                     "bwd_err": bwd_err[1]})
+        log(f"pools, block {i} ({B} clips, grid {thw}, C {C}, "
+            f"{len(pooled)} pools {[geometry[j] for j in pooled]}): "
+            f"forward {fwd_ms:.4f} ms (bound {fwd_b:.4f}, err "
+            f"{fwd_err[1]:.2e}), backward {bwd_ms:.4f} ms (bound "
+            f"{bwd_b:.4f}, err {bwd_err[1]:.2e}); plain versions in bf16 "
+            f"{plain_ms:.3f} ms, cuDNN alone {library_ms:.3f} ms, forward "
+            f"and backward")
+        assert max(fwd_err[1], bwd_err[1]) <= KERNEL_REL_TOL, rows[-1]
+        del qkv, outs, got, grads, dense
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in (
+        "fwd_ms", "bwd_ms", "ms", "plain_ms", "library_ms", "bound_fwd_ms",
+        "bound_bwd_ms", "bound_ms")}
+    log(f"pools, a MaskFeat step at {POOL_CLIPS} clips on {card}: "
+        f"kernels {total['ms']:.3f} ms (forward {total['fwd_ms']:.3f}, "
+        f"backward {total['bwd_ms']:.3f}) against the bound "
+        f"{total['bound_ms']:.3f} ms "
+        f"({100 * total['bound_ms'] / total['ms']:.1f}%), plain versions {total['plain_ms']:.3f} ms, cuDNN alone "
+        f"{total['library_ms']:.3f} ms; worst error "
+        f"{max(max(r['fwd_err'], r['bwd_err']) for r in rows):.2e}")
+    return {"name": "mvit_pool", "route": "cuda",
+            "source": "videotransformer_tpu_torch/csrc/mvit_pool.cu",
+            "replaces": None, **total,
+            "max_rel_err": max(max(r["fwd_err"], r["bwd_err"]) for r in rows),
+            "phases": rows}
 
 
 def mvit_supervised_step(rng):
@@ -1279,9 +1528,11 @@ def mvit_supervised_step(rng):
     torch.cuda.synchronize()
     launches = read_counts()
     log(f"mvit supervised step: loss {float(stats['loss']):.6f}, grad_norm "
-        f"{float(stats['grad_norm']):.6f}, launches {launches}")
+        f"{float(stats['grad_norm']):.6f}, launches {launches}, pools "
+        f"{read_pool_counts()}")
     assert np.isfinite([float(stats["loss"]), float(stats["grad_norm"])]).all()
     assert launches == MIM_WANT, launches
+    assert read_pool_counts() == MIM_POOL_WANT, read_pool_counts()
     for n, p in tr.model.decoder_pred.named_parameters():
         assert torch.equal(p, dec[n]), n
     return launches
@@ -1298,6 +1549,7 @@ def mim_forward_check(tr, batch):
         got = tr.model.forward_features(video)
         torch.cuda.synchronize()
         counts = read_counts()
+        assert read_pool_counts() == (MIM_POOL_WANT[0], 0), read_pool_counts()
         want = with_plain_versions(tr.model.forward_features, video)
     tokens = MIM_FRAMES // 2 * (IMG // 16) ** 2
     assert got.shape == (2, 1 + tokens, tr.model.embed_dims), got.shape
@@ -3797,6 +4049,11 @@ def main():
     t0 = lap("timesformer joint and space_only", t0)
     torch.cuda.empty_cache()
 
+    # ---- MViT's pools at the benchmark's batch, each block's alone (its own
+    # generator: the other paths' draws stay those of the runs before it)
+    pool_report = mvit_pool_phase(np.random.default_rng(SEED + 11), card)
+    t0 = lap("mvit pools", t0)
+
     # ---- the mim path: counts from 0 before each step (mim_slice), then
     # the supervised MViT step (counts from 0 before it)
     mim_launches, mim_trainer, mim_data = mim_slice(rng, card)
@@ -3916,6 +4173,11 @@ def main():
             "phases": phases})
         if name == "fused_prenorm_mhsa_bwd":  # B3r: of the memory path's
             kernels[-1]["launches_rebuilding_qkv"] = mem_recomputed
+    # MViT's pools: a port-only kernel (no TPU kernel), its times those of
+    # a MaskFeat step's 16 calls at POOL_CLIPS clips
+    kernels.append({**pool_report,
+                    "launches_per_mim_step": dict(zip(
+                        ("forward", "backward"), MIM_POOL_WANT))})
     log(f"data path numbers: {json.dumps(data_numbers)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))

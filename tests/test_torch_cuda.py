@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from videotransformer_tpu_torch.data import device_augment, pipeline
-from videotransformer_tpu_torch.kernels import fused_ffn, fused_mhsa
+from videotransformer_tpu_torch.kernels import fused_ffn, fused_mhsa, mvit_pool
 from videotransformer_tpu_torch.models.timesformer import TimeSformer
 from videotransformer_tpu_torch.training import trainer as trainer_mod
 
@@ -1001,3 +1001,84 @@ def test_ffn_at_tp_shard_shapes(cuda_device, tp):
         assert _rel_err(a, b) <= REL_TOL, (name, _rel_err(a, b))
     again = fused_ffn._launch_backward(*args, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# MViT's pools (kernels/mvit_pool.py) on 2 clips: MaskFeat's block kinds
+# (k/v pools at stride 8, 4 and 2, q pools at stride 2, at its widths),
+# MViT-B's stride-1 k/v pools after a third q stage, and pytorchvideo's
+# default s + 1 kernels, on grids with odd sides; (grid, C, head dim, q,
+# k/v pool as (kernel, stride) or None)
+K3, S8, S4, S2, S1 = (3, 3, 3), (1, 8, 8), (1, 4, 4), (1, 2, 2), (1, 1, 1)
+POOL_CASES = [
+    ((8, 56, 56), 96, 96, None, (K3, S8)),
+    ((8, 56, 56), 192, 96, (K3, S2), (K3, S4)),
+    ((8, 27, 29), 384, 96, (K3, S2), (K3, S2)),
+    ((8, 7, 7), 768, 96, None, (K3, S1)),
+    ((5, 29, 27), 96, 96, ((1, 3, 3), S2), ((1, 9, 9), S8)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thw,C,hd,q,kv", POOL_CASES)
+def test_mvit_pool_kernels_match_plain(cuda_device, thw, C, hd, q, kv):
+    """The pool kernels against the plain version in fp32 from the same
+    bf16 operands (the weight rounded to bf16, as the kernels round it):
+    the pooled outputs, d_qkv and each weight gradient; each twice to the
+    bit, one launch forward and one call backward."""
+    rng = np.random.default_rng(C + thw[1])
+    geometry = (q, kv, kv)
+    qkv = _bf16(rng, (2, int(np.prod(thw)), 3 * C), 1.0)
+    weights = [None if g is None else torch.from_numpy(rng.standard_normal(
+        (hd, 1, *g[0]), dtype=np.float32) * 0.1).cuda() for g in geometry]
+    n0, b0 = mvit_pool.LAUNCHES, mvit_pool.BWD_LAUNCHES
+    outs = mvit_pool._launch(qkv, thw, geometry, weights)
+    grads = [_bf16(rng, o.shape, 1.0) for o in outs]
+    got = mvit_pool._launch_backward(qkv, thw, geometry, weights, grads)
+    torch.cuda.synchronize()
+    assert (mvit_pool.LAUNCHES, mvit_pool.BWD_LAUNCHES) == (n0 + 1, b0 + 1)
+    w32 = [None if w is None else w.to(torch.bfloat16).float()
+           for w in weights]
+    want = mvit_pool._forward_reference(qkv.float(), thw, geometry, w32)
+    want_b = mvit_pool._backward_reference(qkv.float(), thw, geometry, w32,
+                                           [g.float() for g in grads])
+    for j, g in enumerate(geometry):
+        if g is not None:
+            assert outs[j].shape == want[j].shape
+            assert _rel_err(outs[j], want[j]) <= REL_TOL, j
+            assert got[1 + j].dtype == torch.float32
+            assert _rel_err(got[1 + j], want_b[1 + j]) <= REL_TOL, j
+    assert _rel_err(got[0], want_b[0]) <= REL_TOL
+    again = mvit_pool._launch(qkv, thw, geometry, weights)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+    again = mvit_pool._launch_backward(qkv, thw, geometry, weights, grads)
+    assert all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_mvit_pool_refuses_fp32_on_card(cuda_device):
+    qkv = torch.zeros(1, 7 * 7, 3 * 96, device="cuda")
+    k = ((3, 3, 3), (1, 2, 2))
+    with pytest.raises(TypeError, match="bfloat16"):
+        mvit_pool.pool_qkv(qkv, (1, 7, 7), [None] + [
+            (torch.zeros(96, 1, 3, 3, 3, device="cuda"), *k)] * 2)
+
+
+@pytest.mark.cuda
+def test_mvit_pool_takes_a_bf16_model(cuda_device):
+    """A model cast to bf16 holds bf16 pool weights: the kernels read them as
+    fp32 (exactly), and the weight gradient comes back in the weight's
+    dtype."""
+    rng = np.random.default_rng(7)
+    thw, geometry = (8, 7, 7), (None, ((3, 3, 3), (1, 2, 2)),
+                                ((3, 3, 3), (1, 2, 2)))
+    qkv = _bf16(rng, (2, 8 * 7 * 7, 3 * 96), 1.0).requires_grad_()
+    w16 = [None] + [_bf16(rng, (96, 1, 3, 3, 3), 0.1).requires_grad_()
+                    for _ in range(2)]
+    pools = [None if g is None else (w, *g) for w, g in zip(w16, geometry)]
+    got = mvit_pool.pool_qkv(qkv, thw, pools)
+    want = mvit_pool._launch(qkv.detach(), thw, geometry,
+                             [None if w is None else w.detach().float()
+                              for w in w16])
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    sum(o.float().sum() for o in got).backward()
+    assert all(w.grad.dtype == torch.bfloat16 for w in w16[1:])

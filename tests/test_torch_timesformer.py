@@ -189,7 +189,7 @@ def test_port_never_imports_jax():
                 "parallel/pp.py", "training/stacked_trainer.py",
                 "training/pp_trainer.py", "graft_entry.py",
                 "native/__init__.py", "native/videodec.py",
-                "kernels/_ops.py", "native/videoenc.py",
+                "kernels/_ops.py", "kernels/mvit_pool.py", "native/videoenc.py",
                 "tools/make_demo_assets.py"):
         assert os.path.join(port, new) in files, new
     banned = ("jax", "flax")

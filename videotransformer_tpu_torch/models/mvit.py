@@ -5,7 +5,8 @@ original repo configures them, video_transformer.py:621-800):
 
 - ``MultiScaleAttention``: fused-QKV attention whose Q, K and V are pooled
   by a depthwise Conv3d (kernel 3³, one head-dim kernel tiled over the
-  heads) and a per-head LayerNorm. The patch queries go through the flash
+  heads; ``kernels.mvit_pool``, one call for the block's three pools) and a
+  per-head LayerNorm. The patch queries go through the flash
   attention kernel (``kernels.flash_attention``, B5 forward and B6
   backward); the single cls query row is plain math, as mvit.py:256-267.
   Each branch scales as the JAX one does: the kernel scales the scores, the
@@ -42,10 +43,11 @@ Module and parameter names are pytorchvideo's, those of
 the pooling convs keep the (head_dim, 1, k, k, k) weight. The working type
 is the activations' dtype; fp32 parameters are cast to it at each use.
 LayerNorms outside the kernels take fp32 statistics and round to the working
-type, as flax's do. The convolutions and max pools are library calls
-(cuDNN on the card), as they were XLA convolutions outside Pallas in the JAX
-package; the max pools' backward is written out (``_MaxPool3d``) so that it
-adds in a fixed order.
+type, as flax's do. The pooling convolutions, XLA convolutions outside
+Pallas in the JAX package, are hand-written kernels on the card
+(``kernels.mvit_pool``) that read the fused qkv activation in place; the
+max pools are library calls whose backward is written out (``_MaxPool3d``)
+so that it adds in a fixed order.
 """
 
 import math
@@ -55,7 +57,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from videotransformer_tpu_torch.kernels import flash_attention, fused_ffn
+from videotransformer_tpu_torch.kernels import (
+    flash_attention, fused_ffn, mvit_pool)
 from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.parallel import mesh as _mesh
 
@@ -149,9 +152,10 @@ def _maxpool3d(x, kernel, stride, padding):
 
 
 class _PoolConv(nn.Module):
-    """Depthwise Conv3d(C, C, k, s, k // 2, groups=C, bias=False) over all C
-    = heads · head_dim channels, with pytorchvideo's (head_dim, 1, k, k, k)
-    weight tiled over the heads (mvit.py:82-116)."""
+    """The weight of a depthwise Conv3d(C, C, k, s, k // 2, groups=C,
+    bias=False) over all C = heads · head_dim channels: pytorchvideo's
+    (head_dim, 1, k, k, k), tiled over the heads (mvit.py:82-116). The
+    block's pools run together in ``kernels.mvit_pool.pool_qkv``."""
 
     def __init__(self, head_dim, kernel, stride):
         super().__init__()
@@ -162,12 +166,8 @@ class _PoolConv(nn.Module):
     def reset_parameters(self, generator):
         init.trunc_normal_(self.weight, generator, std=0.02)
 
-    def forward(self, x):
-        """x (B, C, T, H, W) -> (B, C, T', H', W')."""
-        C = x.shape[1]
-        w = self.weight.to(x.dtype).repeat(C // self.weight.shape[0], 1, 1, 1, 1)
-        return F.conv3d(x, w, stride=self.stride,
-                        padding=[k // 2 for k in self.kernel], groups=C)
+    def geometry(self):
+        return self.weight, self.kernel, self.stride
 
 
 def _pool_or_none(head_dim, kernel, stride):
@@ -215,18 +215,14 @@ class MultiScaleAttention(nn.Module):
         return layer_norm(t.reshape(B, n, self.num_heads, -1), norm
                           ).reshape(B, n, C)
 
-    def _pool(self, cls_tok, t, thw, pool, norm):
-        """pytorchvideo _attention_pool in split-cls layout (mvit.py:146-173):
-        the conv over the patch tokens, then the per-head LayerNorm of the
-        patch and cls tokens apart."""
-        if pool is None:
-            return cls_tok, t, thw
-        B, L, C = t.shape
-        u = pool(t.reshape(B, *thw, C).permute(0, 4, 1, 2, 3))
-        new_thw = tuple(u.shape[2:])
-        u = u.permute(0, 2, 3, 4, 1).reshape(B, -1, C)
+    def _norms(self, cls_tok, t, norm):
+        """The per-head LayerNorm of a pooled slice's patch and cls tokens
+        apart (pytorchvideo _attention_pool in split-cls layout,
+        mvit.py:146-173); a slice without a pool keeps both as they are."""
+        if norm is None:
+            return cls_tok, t
         return (None if cls_tok is None else self._per_head_norm(cls_tok, norm),
-                self._per_head_norm(u, norm), new_thw)
+                self._per_head_norm(t, norm))
 
     def _heads(self, t):
         """(B, N, C) -> (B, heads, N, head_dim), contiguous for the kernel."""
@@ -243,12 +239,14 @@ class MultiScaleAttention(nn.Module):
         qkv = linear(x, self.qkv)
         qkv_cls = None if x_cls is None else linear(x_cls, self.qkv)
         part = lambda t, i: None if t is None else t[..., i * C:(i + 1) * C]
-        q_cls, q, q_thw = self._pool(part(qkv_cls, 0), part(qkv, 0), thw,
-                                     self.pool_q, self.norm_q)
-        k_cls, k, _ = self._pool(part(qkv_cls, 1), part(qkv, 1), thw,
-                                 self.pool_k, self.norm_k)
-        v_cls, v, _ = self._pool(part(qkv_cls, 2), part(qkv, 2), thw,
-                                 self.pool_v, self.norm_v)
+        pools = (self.pool_q, self.pool_k, self.pool_v)
+        q, k, v = mvit_pool.pool_qkv(qkv, thw, [
+            None if p is None else p.geometry() for p in pools])
+        q_thw = thw if self.pool_q is None else mvit_pool.out_grid(
+            thw, self.pool_q.kernel, self.pool_q.stride)
+        q_cls, q = self._norms(part(qkv_cls, 0), q, self.norm_q)
+        k_cls, k = self._norms(part(qkv_cls, 1), k, self.norm_k)
+        v_cls, v = self._norms(part(qkv_cls, 2), v, self.norm_v)
         # the cls key and value join the pooled ones, in the reference's
         # [cls, pooled] order
         if k_cls is not None:

@@ -37,7 +37,6 @@ import torch
 from vtbench import compare, devices, harness, seeds, tracing
 from vtbench.drivers import prebuild_kernels
 from vtbench.reference import augment, precision
-from vtbench.reference import timesformer as ref_model
 from vtbench.spans import Spans
 
 KERNELS = ("fused_mhsa", "fused_ffn")
@@ -96,10 +95,9 @@ def manifest(cfg):
 
 
 def program_files(cell):
-    """The cell's exported programs, one a bucket, exported into the
-    checkout's cache on the first run there."""
-    from videotransformer_tpu_torch.models.timesformer import TimeSformer
-    from videotransformer_tpu_torch.ops.blocks import ClassificationHead
+    """The cell's exported programs, one a bucket, of the model and head
+    its adapter builds, exported into the checkout's cache on the first
+    run there."""
     from videotransformer_tpu_torch.serving.export import export_program
 
     cfg = cell.config
@@ -110,14 +108,7 @@ def program_files(cell):
     if all(os.path.exists(f) for f in files.values()):
         return files
     os.makedirs(cache, exist_ok=True)
-    model = TimeSformer(num_frames=cfg["num_frames"],
-                        img_size=cfg["img_size"],
-                        patch_size=cfg["patch_size"],
-                        embed_dims=cfg["embed_dims"],
-                        num_heads=cfg["num_heads"],
-                        num_transformer_layers=cfg["num_transformer_layers"],
-                        attention_type=cfg["attention_type"])
-    head = ClassificationHead(cfg["num_class"], cfg["embed_dims"])
+    model, head = cell.model.serving_model(cfg)
     m = manifest(cfg)
     for b, path in files.items():
         program = export_program(
@@ -141,7 +132,8 @@ def load_predictor(cell, seed, device):
     loaded = {b: load_program(f, device)
               for b, f in program_files(cell).items()}
     (dtype,) = {dt for _, dt in loaded.values()}
-    weights = seeds.make_weights(seed, ref_model.param_specs(cfg), device)
+    weights = seeds.make_weights(
+        seed, cell.model.reference.param_specs(cfg), device)
     model_sd = {n[len("model."):]: w for n, w in weights.items()
                 if n.startswith("model.")}
     head_sd = {n[len("cls_head."):]: w for n, w in weights.items()
@@ -308,9 +300,9 @@ def sample(seed, served, n):
 def reference_logits(cell, seed, device, pool_indices, ops, weights=None):
     """The reference's crop-mean logits of the pool clips ``pool_indices``
     (n, classes), float32."""
-    cfg = cell.config
-    weights = weights or seeds.make_weights(
-        seed, ref_model.param_specs(cfg), device)
+    cfg, ref = cell.config, cell.model.reference
+    weights = weights or seeds.make_weights(seed, ref.param_specs(cfg),
+                                            device)
     out = []
     with torch.no_grad(), precision.no_tf32():
         for i in pool_indices:
@@ -318,7 +310,7 @@ def reference_logits(cell, seed, device, pool_indices, ops, weights=None):
             crops = augment.three_crop(raw, cfg["img_size"],
                                        cfg["augment"]["mean"],
                                        cfg["augment"]["std"])
-            lg = ref_model.logits(weights, crops, cfg, ops)
+            lg = ref.logits(weights, crops, cfg, ops)
             out.append(lg.reshape(1, -1, lg.shape[-1]).mean(1))
     return torch.cat(out)
 

@@ -46,16 +46,6 @@ KERNELS = ("fused_mhsa", "fused_mhsa_bwd", "fused_ffn", "fused_ffn_bwd",
 CHECKED_STEPS = 3
 
 
-def reference_module(cfg):
-    if cfg["model"] == "timesformer":
-        from vtbench.reference import timesformer
-        return timesformer
-    if cfg["model"] == "maskfeat_mvit":
-        from vtbench.reference import mvit
-        return mvit
-    raise ValueError(cfg["model"])
-
-
 def step_seed(seed):
     """The seed the trainer's per-step generator starts from."""
     return seeds.derive(seed, "steps") % (1 << 62)
@@ -122,7 +112,7 @@ def host_pool(cell, seed, rank, device):
 def load_weights(trainer, cell, seed, device):
     """The benchmark's weights into the trainer's parameters; refuses a
     program whose parameters are not the configuration's."""
-    specs = reference_module(cell.config).param_specs(cell.config)
+    specs = cell.model.reference.param_specs(cell.config)
     params = trainer.optimizer.params
     mine = {n: tuple(p.shape) for n, p in params.items()}
     want = {n: tuple(s) for n, (s, _, _) in specs.items()}
@@ -303,8 +293,7 @@ def reference_record(cell, seed, device, ops, world, betas=(0.9, 0.999),
     over them, the draws made for the smaller batch, as the program would
     make them); "no_exchange", rank 0's step on its own share of the
     gradient, never summed with the other ranks'."""
-    cfg, tr = cell.config, cell.traffic
-    ref = reference_module(cfg)
+    cfg, tr, ref = cell.config, cell.traffic, cell.model.reference
     specs = ref.param_specs(cfg)
     params = {n: t.clone().requires_grad_()
               for n, t in seeds.make_weights(seed, specs, device).items()}

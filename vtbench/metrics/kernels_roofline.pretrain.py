@@ -1,4 +1,5 @@
-"""B1-B6's bound time over their traced device time, in %."""
+"""The hand-written kernels' bound time (B2, B4-B6 and MViT's pools, by
+the model adapter's counts) over their traced device time, in %."""
 
 from vtbench import readers
 

@@ -1,6 +1,7 @@
 """What the per-layer metric readers share: the grouping of device
 operations by the code they come from, and the kernels' roofline and the
-step's share of the peak from the frozen counts.
+step's share of the peak from the frozen counts, which the cell's model
+adapter gives (``vtbench/models/``).
 
 ``category`` is a frozen copy of ``utils/profiling.py::category`` of the
 port (the program may change; the yardstick may not)."""
@@ -35,15 +36,16 @@ def device_ms_per_step(run, cat):
 
 
 def kernel_bound_s(run):
-    """Least time of the traced window's B1-B6 calls, by the frozen
-    counts: a train step's calls per traced step, or each served
+    """Least time of the traced window's hand-written kernel calls, by the
+    frozen counts: a train step's calls per traced step, or each served
     forward's at its bucket."""
-    cfg, w = run.cell.config, run.work
+    cfg, w, calls = run.cell.config, run.work, run.cell.model.kernel_calls
     if "buckets" in w:
         crops = cfg["serving"]["n_crops"]
-        return sum(counts.total_bound_s(counts.kernel_calls(
-            cfg, b * crops, backward=False)) for b in w["buckets"])
-    per_step = counts.total_bound_s(counts.kernel_calls(
+        return sum(counts.total_bound_s(calls(cfg, b * crops,
+                                              backward=False))
+                   for b in w["buckets"])
+    per_step = counts.total_bound_s(calls(
         cfg, w["clips_per_card"] // w["steps"], backward=True))
     return per_step * w["steps"]
 
@@ -65,12 +67,12 @@ def mfu(run):
     or three forwards a clip stepped (no recompute), per card."""
     if run.trace is None or not run.trace.window_s:
         return None
-    cfg, w = run.cell.config, run.work
+    cfg, w, fwd_flops = run.cell.config, run.work, run.cell.model.fwd_flops
     if "requests_done" in w:
-        flops = w["requests_done"] * counts.fwd_flops(
-            cfg, cfg["serving"]["n_crops"])
+        flops = w["requests_done"] * fwd_flops(cfg,
+                                               cfg["serving"]["n_crops"])
     else:
-        flops = 3 * counts.fwd_flops(cfg, w["clips_per_card"])
+        flops = 3 * fwd_flops(cfg, w["clips_per_card"])
     if flops <= 0:
         return None
     return 100.0 * flops / (run.trace.window_s * counts.PEAK_BF16_FLOPS)

@@ -27,19 +27,66 @@ The step's only draws are the augment's (RandomResizedCrop scale
 import torch
 import torch.nn.functional as F
 
-from vtbench import counts
 from vtbench.reference import augment, hog
 
 EPS = 1e-6
 
 
+def _round_width(width, multiplier, min_width=1, divisor=1):
+    """pytorchvideo's round_width (models/mvit.py of the port)."""
+    if not multiplier:
+        return width
+    width *= multiplier
+    min_width = min_width or divisor
+    out = max(min_width, int(width + divisor / 2) // divisor * divisor)
+    if out < 0.9 * width:
+        out += divisor
+    return int(out)
+
+
 def blocks(cfg):
-    """``counts.mvit_blocks`` with each block's q-pool flag."""
-    strided = {e[0] for e in cfg["pool_q_stride_size"]}
-    out = counts.mvit_blocks(cfg)
-    for i, b in enumerate(out):
-        b["pool_q"] = i in strided
+    """MViT-B's block schedule (``build_mvit_block_configs`` of the port,
+    for the q-pool stages and adaptive kv stride of the configuration):
+    one dict per block with dim, dim_out, heads, stride_q, stride_kv,
+    whether Q is pooled (``pool_q``), and the (T, H, W) of its input
+    tokens."""
+    depth = cfg["depth"]
+    dim_mul = [1.0] * (depth + 1)
+    head_mul = [1.0] * (depth + 1)
+    for i, m in cfg["embed_dim_mul"]:
+        dim_mul[i] = m
+    for i, m in cfg["atten_head_mul"]:
+        head_mul[i] = m
+    stride_q = [None] * depth
+    for entry in cfg["pool_q_stride_size"]:
+        stride_q[entry[0]] = list(entry[1:])
+    kv = list(cfg["pool_kv_stride_adaptive"])
+    stride_kv = []
+    for i in range(depth):
+        if stride_q[i]:
+            kv = [max(kv[d] // stride_q[i][d], 1) for d in range(3)]
+        stride_kv.append(list(kv))
+    st = cfg["conv_patch_embed_stride"]
+    thw = [cfg["num_frames"] // st[0], cfg["img_size"] // st[1],
+           cfg["img_size"] // st[2]]
+    heads, dim = cfg["num_heads"], cfg["patch_embed_dim"]
+    out = []
+    for i in range(depth):
+        heads = _round_width(heads, head_mul[i], min_width=1, divisor=1)
+        dim = _round_width(dim, dim_mul[i], divisor=heads)
+        dim_out = _round_width(dim, dim_mul[i + 1],
+                               divisor=_round_width(heads, head_mul[i + 1]))
+        sq = stride_q[i] or [1, 1, 1]
+        out.append(dict(dim=dim, dim_out=dim_out, heads=heads, stride_q=sq,
+                        stride_kv=stride_kv[i], pool_q=bool(stride_q[i]),
+                        thw=tuple(thw)))
+        thw = pooled(thw, sq)
     return out
+
+
+def pooled(thw, stride):
+    # Conv3d with kernel 3, padding 1: ceil(n / s) for stride s
+    return [(n - 1) // s + 1 for n, s in zip(thw, stride)]
 
 
 def param_specs(cfg):

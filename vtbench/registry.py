@@ -1,7 +1,8 @@
 """Find a cell's pieces by name: BENCHMARK.json's entries, the
-configuration file, the traffic file, the driver and the per-layer metric
-readers. Nothing here names a cell, a configuration, a mix or a metric:
-a later change adds them as files and entries."""
+configuration file, the model's adapter, the traffic file, the driver and
+the per-layer metric readers. Nothing here names a cell, a configuration,
+a model, a mix or a metric: a later change adds them as files and
+entries."""
 
 import importlib
 import importlib.util
@@ -25,6 +26,7 @@ class Cell:
     end_to_end: list = field(default_factory=list)
     per_layer: list = field(default_factory=list)
     root: str = "."
+    model: object = None  # the configuration's adapter (``model``)
 
 
 def read_json(path):
@@ -64,11 +66,12 @@ def cell(root, name):
            if m.get("workloads") is None or name in m["workloads"]]
     names = {m["name"] for m in e2e}
     layers = [m for m in bench["per_layer"] if _for_cell(m, name, names)]
+    config = read_json(os.path.join(root, conf["file"]))
     return Cell(name=name, config_name=entry["config"],
                 traffic_name=entry["traffic"], chips=int(entry["chips"]),
-                config=read_json(os.path.join(root, conf["file"])),
-                traffic=traffic(root, entry["traffic"]), end_to_end=e2e,
-                per_layer=layers, root=root)
+                config=config, traffic=traffic(root, entry["traffic"]),
+                end_to_end=e2e, per_layer=layers, root=root,
+                model=model(root, config["model"]))
 
 
 def traffic(root, name):
@@ -81,13 +84,27 @@ def driver(name):
     return importlib.import_module(f"vtbench.drivers.{name}")
 
 
-def metric_reader(root, name):
-    """``read`` of ``vtbench/metrics/<name>.py`` under ``root``."""
-    path = os.path.join(root, "vtbench", "metrics", f"{name}.py")
+def _load(root, kind, name, what):
+    """The module ``vtbench/<kind>/<name>.py`` under ``root``, loaded from
+    its file (so a checkout's own files are found, not the imported
+    package's)."""
+    path = os.path.join(root, "vtbench", kind, f"{name}.py")
     if not os.path.exists(path):
-        raise CheckoutError(f"{path}: no reader for metric {name!r}")
+        raise CheckoutError(f"{path}: no {what} {name!r}")
     spec = importlib.util.spec_from_file_location(
-        "vtbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"vtbench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def model(root, name):
+    """The adapter ``vtbench/models/<name>.py`` under ``root`` of a
+    configuration's ``model`` (``vtbench/models/__init__.py`` says what it
+    exposes)."""
+    return _load(root, "models", name, "adapter for model")
+
+
+def metric_reader(root, name):
+    """``read`` of ``vtbench/metrics/<name>.py`` under ``root``."""
+    return _load(root, "metrics", name, "reader for metric").read

@@ -109,7 +109,8 @@ def test_a_checkout_of_the_benchmark_alone_fails(tmp_path):
 
 def test_nothing_loads_jax_or_the_jax_package():
     code = ("import sys, vtbench.run, vtbench.harness, vtbench.drivers.train,"
-            " vtbench.drivers.serve, vtbench.calibrate, vtbench.sweep;"
+            " vtbench.drivers.serve, vtbench.calibrate, vtbench.sweep,"
+            " vtbench.models.timesformer, vtbench.models.maskfeat_mvit;"
             " from vtbench import harness;"
             " print(harness.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -136,3 +137,99 @@ def test_a_tiny_cell_runs_correct(tiny_root, on_cpu, cell, trace):
     else:
         assert metrics["setup_s"]["value"] > 0
         assert len(metrics) == 2
+
+
+TWIN_ADAPTER = '''"""A third model, added as files: TimeSformer under another name, its
+reference this checkout's ``reference/tsf_twin.py`` and its counts
+TimeSformer's."""
+
+import importlib.util
+import os
+
+from vtbench.models.timesformer import fwd_flops, kernel_calls  # noqa: F401
+
+_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                     "reference", "tsf_twin.py")
+_spec = importlib.util.spec_from_file_location("tsf_twin_reference", _path)
+reference = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(reference)
+'''
+TWIN_REFERENCE = '''"""The twin's plain reference: the tiny TimeSformer's."""
+
+from vtbench.reference.timesformer import (  # noqa: F401
+    logits, param_specs, train_draws, train_loss)
+'''
+
+
+def _tree(root):
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def test_a_model_added_as_files_runs_correct(tmp_path, on_cpu):
+    """A configuration naming a model the harness has never seen, its
+    adapter, its reference and a cell, all new files and entries: the cell
+    runs correct through run.py, its traced metrics read through the new
+    adapter's counts, and no file that was there changes."""
+    root = tiny.make_root(str(tmp_path))
+    before = _tree(root)
+    vt = os.path.join(root, "vtbench")
+    with open(os.path.join(vt, "configs", "tiny_tsf.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="tiny_twin", model="tsf_twin")
+    files = {os.path.join("configs", "tiny_twin.json"): json.dumps(cfg),
+             os.path.join("models", "tsf_twin.py"): TWIN_ADAPTER,
+             os.path.join("reference", "tsf_twin.py"): TWIN_REFERENCE,
+             os.path.join("limits", "twin.train.json"):
+                 json.dumps(tiny.LIMITS)}
+    for rel, text in files.items():
+        os.makedirs(os.path.dirname(os.path.join(vt, rel)), exist_ok=True)
+        with open(os.path.join(vt, rel), "w") as f:
+            f.write(text)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "tiny_twin", "source": "tests",
+                             "file": "vtbench/configs/tiny_twin.json",
+                             "reduced": [], "why": "tests"})
+    bench["workloads"].append({"name": "twin.train", "config": "tiny_twin",
+                               "traffic": "tiny.train", "chips": 1,
+                               "why": "tests"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "tiny.train" in m.get("workloads", []):
+            m["workloads"].append("twin.train")
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    cell = registry.cell(root, "twin.train")
+    assert cell.model.reference.param_specs is \
+        registry.model(tiny.REPO, "timesformer").reference.param_specs
+    rc, line, _ = run_cell(root, "twin.train", trace=1)
+    assert rc == 0
+    assert line["correct"] is True and line["failed"] == 0
+    assert line["metrics"]["mfu.finetune"]["value"] > 0
+    after = _tree(root)
+    changed = sorted(p for p, data in before.items()
+                     if p != "BENCHMARK.json" and after.get(p) != data)
+    assert changed == []
+
+
+def test_an_unknown_model_is_refused_by_its_file(tmp_path, on_cpu):
+    """A configuration whose model has no adapter: registry.model names
+    the file it looked for, and a run of its cell exits as a checkout
+    fault, printing no result."""
+    root = tiny.make_root(str(tmp_path))
+    want = os.path.join("vtbench", "models", "no_such_model.py")
+    with pytest.raises(registry.CheckoutError, match=want):
+        registry.model(root, "no_such_model")
+    path = os.path.join(root, "vtbench", "configs", "tiny_tsf.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    with open(path, "w") as f:
+        json.dump(dict(cfg, model="no_such_model"), f)
+    rc, line, lines = run_cell(root, "tiny.train")
+    assert rc == harness.EXIT_CHECKOUT and line is None and lines == []

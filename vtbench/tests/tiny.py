@@ -1,7 +1,7 @@
 """A checkout of the benchmark at tiny sizes, for the tests on the CPU.
 
 ``make_root`` copies the benchmark's data files (configurations, mixes,
-limits, metric readers) into a directory and adds tiny configurations and
+limits, metric readers, model adapters) into a directory and adds tiny configurations and
 cells beside them, without touching the real ones: the harness finds the
 tiny pieces by name, as a later change would add its own. ``prepare``
 points the harness at the CPU and the trainer's ``build_model`` at the
@@ -39,7 +39,7 @@ def make_root(root):
     tiny.mim and tiny.dp (4 ranks)."""
     vt = os.path.join(root, "vtbench")
     os.makedirs(vt, exist_ok=True)
-    for d in ("metrics", "traffic", "configs", "limits"):
+    for d in ("metrics", "traffic", "configs", "limits", "models"):
         shutil.copytree(os.path.join(REPO, "vtbench", d),
                         os.path.join(vt, d), dirs_exist_ok=True)
     conf = lambda n: _read(os.path.join(REPO, "vtbench", "configs", n))

@@ -51,6 +51,7 @@ from videotransformer_tpu_torch.ops.blocks import (
     PatchEmbed, TransformerContainer, last_selfattention)
 from videotransformer_tpu_torch.parallel import mesh as _mesh
 from videotransformer_tpu_torch.parallel import sp as _sp
+from videotransformer_tpu_torch.utils import profiling
 
 FINAL_LN_EPS = 1e-6
 ATTENTION_TYPES = ("fact_encoder", "joint_space_time", "divided_space_time")
@@ -143,9 +144,12 @@ class ViViT(nn.Module):
         """(b, t, c, h, w) clip in the working type -> (b, d) features;
         ``generator`` feeds DropPath in training mode. With
         ``return_attention``: the last attention weights (fp32), of the
-        temporal stack for fact_encoder."""
+        temporal stack for fact_encoder. While a profiler session is
+        active ``prepare_tokens`` records the span ``vivit.embed``
+        (``utils/profiling.py``), with its device time on a card."""
         b = x.shape[0]
-        x = self.prepare_tokens(x)
+        with profiling.span("vivit.embed", device=x.device):
+            x = self.prepare_tokens(x)
         if self.attention_type != "fact_encoder":
             x = self.transformer_layers(x, generator, return_attention)
         else:

@@ -81,6 +81,7 @@ from videotransformer_tpu_torch.ops import initializers as init
 from videotransformer_tpu_torch.parallel import mesh as _mesh
 from videotransformer_tpu_torch.parallel import sp as _sp
 from videotransformer_tpu_torch.parallel import tp as _tp
+from videotransformer_tpu_torch.utils import profiling
 
 LN_EPS = 1e-5  # LayerNorm eps inside the blocks (torch's default)
 # the longest sequence the JAX package gives its fused prenorm-MHSA kernel
@@ -275,7 +276,9 @@ class JointAttention(_PrenormMHSA):
     N, hd), the projection. Under sequence parallelism in the ``tokens``
     layout, ``sp.ring_prenorm_mhsa`` over the rank's tokens, the cls row
     shared (blocks.py:475-493); in the others each rank's rows are
-    whole."""
+    whole. While a profiler session is active the unfused forward records
+    the span ``attention.unfused`` (``utils/profiling.py``), with its
+    device time on a card."""
 
     def forward(self, query, generator=None, return_attention=False):
         if return_attention:
@@ -285,7 +288,8 @@ class JointAttention(_PrenormMHSA):
             return query + self.layer_drop(out, generator)
         if query.shape[1] <= FUSED_MHSA_MAX_N:
             return query + self._prenorm_mhsa(query, generator)
-        out = self._sharded(self._unfused, query, self.norm.weight.dtype)
+        with profiling.span("attention.unfused", device=query.device):
+            out = self._sharded(self._unfused, query, self.norm.weight.dtype)
         return query + self.layer_drop(out, generator, self._clips(query))
 
     def _ring(self, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):

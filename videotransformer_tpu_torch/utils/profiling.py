@@ -20,8 +20,9 @@ torch.profiler's events:
   ops per step.
 
 And the port's own spans, recorded where the work happens (the server,
-the predictor, the trainer, the prefetch) while a ``torch.profiler``
-session is active, and at no other time:
+the predictor, the trainer, the prefetch, ViViT's embedding and joint
+attention's unfused form) while a ``torch.profiler`` session is active,
+and at no other time:
 
 - ``span(name, id=None, parent=None, device=None)``: a context manager
   around host work on one thread; ``record(name, start_ns, end_ns, ...)``

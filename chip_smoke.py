@@ -18,8 +18,8 @@ weights from a seed:
   ones over 9), each profiled;
 - TimeSformer-B's joint space-time and space-only types at 2 layers: one
   forward each at 8x224 against the plain versions, and one train step of
-  joint attention at 16 frames (3137 tokens: the unfused branch, flash
-  attention B5/B6) against the same step through the plain versions;
+  joint attention at 16 frames (3137 tokens: the fused call, B1's and B3's
+  long variant) against the same step through the plain versions;
 - MViT's pools (a generator of their own, SEED + 11): the pool kernels
   (kernels/mvit_pool.py) at each of the 16 blocks of a MaskFeat step at 32
   clips (34 pools) against their plain version in fp32, forward and
@@ -170,7 +170,11 @@ timed at ViViT-B's joint shape (8, 1569, 768), their long variant, and B5
 and B6 at the head-dim-64 long shapes (flash_bench.LONG_SHAPES: the
 16-frame joint shape (96, 3137, 3137), ViViT-B's joint (96, 1569, 1569)
 and the 448² spatial rows (2304, 785, 785)): those rows are under
-"phases" and outside the totals. The last line is
+"phases" and outside the totals. ViViT-B's joint attention at 32 frames
+(16, 3137, 768) is timed in its two forms, the fused call the model takes
+and the unfused stage (joint_forms_phase), forward and backward, in
+turns, and each form is held against the fp32 plain composition there.
+The last line is
 {"ok": true, "device": {...}}. Its phases took 178-221 s on an H100 (the
 six builds included; the data phase 22-28 s) before the checkpoint phase
 was added. B3's backward phases also
@@ -218,6 +222,7 @@ from videotransformer_tpu_torch.models import convert, mvit
 from videotransformer_tpu_torch.models.convert import split_artifact_params
 from videotransformer_tpu_torch.models.timesformer import (
     TimeSformer, get_vit_base_patch16_224)
+from videotransformer_tpu_torch.ops import blocks
 from videotransformer_tpu_torch.ops.blocks import ClassificationHead
 from videotransformer_tpu_torch.parallel import mesh as pmesh
 from videotransformer_tpu_torch.serving.export import export_predictor
@@ -286,7 +291,7 @@ LONG_SHAPE = (TRAIN_CLIPS, 1 + VIVIT_FRAMES // 2 * (IMG // 16) ** 2, D)
 LONG_LABEL = f"long joint space-time {LONG_SHAPE}"
 # TimeSformer-B's joint and space-only types at reduced depth: one forward
 # each at 8 frames, one train step of joint attention at 16 frames (1 +
-# 16·196 = 3137 tokens: the flash attention branch)
+# 16·196 = 3137 tokens: the fused call, B1 and B3 long)
 TYPES_DEPTH, TYPES_CLIPS = 2, 2
 
 
@@ -316,6 +321,104 @@ def worst_error(got, want):
         abs_err = max(abs_err, e)
         rel_err = max(rel_err, e / b.abs().max().item())
     return abs_err, rel_err
+
+
+# ViViT-B at 32x224, 16 clips a step (the benchmark's vivit_b.finetune.b16):
+# joint space-time attention over 1 + 16·196 = 3137 tokens
+JOINT32_SHAPE = (16, 1 + 16 * (IMG // 16) ** 2, D)
+
+
+def joint_fp32(mod, x):
+    """Joint attention with the residual in fp32, plain PyTorch: LayerNorm,
+    the qkv product, softmax attention, the projection."""
+    F = torch.nn.functional
+    B, N, _ = x.shape
+    a = mod.attn
+    xn = F.layer_norm(x, (D,), mod.norm.weight, mod.norm.bias, 1e-5)
+    q, k, v = F.linear(xn, a.qkv.weight, a.qkv.bias).reshape(
+        B, N, 3, a.num_heads, a.head_dim).permute(2, 0, 3, 1, 4).unbind(0)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return x + F.linear(o.transpose(1, 2).reshape(B, N, D), a.proj.weight,
+                        a.proj.bias)
+
+
+def joint_forms_phase(rng, iters=10):
+    """ViViT-B's joint attention at JOINT32_SHAPE, 12 heads of 64, fp32
+    parameters and bf16 tokens as the trainer runs it, in its two forms:
+    the fused call (B1 forward, B3 backward, both long) that the module
+    takes, and the unfused stage (LayerNorm in fp32 statistics, the qkv
+    product, the layout copies, B5/B6, the projection) it took before.
+    Device ms a call by CUDA events in turns (unfused, fused, fused,
+    unfused): the forward with autograd recording, the backward through
+    one recorded graph (every gradient); the memory autograd keeps a layer.
+    The output and each gradient of each form with the residual added as
+    the module adds it, against the fp32 plain composition (joint_fp32),
+    over max|fp32|, held to KERNEL_REL_TOL as tests/test_torch_cuda.py
+    holds them at 2 clips; the gap between the forms without the residual,
+    over max|unfused|, to twice it.
+    Returns {form: (forward ms, backward ms)}."""
+    mod = blocks.JointAttention(D, HEADS)
+    gen = torch.Generator().manual_seed(SEED)
+    mod.reset_parameters(gen)
+    with torch.no_grad():  # a LayerNorm that bf16 rounding can see
+        mod.norm.weight.add_(0.1 * torch.randn(D, generator=gen))
+        mod.norm.bias.add_(0.1 * torch.randn(D, generator=gen))
+    mod = mod.to("cuda")
+    x = bf16_on_card(rng, JOINT32_SHAPE, 1.0).requires_grad_()
+    g = bf16_on_card(rng, JOINT32_SHAPE, 1.0)
+    inputs = [x] + list(mod.parameters())
+    forms = {"fused": lambda: mod._sharded(mod._fused, x),
+             "unfused": lambda: mod._sharded(mod._unfused, x,
+                                             mod.norm.weight.dtype)}
+    fwd = {}
+    grads, kept, bwd_calls = {}, {}, {}
+    for form, call in forms.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        out = call()
+        torch.cuda.synchronize()
+        kept[form] = (torch.cuda.memory_allocated() - before) / 2**20
+        grads[form] = [out] + list(torch.autograd.grad(
+            out, inputs, g, retain_graph=True))
+        bwd_calls[form] = lambda out=out: torch.autograd.grad(
+            out, inputs, g, retain_graph=True)
+    fwd["fused"], fwd["unfused"] = in_turns(
+        forms["unfused"], forms["fused"], iters=iters, plain_iters=iters)
+    bwd = dict(zip(("fused", "unfused"), in_turns(
+        bwd_calls["unfused"], bwd_calls["fused"], iters=iters,
+        plain_iters=iters)))
+    del bwd_calls
+    xf = x.detach().float().requires_grad_()
+    out = joint_fp32(mod, xf)
+    want = [out.detach()] + list(torch.autograd.grad(
+        out, [xf] + list(mod.parameters()), g.float()))
+    del out
+    names = ["out", "x"] + [n for n, _ in mod.named_parameters()]
+    errs = {form: {n: worst_error([f], [w])[1] for n, f, w in zip(
+        names, [x.detach() + out, dx + g, *rest], want)}
+        for form, (out, dx, *rest) in grads.items()}
+    errs["gap"] = {n: worst_error([f], [u.float()])[1]
+                   for n, f, u in zip(names, grads["fused"], grads["unfused"])}
+    B, N, _ = JOINT32_SHAPE
+    fb, fb_by = fused_bench.mhsa_bound(B * N, N, D)
+    bb, bb_by = mhsa_bwd_bound(B * N, N, D)
+    log(f"joint attention {JOINT32_SHAPE}, {HEADS} heads: forward fused "
+        f"{fwd['fused']:.4f} ms ({fb / fwd['fused']:.1%} of its {fb:.4f} ms "
+        f"bound, {fb_by}), unfused {fwd['unfused']:.4f} ms; backward fused "
+        f"{bwd['fused']:.4f} ms ({bb / bwd['fused']:.1%} of its {bb:.4f} ms "
+        f"bound, {bb_by}), unfused {bwd['unfused']:.4f} ms; kept for the "
+        f"backward {kept['fused']:.1f} MiB fused, {kept['unfused']:.1f} MiB "
+        f"unfused")
+    for what, e in errs.items():
+        log(f"joint attention {JOINT32_SHAPE} "
+            + ("gap between the forms over max|unfused|" if what == "gap"
+               else f"{what} against fp32 over max|fp32|") + ": "
+            + ", ".join(f"{n} {v:.2e}" for n, v in e.items()))
+    for what, e in errs.items():
+        worst = max(e, key=e.get)
+        tol = 2 * KERNEL_REL_TOL if what == "gap" else KERNEL_REL_TOL
+        assert e[worst] <= tol, (what, worst, e[worst])
+    return {f: (fwd[f], bwd[f]) for f in forms}
 
 
 # ------------------------------------------------------------ kernel phases
@@ -1096,8 +1199,9 @@ def timesformer_types(rng, card):
     TYPES_DEPTH layers: one eval forward of each at 8 frames (TYPES_CLIPS
     clips) through the kernels against the plain versions, and one train
     step of joint attention at 16 frames (1 + 16·196 = 3137 tokens: the
-    unfused branch, flash attention B5/B6) through the kernels against the
-    same step through the plain versions. Returns the launches."""
+    fused call past FUSED_MHSA_MAX_N at head dim 64, B1 and B3 long)
+    through the kernels against the same step through the plain versions.
+    Returns the launches."""
     launches = dict.fromkeys(KERNEL_NAMES, 0)
     for kind, want in (("joint_space_time", variants(long=TYPES_DEPTH)),
                        ("space_only", variants(dense=TYPES_DEPTH))):
@@ -1138,12 +1242,13 @@ def timesformer_types(rng, card):
                 0, CLASSES, TRAIN_CLIPS)).to("cuda")}
         _, steps = run_train_steps(tree, batch, cfg, n=1)
         _, plain = with_plain_versions(run_train_steps, tree, batch, cfg, 1)
-    want = {"fused_prenorm_mhsa": 0, "fused_prenorm_ffn": TYPES_DEPTH,
-            "fused_prenorm_mhsa_bwd": 0, "fused_prenorm_ffn_bwd": TYPES_DEPTH,
-            "flash_attention": TYPES_DEPTH,
-            "flash_attention_bwd": TYPES_DEPTH}
+    want = {"fused_prenorm_mhsa": TYPES_DEPTH, "fused_prenorm_ffn": TYPES_DEPTH,
+            "fused_prenorm_mhsa_bwd": TYPES_DEPTH,
+            "fused_prenorm_ffn_bwd": TYPES_DEPTH, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     check_steps(f"TimeSformer-B joint 16x{IMG} ({TYPES_DEPTH} layers)", steps,
-                plain, want, variants(), variants())
+                plain, want, variants(long=TYPES_DEPTH),
+                variants(long=TYPES_DEPTH))
     for n in KERNEL_NAMES:
         launches[n] += steps[0]["launches"][n]
     return launches
@@ -3958,6 +4063,7 @@ def main():
         # its own generator: the main paths' weights and clips stay those
         # of the runs before the stage lines were added
         stage_phases(np.random.default_rng(SEED + 1))
+    joint_forms_phase(np.random.default_rng(SEED + 12))
     # the profiler sessions leave garbage in reference cycles: collect it
     # here rather than inside a timed step
     gc.collect()

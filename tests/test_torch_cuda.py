@@ -307,6 +307,70 @@ def test_long_rows_never_take_a_plain_version(cuda_device, monkeypatch, N, D,
     assert fused_mhsa.ATTENTION_BWD_LAUNCHES["long"] == bwd["long"] + 1
 
 
+def _joint_fp32(mod, x):
+    """Joint attention with the residual in fp32, plain PyTorch: LayerNorm,
+    the qkv product, softmax attention, the projection."""
+    F = torch.nn.functional
+    B, N, D = x.shape
+    a, hd = mod.attn, mod.attn.head_dim
+    xn = F.layer_norm(x, (D,), mod.norm.weight, mod.norm.bias, 1e-5)
+    q, k, v = F.linear(xn, a.qkv.weight, a.qkv.bias).reshape(
+        B, N, 3, a.num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return x + F.linear(o.transpose(1, 2).reshape(B, N, D), a.proj.weight,
+                        a.proj.bias)
+
+
+@pytest.mark.cuda
+def test_joint_attention_at_32_frames_takes_the_fused_call(cuda_device,
+                                                           monkeypatch):
+    """ViViT-B's joint attention over 3137 tokens (32 frames), 12 heads of
+    64, on fp32 parameters and bf16 tokens as the trainer runs it: the
+    module's fused call (B1 and B3 long, no flash call) and its unfused
+    stage (LayerNorm, products, B5/B6) each against the fp32 plain
+    composition, forward and every gradient, and against each other."""
+    from videotransformer_tpu_torch.kernels import flash_attention as fa
+    from videotransformer_tpu_torch.ops import blocks
+
+    B, N, D, H = 2, 3137, 768, 12
+    mod = blocks.JointAttention(D, H)
+    gen = torch.Generator().manual_seed(0)
+    mod.reset_parameters(gen)
+    with torch.no_grad():  # a LayerNorm that bf16 rounding can see
+        mod.norm.weight.add_(0.1 * torch.randn(D, generator=gen))
+        mod.norm.bias.add_(0.1 * torch.randn(D, generator=gen))
+    mod = mod.to(cuda_device)
+    rng = np.random.default_rng(N)
+    x, g = _bf16(rng, (B, N, D), 1.0), _bf16(rng, (B, N, D), 1.0)
+
+    def run(fn, x):
+        x = x.detach().clone().requires_grad_()
+        mod.zero_grad()
+        out = fn(x)
+        (out.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        return [out.detach(), x.grad] + [
+            p.grad for _, p in mod.named_parameters()]
+
+    counts = (fused_mhsa.ATTENTION_LAUNCHES["long"],
+              fused_mhsa.ATTENTION_BWD_LAUNCHES["long"], fa.LAUNCHES,
+              fa.BWD_LAUNCHES)
+    fused = run(mod, x)
+    assert (fused_mhsa.ATTENTION_LAUNCHES["long"],
+            fused_mhsa.ATTENTION_BWD_LAUNCHES["long"], fa.LAUNCHES,
+            fa.BWD_LAUNCHES) == (counts[0] + 1, counts[1] + 1, *counts[2:])
+    monkeypatch.setattr(blocks, "fuses_joint", lambda N, hd: False)
+    unfused = run(mod, x)
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (counts[2] + 1, counts[3] + 1)
+    want = run(lambda t: _joint_fp32(mod, t), x.float())
+    names = ["out", "dx"] + [n for n, _ in mod.named_parameters()]
+    for name, f, u, w in zip(names, fused, unfused, want):
+        assert f.shape == u.shape == w.shape, name
+        assert _rel_err(f, w) <= REL_TOL, (name, _rel_err(f, w))
+        assert _rel_err(u, w) <= REL_TOL, (name, _rel_err(u, w))
+        assert _rel_err(f, u.float()) <= REL_TOL, (name, _rel_err(f, u.float()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("save", [False, True])
 @pytest.mark.parametrize("M,D,eps", [

@@ -2,16 +2,19 @@
 CPU: ``JointAttention`` on each of its branches, and TimeSformer's
 ``joint_space_time`` and ``space_only`` types.
 
-``JointAttention`` (D 64) at N = 9 (4 heads), N = 197 (4 heads) and N =
-2100 (2 heads, head dim 32): up to 2048 tokens the port makes one fused
-prenorm-MHSA call (B1, B3 on the card), above it the unfused form with
-flash attention (B5, B6), as the JAX package does. The JAX package sends
-N < 64 to a VPU path that is not ported; the port sends N = 9 (the ViViT
-fact_encoder's temporal stack) to B1/B3 as well, and on the card B1 takes
-its dense variant there and B3 its CUDA-core one. On the CPU every branch
-runs the kernels' plain versions and the JAX modules their XLA path; both
-start from the same numpy parameters, carried across by the port's
-converter.
+``JointAttention`` (D 64) at N = 9 (4 heads), N = 197 (4 heads), N =
+2100 at head dim 32 (2 heads) and N = 2100 at head dim 64 (1 head): up to
+2048 tokens the port makes one fused prenorm-MHSA call (B1, B3 on the
+card), as the JAX package does; above it the unfused form with flash
+attention (B5, B6) at head dim 32, as the JAX package does, and the fused
+call at head dim 64, where B1's and B3's long variant run B5's and B6's
+kernels in place (the JAX package goes unfused there: it is held against
+JAX's unfused module). The JAX package sends N < 64 to a VPU path that is
+not ported; the port sends N = 9 (the ViViT fact_encoder's temporal stack)
+to B1/B3 as well, and on the card B1 takes its dense variant there and B3
+its CUDA-core one. On the CPU every branch runs the kernels' plain
+versions and the JAX modules their XLA path; both start from the same
+numpy parameters, carried across by the port's converter.
 
 Tolerances: fp32 outputs within 1e-4 · max|ref| and gradients rtol 5e-4,
 atol 5e-5 (summation order only, as tests/test_torch_kernels_bwd.py);
@@ -55,8 +58,9 @@ def _rel_err(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
 
 
-@pytest.fixture(scope="module", params=[(9, 4), (197, 4), (2100, 2)],
-            ids=["N9", "N197", "N2100-hd32"])
+@pytest.fixture(scope="module",
+                params=[(9, 4), (197, 4), (2100, 2), (2100, 1)],
+                ids=["N9", "N197", "N2100-hd32", "N2100-hd64"])
 def joint_case(request):
     """(JAX module, its params, the port's module, x) at (N, heads)."""
     N, H = request.param
@@ -70,8 +74,9 @@ def joint_case(request):
 
 
 def test_joint_attention_branches_match_jax(joint_case, monkeypatch):
-    """The forward against JAX JointAttention, through the branch its length
-    takes: the fused call up to 2048 tokens, flash attention above."""
+    """The forward against JAX JointAttention, through the branch its
+    length and head dim take: the fused call up to 2048 tokens and at head
+    dim 64, flash attention above 2048 tokens at other head dims."""
     jmod, params, port, x = joint_case
     calls = {"fused": 0, "flash": 0}
 
@@ -88,23 +93,21 @@ def test_joint_attention_branches_match_jax(joint_case, monkeypatch):
     want = np.asarray(jax.jit(jmod.apply)({"params": params}, jnp.asarray(x)))
     with torch.no_grad():
         got = port(torch.from_numpy(x)).numpy()
-    long = x.shape[1] > blocks.FUSED_MHSA_MAX_N
+    long = x.shape[1] > blocks.FUSED_MHSA_MAX_N and D // jmod.num_heads != 64
     assert calls == {"fused": int(not long), "flash": int(long)}
     assert got.shape == want.shape
     assert _rel_err(got, want) <= 1e-4
 
 
-def test_joint_attention_gradients_match_jax():
-    """At N = 197 (the fused branch): the gradients of sum(out · g) with
-    respect to x and every parameter, the port's plain backward (B3's)
-    against jax.grad of the JAX module."""
-    N, H = 197, 4
+def _gradients_match_jax(B, N, H, seed):
+    """The gradients of sum(out · g) with respect to x and every parameter,
+    the port's backward against jax.grad of the JAX module."""
     jmod = JJoint(D, H)
-    rng = np.random.RandomState(5)
-    x = rng.randn(2, N, D).astype(np.float32)
-    g = rng.randn(2, N, D).astype(np.float32)
-    params = _perturbed(jmod.init(jax.random.PRNGKey(5), jnp.asarray(x))
-                        ["params"], seed=5)
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, N, D).astype(np.float32)
+    g = rng.randn(B, N, D).astype(np.float32)
+    params = _perturbed(jmod.init(jax.random.PRNGKey(seed), jnp.asarray(x))
+                        ["params"], seed=seed)
 
     def loss(p, xx):
         return (jmod.apply({"params": p}, xx) * g).sum()
@@ -120,6 +123,25 @@ def test_joint_attention_gradients_match_jax():
     for name, p in port.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=5e-4,
                                    atol=5e-5, err_msg=name)
+
+
+def test_joint_attention_gradients_match_jax():
+    """At N = 197 (the fused branch): the port's plain backward (B3's)
+    against jax.grad of the JAX module."""
+    _gradients_match_jax(2, 197, 4, 5)
+
+
+def test_long_joint_attention_gradients_match_jax(monkeypatch):
+    """At N = 2100 and head dim 64 (the fused branch above 2048 tokens, B3's
+    long variant on the card): the port's plain backward (B3's) against
+    jax.grad of the JAX module's unfused form."""
+    calls = []
+    real = fused_mhsa.fused_prenorm_mhsa
+    monkeypatch.setattr(fused_mhsa, "fused_prenorm_mhsa",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    monkeypatch.setattr(flash_attention, "flash_attention", None)
+    _gradients_match_jax(1, 2100, 1, 6)
+    assert calls == [(1, 2100, D)]
 
 
 TINY = dict(num_frames=4, img_size=32, patch_size=16, embed_dims=D,

@@ -7,8 +7,9 @@ random weights, the benchmark's own draw (``vtbench.seeds``), over 2
 clips. At 32 frames a clip is 1 + 16 · 196 = 3137 tokens, so every joint
 attention takes the unfused branch (LayerNorm, the qkv product, flash
 attention's plain version, the projection); at 16 frames (1569 tokens)
-the fused prenorm-MHSA call's plain version runs. Both sides compute in
-float32 on the CPU.
+the fused prenorm-MHSA call's plain version runs. With 1 head of 64 (the
+published head dim) the fused call runs at 32 frames too. Both sides
+compute in float32 on the CPU.
 
 Tolerances: features and logits within 1e-5 · max|reference| + 1e-6, the
 loss within 1e-6 relative and every gradient leaf within 1e-4 · its
@@ -47,17 +48,17 @@ WIDTH = dict(embed_dims=64, num_heads=2, num_transformer_layers=2,
 CLIPS = 2
 
 
-def _config(frames):
+def _config(frames, heads=WIDTH["num_heads"]):
     with open(os.path.join(REPO, "vtbench", "configs",
                            "vivit_b16x2_joint_32x224.json")) as f:
         cfg = json.load(f)
-    cfg.update(WIDTH, num_frames=frames)
+    cfg.update(WIDTH, num_frames=frames, num_heads=heads)
     return cfg
 
 
-def _model(frames):
+def _model(frames, heads=WIDTH["num_heads"]):
     return ViViT(num_frames=frames, embed_dims=WIDTH["embed_dims"],
-                 num_heads=WIDTH["num_heads"],
+                 num_heads=heads,
                  num_transformer_layers=WIDTH["num_transformer_layers"],
                  attention_type="joint_space_time")
 
@@ -84,12 +85,11 @@ def unfused_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("frames,unfused", [(32, 2), (16, 0)])
-def test_joint_features_and_logits_match_the_reference(frames, unfused,
-                                                       unfused_calls):
-    cfg = _config(frames)
+def _features_and_logits_match(frames, heads, unfused, unfused_calls):
+    cfg = _config(frames, heads)
     w = seeds.make_weights(5, ref.param_specs(cfg), "cpu")
-    net, head = _model(frames), ClassificationHead(10, WIDTH["embed_dims"])
+    net = _model(frames, heads)
+    head = ClassificationHead(10, WIDTH["embed_dims"])
     net.load_state_dict({k[6:]: v for k, v in w.items()
                          if k.startswith("model.")})
     head.load_state_dict({k[9:]: v for k, v in w.items()
@@ -117,14 +117,25 @@ def test_joint_features_and_logits_match_the_reference(frames, unfused,
     assert (got - want).abs().max() < 1e-5 * want.abs().max() + 1e-6
 
 
-@pytest.mark.parametrize("frames", [32, 16])
-def test_a_train_step_matches_the_reference_train_loss(frames, monkeypatch):
+@pytest.mark.parametrize("frames,unfused", [(32, 2), (16, 0)])
+def test_joint_features_and_logits_match_the_reference(frames, unfused,
+                                                       unfused_calls):
+    _features_and_logits_match(frames, WIDTH["num_heads"], unfused,
+                               unfused_calls)
+
+
+def test_hd64_joint_features_and_logits_match_the_reference(unfused_calls):
+    """3137 tokens at head dim 64: the fused call in every layer."""
+    _features_and_logits_match(32, 1, 0, unfused_calls)
+
+
+def _train_step_matches(frames, heads, monkeypatch):
     from videotransformer_tpu_torch.training import trainer as ptrainer
 
-    cfg = _config(frames)
+    cfg = _config(frames, heads)
     aug = cfg["augment"]
     monkeypatch.setattr(ptrainer, "build_model", lambda c: _model(
-        c.num_frames))
+        c.num_frames, heads))
     configs = SimpleNamespace(
         objective="supervised", arch="vivit",
         attention_type="joint_space_time", num_class=10, num_frames=frames,
@@ -160,6 +171,19 @@ def test_a_train_step_matches_the_reference_train_loss(frames, monkeypatch):
         scale = float(p.grad.abs().max())
         assert (params[n].grad - p.grad).abs().max() <= \
             1e-4 * scale + 1e-7, n
+
+
+@pytest.mark.parametrize("frames", [32, 16])
+def test_a_train_step_matches_the_reference_train_loss(frames, monkeypatch):
+    _train_step_matches(frames, WIDTH["num_heads"], monkeypatch)
+
+
+def test_a_hd64_train_step_matches_the_reference_train_loss(monkeypatch,
+                                                            unfused_calls):
+    """3137 tokens at head dim 64: the fused call and its plain backward
+    (B3's) in every layer."""
+    _train_step_matches(32, 1, monkeypatch)
+    assert unfused_calls == []
 
 
 def test_the_reference_loads_neither_the_port_nor_jax():

@@ -9,9 +9,10 @@ converted state dict loads with ``strict=True``.
 The prenorm attentions and the FFN call the two fused kernels
 (``kernels.fused_mhsa``, ``kernels.fused_ffn``), forward and backward: on a
 CUDA tensor these launch the hand-written kernels, on a CPU tensor they run
-the kernels' plain versions. Joint attention over more than 2048 tokens
-takes the unfused form the JAX package takes there, its core the flash
-attention kernel (``kernels.flash_attention``).
+the kernels' plain versions. Joint attention at head dim 64 is one fused
+call at every length; at other head dims, above 2048 tokens, it takes the
+unfused form the JAX package takes there, its core the flash attention
+kernel (``kernels.flash_attention``).
 
 The working type is the activations' dtype. Every parameter is cast to it
 at its use, as the JAX package casts its fp32 parameters
@@ -85,8 +86,25 @@ from videotransformer_tpu_torch.utils import profiling
 
 LN_EPS = 1e-5  # LayerNorm eps inside the blocks (torch's default)
 # the longest sequence the JAX package gives its fused prenorm-MHSA kernel
-# (blocks.py:210-224); joint attention over more tokens goes unfused
+# (blocks.py:210-224): the TPU kernel holds a whole (N, N) score matrix in
+# VMEM. The port keeps it as the cap of joint attention at the head dims
+# whose attention stage in B1/B3 is the CUDA-core kernel, which B5/B6
+# outrun at long N (``fuses_joint``)
 FUSED_MHSA_MAX_N = 2048
+
+
+def fuses_joint(N, hd):
+    """Whether joint attention over N tokens at head dim hd is one fused
+    prenorm-MHSA call (B1 forward, B3 backward): up to FUSED_MHSA_MAX_N
+    tokens as in the JAX package, and at every length where both
+    directions' attention stage is the long variant (head dim 64, B5's and
+    B6's kernels in place on qkv, memory linear in N), where the port
+    departs from the JAX package's unfused branch: the card has no VMEM
+    cap, and the fused call folds the LayerNorm, runs qkv and the
+    projection on its own products and copies no layout."""
+    return N <= FUSED_MHSA_MAX_N or (
+        fused_mhsa.attention_variant(N, hd) == "long"
+        == fused_mhsa.attention_bwd_variant(N, hd))
 
 
 def get_sine_cosine_pos_emb(n_position, d_hid):
@@ -237,19 +255,22 @@ class _PrenormMHSA(nn.Module, _SeqLayout):
             self.norm.bias.to(ln), a.qkv.weight.to(dt), a.qkv.bias.to(dt),
             a.proj.weight.to(dt), a.proj.bias.to(dt))
 
+    def _fused(self, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+               block_diag=0):
+        """B1 over x's rows with the block's (shard's) weights."""
+        hd = self.attn.head_dim
+        # the heads of this shard, from its width (JAX blocks.py:306)
+        return fused_mhsa.fused_prenorm_mhsa(
+            x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+            w_qkv.shape[0] // (3 * hd), hd ** -0.5, LN_EPS, False,
+            block_diag)
+
     def _prenorm_mhsa(self, x, generator, block_diag=0, clips=None):
         """B1 over x's rows, then DropPath (``clips``: the rows' clips
         under sequence parallelism, ``_clips`` by default)."""
-        hd = self.attn.head_dim
-
-        def mhsa(x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):
-            # the heads of this shard, from its width (JAX blocks.py:306)
-            return fused_mhsa.fused_prenorm_mhsa(
-                x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj,
-                w_qkv.shape[0] // (3 * hd), hd ** -0.5, LN_EPS, False,
-                block_diag)
-
-        return self.layer_drop(self._sharded(mhsa, x), generator,
+        out = self._sharded(
+            lambda *a: self._fused(*a, block_diag=block_diag), x)
+        return self.layer_drop(out, generator,
                                self._clips(x) if clips is None else clips)
 
     def _weights(self, x):
@@ -267,18 +288,25 @@ class JointAttention(_PrenormMHSA):
     """Prenorm joint space-time MHSA with the residual (blocks.py:453-522):
     every token of the clip attends to every other, DropPath per sample.
 
-    Up to FUSED_MHSA_MAX_N tokens it is one fused prenorm-MHSA call (B1
-    forward, B3 backward), as in the JAX package from N = 64; the port
-    sends N < 64 there too (the fact_encoder's temporal stack, N = 9),
-    where the JAX package takes a VPU path that is not ported. Above it,
-    the JAX package's unfused ``Attention``: LayerNorm (fp32 statistics),
-    the qkv product, flash attention (B5 forward, B6 backward) on (B, H,
-    N, hd), the projection. Under sequence parallelism in the ``tokens``
-    layout, ``sp.ring_prenorm_mhsa`` over the rank's tokens, the cls row
-    shared (blocks.py:475-493); in the others each rank's rows are
-    whole. While a profiler session is active the unfused forward records
-    the span ``attention.unfused`` (``utils/profiling.py``), with its
-    device time on a card."""
+    Where ``fuses_joint`` says so it is one fused prenorm-MHSA call (B1
+    forward, B3 backward): up to FUSED_MHSA_MAX_N tokens, as in the JAX
+    package from N = 64 (the port sends N < 64 there too, the
+    fact_encoder's temporal stack, N = 9, where the JAX package takes a
+    VPU path that is not ported), and at head dim 64 at every length (32
+    frames of ViViT-B, N = 3137, where the JAX package goes unfused: its
+    cap is the TPU's VMEM, and B1/B3's long variant runs B5's and B6's
+    kernels in place, in memory linear in N). Otherwise the JAX package's
+    unfused ``Attention``: LayerNorm (fp32 statistics), the qkv product,
+    flash attention (B5 forward, B6 backward) on (B, H, N, hd), the
+    projection. The two forms differ in one rounding: the fused call
+    takes the LayerNorm's weight and bias in the working type, as every
+    fused call of the port does. Under sequence parallelism in the
+    ``tokens`` layout, ``sp.ring_prenorm_mhsa`` over the rank's tokens,
+    the cls row shared (blocks.py:475-493); in the others each rank's
+    rows are whole. While a profiler session is active the fused and the
+    unfused forward record the span ``attention.fused`` or
+    ``attention.unfused`` (``utils/profiling.py``), with its device time
+    on a card."""
 
     def forward(self, query, generator=None, return_attention=False):
         if return_attention:
@@ -286,10 +314,13 @@ class JointAttention(_PrenormMHSA):
         if self.sp > 1 and self.seq_layout == "tokens":
             out = self._sharded(self._ring, query)
             return query + self.layer_drop(out, generator)
-        if query.shape[1] <= FUSED_MHSA_MAX_N:
-            return query + self._prenorm_mhsa(query, generator)
-        with profiling.span("attention.unfused", device=query.device):
-            out = self._sharded(self._unfused, query, self.norm.weight.dtype)
+        if fuses_joint(query.shape[1], self.attn.head_dim):
+            with profiling.span("attention.fused", device=query.device):
+                out = self._sharded(self._fused, query)
+        else:
+            with profiling.span("attention.unfused", device=query.device):
+                out = self._sharded(self._unfused, query,
+                                    self.norm.weight.dtype)
         return query + self.layer_drop(out, generator, self._clips(query))
 
     def _ring(self, x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj):
